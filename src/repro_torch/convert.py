@@ -1,0 +1,75 @@
+"""Carry state saved by the JAX reference package into this package.
+
+The reference's state leaves it as plain data: ``dataclasses.asdict`` of
+its ``TechDB`` (possibly through JSON, which turns int keys into strings
+and tuples into lists), a fitted normalizer's ``(mins, medians)``
+arrays, and a Pareto archive's ``checkpoint_arrays()`` dict. Encoded
+populations are int32 arrays and pass unchanged. Nothing here imports
+the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping
+
+import numpy as np
+
+from repro_torch.core.techdb import MemorySpec, PackageSpec, ProtocolSpec, TechDB
+from repro_torch.core.templates import METRIC_FIELDS, Normalizer
+from repro_torch.pathfinding.pareto import ParetoArchive
+
+_SPECS = {"memories": MemorySpec, "packages": PackageSpec,
+          "protocols": ProtocolSpec}
+
+
+def _tuple(x):
+    return tuple(_tuple(i) for i in x) if isinstance(x, (list, tuple)) else x
+
+
+def _key(k):
+    return int(k) if isinstance(k, str) and k.lstrip("-").isdigit() else k
+
+
+def techdb_from_fields(fields: Mapping[str, Any]) -> TechDB:
+    """A :class:`TechDB` from the reference ``TechDB``'s field dict.
+
+    Nested package/protocol/memory specs may arrive as dicts; int-keyed
+    tables (per node, per array size) may arrive with string keys; and
+    sequences as lists. Unknown field names raise."""
+    names = {f.name for f in dataclasses.fields(TechDB)}
+    unknown = set(fields) - names
+    if unknown:
+        raise ValueError(f"TechDB has no fields {sorted(unknown)}")
+    kw: Dict[str, Any] = {}
+    for name, value in fields.items():
+        if name in _SPECS:
+            spec = _SPECS[name]
+            value = {k: v if isinstance(v, spec) else spec(**v)
+                     for k, v in value.items()}
+        elif isinstance(value, Mapping):
+            value = {_key(k): _tuple(v) for k, v in value.items()}
+        elif isinstance(value, (list, tuple)):
+            value = _tuple(value)
+        kw[name] = value
+    return TechDB(**kw)
+
+
+def normalizer_from_arrays(mins, medians) -> Normalizer:
+    """A :class:`Normalizer` from the reference's
+    ``Normalizer.weights_arrays()`` (METRIC_FIELDS order)."""
+    mins = np.asarray(mins, dtype=np.float64)
+    medians = np.asarray(medians, dtype=np.float64)
+    if mins.shape != (len(METRIC_FIELDS),) or medians.shape != mins.shape:
+        raise ValueError(f"expected two [{len(METRIC_FIELDS)}] arrays, got "
+                         f"{mins.shape} and {medians.shape}")
+    return Normalizer({f: float(v) for f, v in zip(METRIC_FIELDS, mins)},
+                      {f: float(v) for f, v in zip(METRIC_FIELDS, medians)})
+
+
+def archive_from_arrays(arrays: Mapping[str, np.ndarray],
+                        max_size: int = 256) -> ParetoArchive:
+    """A :class:`ParetoArchive` holding the reference archive's
+    ``checkpoint_arrays()`` contents (``enc`` int32 rows, ``vec``
+    float64 objective vectors)."""
+    return ParetoArchive(max_size=max_size).from_checkpoint_arrays(
+        {"enc": arrays["enc"], "vec": arrays["vec"]})

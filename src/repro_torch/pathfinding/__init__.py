@@ -1,0 +1,43 @@
+"""Design-space pathfinding on torch: the encoded space, the batched and
+fused evaluators, the tempering engine, the Pareto archive and the
+:class:`Pathfinder` facade (counterparts of :mod:`repro.pathfinding`)."""
+from repro_torch.pathfinding.batch import (
+    BatchEvaluator,
+    MetricsBatch,
+    evaluate_batch,
+    fit_normalizer_batched,
+    get_evaluator,
+)
+from repro_torch.pathfinding.device import (
+    DeviceEvaluator,
+    DevicePTResult,
+    get_device_evaluator,
+    propose_batch,
+)
+from repro_torch.pathfinding.pareto import (
+    FrontierFeed,
+    ParetoArchive,
+    crowding_distance,
+    hypervolume,
+    non_dominated_mask,
+    non_dominated_mask_torch,
+)
+from repro_torch.pathfinding.pathfinder import OBJECTIVES, Pathfinder
+from repro_torch.pathfinding.space import DesignSpace
+from repro_torch.pathfinding.strategies import (
+    DEFAULT_SEARCH_KEY,
+    Objective,
+    ParallelTempering,
+    SearchResult,
+    SearchStrategy,
+)
+
+__all__ = [
+    "BatchEvaluator", "MetricsBatch", "evaluate_batch",
+    "fit_normalizer_batched", "get_evaluator", "DeviceEvaluator",
+    "DevicePTResult", "get_device_evaluator",
+    "propose_batch", "FrontierFeed", "ParetoArchive", "crowding_distance",
+    "hypervolume", "non_dominated_mask", "non_dominated_mask_torch",
+    "OBJECTIVES", "Pathfinder", "DesignSpace", "DEFAULT_SEARCH_KEY",
+    "Objective", "ParallelTempering", "SearchResult", "SearchStrategy",
+]

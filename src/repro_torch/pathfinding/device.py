@@ -1,0 +1,1371 @@
+"""Device-resident pathfinding in torch: fused evaluate+cost, vectorized
+moves and the parallel-tempering engine.
+
+The torch counterpart of :mod:`repro.pathfinding.device`. Everything
+runs as float64 torch arithmetic on one ``torch.device`` passed in by
+the caller (``torch_device``; ``None`` = cuda):
+
+* :class:`DeviceEvaluator` — the fused ``evaluate_cost``: Algorithm-1
+  tile assignment (:func:`_assign`), the vectorized floorplan / BFS /
+  link topology (:func:`_topology`), the ScaleSim prefix-table gathers
+  (:func:`_gather_sims`, through the hand-written ``prefix_select`` CUDA
+  kernel on the card), the 13 metrics (:func:`_metrics`) and the Eq. 17
+  cost (:func:`_eval_cost`).
+* :func:`propose_batch` / :meth:`DeviceEvaluator.propose` — the
+  hierarchical move distribution of :func:`repro_torch.core.sa.propose`
+  applied to encoded int32 rows, drawn from the threefry stream of
+  :mod:`repro_torch.random` so the reference's proposals replay bit for
+  bit; candidates that fail :func:`_validity` keep the incumbent row.
+* :meth:`DeviceEvaluator.parallel_tempering` — propose, evaluate,
+  Metropolis accept and sequential adjacent-pair replica exchange. The
+  reference's ``lax.scan`` is a Python loop over sweeps whose carry
+  stays on the device, with the same key stream (``split(key, 4)`` per
+  sweep), so a seeded search reproduces the reference trajectory.
+
+Numerics: float64 throughout, keeping the reference's operation order
+wherever floating-point ties decide a discrete outcome (the floorplan's
+greedy accumulation order, Algorithm 1's sorted-order power summation,
+stable argsorts, first-index argmax/argmin). Scatters onto permutations
+are written as one-hot sums, which are exact and deterministic on CUDA.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, random as trandom, resolve_device
+from repro_torch.core import comm as comm_mod
+from repro_torch.core import schedule as sched_mod
+from repro_torch.core.carbon import SECONDS_PER_YEAR
+from repro_torch.core.scalesim import OPERAND_BYTES
+from repro_torch.core.techdb import DEFAULT_DB, HOURS_PER_DAY, TechDB
+from repro_torch.core.templates import Normalizer, Template
+from repro_torch.core.workload import DEFAULT_TILE, GEMMWorkload
+from repro_torch.kernels.prefix_gather import prefix_select
+from repro_torch.pathfinding.batch import (
+    MetricsBatch,
+    _SIM_METRICS,
+    get_evaluator,
+)
+from repro_torch.pathfinding.space import (
+    COL_CHIP,
+    COL_DATAFLOW,
+    COL_MEM,
+    COL_N,
+    COL_ORDER,
+    COL_PAIR25,
+    COL_PAIR3,
+    COL_SPLITK,
+    COL_STACK,
+    COL_STYLE,
+    DesignSpace,
+    S_25D,
+    S_2D,
+    S_3D,
+    S_HYBRID,
+)
+
+P_APPLICATION = 0.35  # sa.propose's application-level move probability
+
+F64 = torch.float64
+I64 = torch.int64
+
+
+@dataclasses.dataclass(frozen=True)
+class _Cfg:
+    """Static constants of one evaluator (the reference's trace-time
+    configuration)."""
+
+    C: int            # max chiplet slots
+    W: int            # encoded row width
+    A: int            # array-size options
+    T_nodes: int      # tech-node options
+    S: int            # max SRAM options
+    M: int            # memory options
+    n_pairs25: int
+    n_pairs3: int
+    n_pkg25: int
+    n_pkg3: int
+    L: int            # fixed link slots: C*(C-1)/2 plane + C-1 chain
+    T0: int           # tiles without split-K
+    T1: int           # tiles with split-K
+    wr_bits: float    # wl.M * wl.N * OPERAND_BYTES * 8
+    acost: float
+    substrate_cost_mm2: float
+    substrate_cfp_mm2: float
+    interposer_cpa: float
+    interposer_defect: float
+    interposer_wafer_cost: float
+    yield_alpha: float
+    wafer_diameter_mm: float
+    lifetime_years: float
+    use_fraction: float
+    duty_runs_per_s: float
+    router_area_frac: float           # NoC share of die mfg carbon -> C_HI
+    comm: str                         # communication model (core.comm)
+    noc_col: int                      # first NoC column (mesh_noc layouts)
+    n_mesh: int                       # len(comm.MESH_DIMS)
+    n_entry: int                      # len(comm.ENTRY_PLACEMENTS)
+    noc_hop_latency_s: float
+    noc_energy_pj_bit: float
+    # shared per-hop package latency when every protocol agrees (the
+    # bit-pinned hops * h form); None switches the hop term to the
+    # per-link-kind split using the p25_hl/p3_hl tables
+    hop_uniform: Optional[float]
+    noc_live: bool                    # NoC axes searchable (not frozen)
+    schedule: str                     # schedule model (fixed | window)
+    sched_col: int                    # first schedule column (window)
+    n_sched: int                      # schedule-shape table rows
+    sched_live: bool                  # schedule axes searchable
+
+
+def _popcount(x: torch.Tensor, bits: int) -> torch.Tensor:
+    out = torch.zeros_like(x)
+    for i in range(bits):
+        out = out + ((x >> i) & 1)
+    return out
+
+
+def _first_index(hit: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none), the
+    tie rule of ``jnp.argmax``."""
+    n = hit.shape[-1]
+    pos = torch.arange(n, device=hit.device)
+    idx = torch.where(hit, pos, n).amin(dim=-1)
+    return torch.where(idx == n, 0, idx)
+
+
+def _argmax_first(x: torch.Tensor) -> torch.Tensor:
+    return _first_index(x == x.amax(dim=-1, keepdim=True))
+
+
+def _argmin_first(x: torch.Tensor) -> torch.Tensor:
+    return _first_index(x == x.amin(dim=-1, keepdim=True))
+
+
+def _argsort(x: torch.Tensor) -> torch.Tensor:
+    return torch.argsort(x, dim=1, stable=True)
+
+
+def _scatter_perm(idx: torch.Tensor, val: torch.Tensor, C: int
+                  ) -> torch.Tensor:
+    """``zeros[P, C].at[rows, idx].add(val)`` for targets where at most
+    one value per slot is nonzero: a one-hot sum, exact in any order."""
+    slot = torch.arange(C, device=idx.device)
+    hit = idx[:, :, None] == slot[None, None, :]
+    return torch.where(hit, val[:, :, None], 0.0).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: Algorithm 1 tile assignment (port of batch._assign)
+# ---------------------------------------------------------------------------
+
+
+def _assign(powers, nmask, order, total, cfg: _Cfg):
+    C = cfg.C
+    key = torch.where((order == 0)[:, None], -powers, powers)
+    key = torch.where(nmask, key, math.inf)  # padding sorts last either way
+    pos = _argsort(key)
+    p_sorted = torch.gather(powers, 1, pos)
+    # sequential fold in sorted order: equal-power cores make the
+    # fractional parts ulp-level ties, so summation order is part of the
+    # parity contract with the scalar assigner
+    psum = torch.zeros(powers.shape[0], dtype=F64, device=powers.device)
+    for c in range(C):
+        psum = psum + p_sorted[:, c]
+    psum = torch.where(psum > 0, psum, 1.0)
+    ideal = p_sorted / psum[:, None] * total.to(F64)[:, None]
+    counts = torch.floor(ideal)
+    csum = torch.zeros_like(psum)
+    for c in range(C):
+        csum = csum + counts[:, c]
+    remaining = total.to(I64) - csum.to(I64)
+    frac = ideal - counts
+    frac_pos = _argsort(-frac)
+    rank = _argsort(frac_pos)   # exact inverse permutation
+    counts_i = counts.to(I64) + (rank < remaining[:, None]).to(I64)
+    starts = torch.cat(
+        [torch.zeros_like(counts_i[:, :1]),
+         torch.cumsum(counts_i[:, :-1], dim=1)], dim=1)
+    inv = _argsort(pos)
+    start = torch.gather(starts, 1, inv)
+    count = torch.gather(counts_i, 1, inv)
+    return start, count
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: vectorized topology (slicing floorplan, sorted-BFS routes)
+# ---------------------------------------------------------------------------
+
+
+def _topology(v, areas, tb, cfg: _Cfg):
+    C, L = cfg.C, cfg.L
+    P = v.shape[0]
+    dev = v.device
+    rows = torch.arange(P, device=dev)
+    slot = torch.arange(C, device=dev)
+
+    n = v[:, COL_N]
+    style = v[:, COL_STYLE]
+    is2d = style == S_2D
+    is25 = style == S_25D
+    is3d = style == S_3D
+    ishyb = style == S_HYBRID
+    active = slot[None, :] < n[:, None]
+
+    memtot = tb["m_bw"][torch.clamp(v[:, COL_MEM], 0, cfg.M - 1)]
+    p25i = torch.clamp(v[:, COL_PAIR25], 0, cfg.n_pairs25 - 1)
+    p3i = torch.clamp(v[:, COL_PAIR3], 0, cfg.n_pairs3 - 1)
+    p25row = tb["p25"][p25i]  # one gather for all 7 package fields
+    pitch25, y25, cfp25, scale25, rate25, eta25, ebit25 = [
+        p25row[:, i] for i in range(7)]
+    interp25 = tb["p25_interp"][p25i]
+    p3row = tb["p3"][p3i]
+    pitch3, y3, cfp3, scale3, rate3, eta3, ebit3 = [
+        p3row[:, i] for i in range(7)]
+
+    # -- 3D chain: members sorted by non-increasing area, ties by index ----
+    member = ((v[:, COL_STACK][:, None] >> slot[None, :]) & 1) == 1
+    member = torch.where(ishyb[:, None], member & active,
+                         is3d[:, None] & active)
+    chain_len = member.sum(dim=1)
+    chain_slots = _argsort(torch.where(member, -areas, math.inf))
+    a_chain = torch.gather(areas, 1, chain_slots)
+    base_slot = chain_slots[:, 0]
+    tier = torch.arange(C, device=dev)
+    tmask = (tier[None, :] >= 1) & (tier[None, :] < chain_len[:, None])
+    # Eq. 7 per bond: bumps over the (smaller) upper die's face
+    face = torch.minimum(a_chain[:, :-1], a_chain[:, 1:])
+    nb3 = torch.clamp(torch.trunc(face * 1e6 / (pitch3 * pitch3)[:, None]),
+                      min=1.0)
+    cbw = rate3[:, None] * 1e9 * nb3 * eta3[:, None]
+    bond_exists = ((torch.arange(C - 1, device=dev)[None, :] + 1
+                    < chain_len[:, None]) & (is3d | ishyb)[:, None])
+
+    # -- planar set in floorplan input order: non-members asc + base -------
+    planar_mask = active & ~member
+    porder = _argsort(torch.where(planar_mask, slot[None, :], C + 1))
+    n_nonmem = planar_mask.sum(dim=1)
+    porder = torch.where(ishyb[:, None] & (slot[None, :] == n_nonmem[:, None]),
+                         base_slot[:, None], porder)
+    m_planar = n_nonmem + ishyb.to(I64)
+    pvalid = slot[None, :] < m_planar[:, None]
+    ar_p = torch.where(pvalid, torch.gather(areas, 1, porder), 0.0)
+
+    # planar-order sequential sums (parity with Python sum())
+    tot = torch.zeros(P, dtype=F64, device=dev)
+    for j in range(C):
+        tot = tot + ar_p[:, j]
+    side = torch.sqrt(tot * (1.0 + 0.10))
+
+    # -- slicing floorplan, recursion unrolled level by level --------------
+    # the greedy iteration order (area desc, ties by input position) is
+    # invariant across levels: children receive items already sorted;
+    # per-group accumulation is pairwise same-group comparison in the
+    # exact scalar iteration order
+    sorder = _argsort(torch.where(pvalid, -ar_p, math.inf))
+    inv_sorder = _argsort(sorder)
+    a_s = torch.gather(ar_p, 1, sorder)       # sorted areas
+    v_s = torch.gather(pvalid, 1, sorder)
+    contrib = [torch.where(v_s[:, t], a_s[:, t], 0.0) for t in range(C)]
+    g = torch.zeros((P, C), dtype=I64, device=dev)
+    bx = torch.zeros((P, C), dtype=F64, device=dev)
+    by = torch.zeros((P, C), dtype=F64, device=dev)
+    bwid = side[:, None].expand(P, C)
+    bhei = side[:, None].expand(P, C)
+    zero = torch.zeros(P, dtype=F64, device=dev)
+    for level in range(max(C - 1, 1)):
+        g_s = torch.gather(g, 1, sorder)
+        # greedy pass in sorted order: left iff al <= ar of the item's
+        # group so far (prefix sums in the exact scalar iteration order)
+        left_s = []
+        for t in range(C):
+            al_t = zero
+            ar_t = zero
+            for t2 in range(t):
+                same = g_s[:, t2] == g_s[:, t]
+                al_t = al_t + torch.where(same & left_s[t2], contrib[t2], 0.0)
+                ar_t = ar_t + torch.where(same & ~left_s[t2], contrib[t2],
+                                          0.0)
+            left_s.append(al_t <= ar_t)
+        # final per-group totals / counts, accumulated per original
+        # position in the same sorted order as the scalar greedy
+        # (skipped other-group items add 0.0, which is exact)
+        frac_cols, split_cols = [], []
+        for j in range(C):
+            gj = g[:, j]
+            al_j = zero
+            ar_j = zero
+            cnt_j = torch.zeros(P, dtype=I64, device=dev)
+            for t2 in range(C):
+                same = g_s[:, t2] == gj
+                al_j = al_j + torch.where(same & left_s[t2], contrib[t2], 0.0)
+                ar_j = ar_j + torch.where(same & ~left_s[t2], contrib[t2],
+                                          0.0)
+                cnt_j = cnt_j + (same & v_s[:, t2]).to(I64)
+            den = al_j + ar_j
+            frac_cols.append(al_j / torch.where(den > 0, den, 1.0))
+            split_cols.append(cnt_j >= 2)
+        frac_j = torch.stack(frac_cols, dim=1)
+        split_j = torch.stack(split_cols, dim=1) & pvalid
+        goleft = torch.gather(torch.stack(left_s, dim=1), 1, inv_sorder)
+        if level % 2 == 0:  # vertical cut, alternating by depth
+            wl_ = bwid * frac_j
+            bx = torch.where(split_j & ~goleft, bx + wl_, bx)
+            bwid = torch.where(split_j,
+                               torch.where(goleft, wl_, bwid - wl_), bwid)
+        else:
+            hl_ = bhei * frac_j
+            by = torch.where(split_j & ~goleft, by + hl_, by)
+            bhei = torch.where(split_j,
+                               torch.where(goleft, hl_, bhei - hl_), bhei)
+        g = torch.where(split_j, g * 2 + (~goleft).to(I64), g * 2)
+    width = torch.where(pvalid, bx + bwid, -math.inf).amax(dim=1)
+    height = torch.where(pvalid, by + bhei, -math.inf).amax(dim=1)
+    bbox = width * height
+
+    # -- links in a fixed slot layout: plane pairs then chain bonds --------
+    pairs = [(j1, j2) for j1 in range(C) for j2 in range(j1 + 1, C)]
+    plane_row = is25 | ishyb
+    tol = 1e-9
+    j1v = torch.tensor([j1 for j1, _ in pairs], dtype=I64, device=dev)
+    j2v = torch.tensor([j2 for _, j2 in pairs], dtype=I64, device=dev)
+    x1, y1, w1, h1 = bx[:, j1v], by[:, j1v], bwid[:, j1v], bhei[:, j1v]
+    x2, y2, w2, h2 = bx[:, j2v], by[:, j2v], bwid[:, j2v], bhei[:, j2v]
+    cond_v = (torch.abs(x1 + w1 - x2) < tol) | (torch.abs(x2 + w2 - x1) < tol)
+    lo_v = torch.where(y1 > y2, y1, y2)
+    hi_v = torch.minimum(y1 + h1, y2 + h2)
+    edge_v = torch.where(hi_v > lo_v, hi_v - lo_v, 0.0)
+    cond_h = (torch.abs(y1 + h1 - y2) < tol) | (torch.abs(y2 + h2 - y1) < tol)
+    lo_h = torch.where(x1 > x2, x1, x2)
+    hi_h = torch.minimum(x1 + w1, x2 + w2)
+    edge_h = torch.where(hi_h > lo_h, hi_h - lo_h, 0.0)
+    edge = torch.where(cond_v, edge_v, torch.where(cond_h, edge_h, 0.0))
+    r25 = (rate25 * 1e9)[:, None]
+    e25 = eta25[:, None]
+    pit25 = pitch25[:, None]
+    bwk = r25 * torch.clamp(torch.trunc(edge * 1e3 / pit25), min=1.0) * e25
+    for aa in (ar_p[:, j1v], ar_p[:, j2v]):  # Eq. 6 endpoint perimeter cap
+        perim = 4.0 * torch.sqrt(aa)
+        bwk = torch.minimum(
+            bwk, r25 * torch.clamp(torch.trunc(perim * 1e3 / pit25), min=1.0)
+            * e25)
+    s1a = torch.cat([porder[:, j1v], chain_slots[:, :C - 1]], dim=1)
+    s2a = torch.cat([porder[:, j2v], chain_slots[:, 1:]], dim=1)
+    exa = torch.cat(
+        [plane_row[:, None] & (j2v[None, :] < m_planar[:, None])
+         & (edge > 1e-9), bond_exists], dim=1)
+    link_bw = torch.where(exa, torch.cat([bwk, cbw], dim=1), math.inf)
+    link_e = torch.where(
+        exa, torch.cat([ebit25[:, None].expand_as(bwk),
+                        ebit3[:, None].expand_as(cbw)], dim=1), 0.0)
+    # one-hot reduction instead of scatters: valid links never collide
+    # (plane links have at most one stacked endpoint — the base — while
+    # chain bonds have two), so the sum packs exact link ids
+    pm_half = ((s1a[:, :, None] == slot[None, None, :])[:, :, :, None]
+               & (s2a[:, :, None] == slot[None, None, :])[:, :, None, :]
+               & exa[:, :, None, None])                 # [P, L, C, C]
+    kplus1 = torch.arange(1, L + 1, dtype=I64, device=dev)[None, :, None,
+                                                          None]
+    lid_half = torch.sum(pm_half * kplus1, dim=1)
+    lid = lid_half + lid_half.transpose(1, 2) - 1
+    adj = lid >= 0
+
+    # -- DRAM attach: planar shares, base-die-mediated chain (Eqs. 8-10) ---
+    share = memtot[:, None] * ar_p / torch.where(tot > 0, tot, 1.0)[:, None]
+    # only hybrid rows read it, where n_nonmem < n <= C; other rows may
+    # point one past the last slot and are clamped
+    base_share = torch.gather(
+        share, 1, torch.clamp(n_nonmem, max=C - 1)[:, None])[:, 0]
+    base_bw0 = torch.where(ishyb, base_share, memtot)
+    cmin = torch.cummin(torch.where(bond_exists, cbw, math.inf), dim=1).values
+    eff_chain = torch.minimum(base_bw0[:, None], cmin)
+    plane_val = torch.where(pvalid & plane_row[:, None], share, 0.0)
+    chain_val = torch.cat(
+        [torch.where((chain_len > 0) & is3d, memtot, 0.0)[:, None],
+         torch.where(tmask[:, 1:] & (is3d | ishyb)[:, None],
+                     eff_chain, 0.0)], dim=1)
+    # porder may name the base die twice in hybrid rows, once with a
+    # 0.0 value: the one-hot sums stay exact
+    eff_bw = _scatter_perm(porder, plane_val, C) + _scatter_perm(
+        chain_slots, chain_val, C)
+    dram_val = torch.where(tmask & (is3d | ishyb)[:, None],
+                           tier[None, :] * ebit3[:, None], 0.0)
+    dram_e = _scatter_perm(chain_slots, dram_val, C)
+    eff_bw[:, 0] = torch.where(is2d, memtot, eff_bw[:, 0])
+
+    # -- reduction routes: BFS per source, queue-order tie-breaking --------
+    dest = _argmax_first(torch.where(active, areas, -1.0))
+    INF_I = 10 ** 6
+    eye = torch.eye(C, dtype=torch.bool, device=dev)[None]
+    ordv = torch.where(eye, 0, INF_I).to(I64).expand(P, C, C)
+    prev = torch.where(eye, slot[None, :, None], -1).to(I64).expand(P, C, C)
+    counter = torch.ones((P, C), dtype=I64, device=dev)
+    # step k processes the (unique) node with discovery rank k — exactly
+    # the scalar queue pop order. C-1 steps suffice: a node with rank k
+    # is found while processing rank k-1 <= C-2
+    for k in range(max(C - 1, 1)):
+        at_k = ordv == k
+        u = _first_index(at_k)
+        valid_u = at_k.any(dim=2)
+        adj_u = adj[rows[:, None], u]  # [P, src, node]
+        # expand u's neighbours in ascending slot order: discovery rank
+        # within this expansion is the exclusive prefix count of newly
+        # discovered nodes (identical to the scalar queue-append order)
+        newly = valid_u[..., None] & adj_u & (ordv == INF_I)
+        ni = newly.to(I64)
+        offs = torch.cumsum(ni, dim=2) - ni
+        prev = torch.where(newly, u[..., None], prev)
+        ordv = torch.where(newly, counter[..., None] + offs, ordv)
+        counter = counter + ni.sum(dim=2)
+
+    srcs = slot[None, :].expand(P, C)
+    route_on = (~is2d)[:, None] & active & (srcs != dest[:, None])
+    node = dest[:, None].expand(P, C)
+    hops = torch.zeros((P, C), dtype=I64, device=dev)
+    hops3 = torch.zeros((P, C), dtype=I64, device=dev)
+    n_plane = C * (C - 1) // 2  # link ids >= n_plane are 3D chain bonds
+    link_ids = torch.arange(L, device=dev)
+    inc_s = torch.zeros((P, C, L), dtype=F64, device=dev)
+    for _ in range(C - 1):
+        pu = torch.gather(prev, 2, node[..., None])[..., 0]
+        go = route_on & (node != srcs) & (pu >= 0)
+        lk = lid[rows[:, None], torch.where(go, pu, 0), node]
+        inc_s = inc_s + ((link_ids[None, None, :] == lk[..., None])
+                         & go[..., None]).to(F64)
+        hops = hops + go.to(I64)
+        if cfg.hop_uniform is None:
+            hops3 = hops3 + (go & (lk >= n_plane)).to(I64)
+        node = torch.where(go, pu, node)
+    inc = inc_s.transpose(1, 2)  # [P, link, src]
+
+    # -- bonding yield / assembly / carbon rates (Eqs. 15-16, 2) -----------
+    n_f = n.to(F64)
+    m_f = m_planar.to(F64)
+    cl_f = chain_len.to(F64)
+    bond_y = torch.where(
+        is2d, 1.0,
+        torch.where(is25, y25 ** n_f,
+                    torch.where(is3d, y3 ** (n_f - 1.0),
+                                (y25 ** m_f) * (y3 ** (cl_f - 1.0)))))
+    assembly = torch.where(
+        is2d, cfg.acost,
+        torch.where(is25, n_f * cfg.acost * scale25,
+                    torch.where(is3d, n_f * cfg.acost * scale3,
+                                m_f * cfg.acost * scale25
+                                + cl_f * cfg.acost * scale3)))
+    p3_bonded = torch.where(is3d | ishyb,
+                            cfp3 * torch.where(tmask, a_chain, 0.0).sum(dim=1),
+                            0.0)
+    pkg_area = torch.where(is2d, areas[:, 0],
+                           torch.where(is3d, a_chain[:, 0], bbox))
+    return dict(
+        eff_bw=eff_bw, dram_e=dram_e, hops=hops, hops3=hops3,
+        link_bw=link_bw, link_e=link_e, inc=inc, pkg_area=pkg_area,
+        bond_y=bond_y, assembly=assembly, interp=(is25 | ishyb) & interp25,
+        p25_rate=torch.where(is25 | ishyb, cfp25, 0.0),
+        p3_bonded=p3_bonded, is2d=is2d, dest=dest)
+
+
+# ---------------------------------------------------------------------------
+# Stage 3 + cost: the fused evaluator
+# ---------------------------------------------------------------------------
+
+
+def _gather_sims(v, a_idx, s_idx, di, start, end, tb, cfg: _Cfg):
+    """Prefix-table gathers for both split-K tables + per-row select.
+
+    The whole stage — both split-K gathers for all five sim metrics, the
+    clip to the true tile totals, the split select and the per-slot
+    segment reduction — is one :func:`~repro_torch.kernels.
+    prefix_gather.prefix_select` call: the ``prefix_select`` CUDA kernel
+    on the card, its plain torch version on the CPU."""
+    P = v.shape[0]
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    rows = i32((a_idx * cfg.S + s_idx) * 3 + di)
+    t0v = torch.full((P,), cfg.T0, dtype=torch.int32, device=v.device)
+    t1v = torch.full((P,), cfg.T1, dtype=torch.int32, device=v.device)
+    sel, _ = prefix_select(tb["pref0_flat"], tb["pref1_flat"], rows,
+                           i32(start), i32(end), i32(v[:, COL_SPLITK]),
+                           t0v, t1v)
+    sims = {f: sel[..., fi] for fi, f in enumerate(_SIM_METRICS)}
+    split1 = (v[:, COL_SPLITK] == 1)[:, None]
+    mn0 = tb["mn0"][torch.clamp(end, 0, cfg.T0)] - tb["mn0"][
+        torch.clamp(start, 0, cfg.T0)]
+    mn1 = tb["mn1"][torch.clamp(end, 0, cfg.T1)] - tb["mn1"][
+        torch.clamp(start, 0, cfg.T1)]
+    mn_bits = torch.where(split1, mn1, mn0)
+    return sims, mn_bits
+
+
+def _slots(v, tb, cfg: _Cfg):
+    """Per-slot chiplet indices, physicals and the Algorithm-1 tile
+    ranges of an encoded population (int64 ``v``)."""
+    C = cfg.C
+    P = v.shape[0]
+    slot = torch.arange(C, device=v.device)
+    n = v[:, COL_N]
+    nmask = slot[None, :] < n[:, None]
+    chip = v[:, COL_CHIP:COL_CHIP + 3 * C].reshape(P, C, 3)
+    a_idx = torch.where(nmask, chip[:, :, 0], 0)
+    t_idx = torch.where(nmask, chip[:, :, 1], 0)
+    s_idx = torch.where(nmask, chip[:, :, 2], 0)
+    cphys = tb["chiplet"][a_idx, t_idx, s_idx]  # [P, C, 4] physicals
+    areas = torch.where(nmask, cphys[:, :, 0], 0.0)
+    powers = torch.where(nmask, tb["t_power"][a_idx, t_idx], 0.0)
+    total = torch.where(v[:, COL_SPLITK] == 1, cfg.T1, cfg.T0)
+    start, count = _assign(powers, nmask, v[:, COL_ORDER], total, cfg)
+    return dict(nmask=nmask, a_idx=a_idx, t_idx=t_idx, s_idx=s_idx,
+                cphys=cphys, areas=areas, start=start, end=start + count)
+
+
+def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile):
+    """The 13 MetricsBatch tensors for an encoded population.
+
+    Mirrors the reference's ``_metrics_jax`` stage by stage. ``ci``
+    (grid intensity), ``price`` ($/kWh), ``embf`` (regional embodied
+    multiplier), ``profile`` and ``pprofile`` (24h intensity and price
+    rows) are runtime tensors; their neutral values (0.0, 1.0,
+    flat-at-ci, flat-at-price) reproduce the scalar model bit-for-bit,
+    since the corrections ``sum((profile - ci) * load)`` and
+    ``sum((pprofile - price) * load)`` are exactly +0.0 for flat rows."""
+    C = cfg.C
+    P = v.shape[0]
+    slot = torch.arange(C, device=v.device)
+    st = _slots(v, tb, cfg)
+    nmask, t_idx, cphys = st["nmask"], st["t_idx"], st["cphys"]
+    areas = st["areas"]
+    split = v[:, COL_SPLITK]
+    di = v[:, COL_DATAFLOW][:, None].expand(P, C)
+    sims, mn_bits = _gather_sims(v, st["a_idx"], st["s_idx"], di,
+                                 st["start"], st["end"], tb, cfg)
+
+    topo = _topology(v, areas, tb, cfg)
+    dest = topo["dest"]
+
+    mask = nmask
+    cyc, rd, wr = (sims["cycles"].to(F64), sims["rd"].to(F64),
+                   sims["wr"].to(F64))
+    sram_b, macs = sims["sram"].to(F64), sims["macs"].to(F64)
+    nphys = tb["node"][t_idx]  # [P, C, 4] node-scaled rates
+    freq = torch.where(mask, nphys[:, :, 0], 1.0)
+    eff_bw = topo["eff_bw"]
+    den_bw = torch.where(eff_bw > 0, eff_bw, 1.0)
+
+    # Eq. 5 term 1: max_i (L_compute,i + L_DRAM_RD,i)
+    l_comp = cyc / (freq * 1e9)
+    l_rd = torch.where(rd > 0, rd / den_bw, 0.0)
+    l_cr = torch.amax(l_comp + l_rd, dim=1)
+
+    # Eq. 5 term 2: reduction-phase D2D over shared links (Fig. 4)
+    sbits = torch.where(slot[None, :] == dest[:, None], 0.0,
+                        mn_bits.to(F64))
+    loads = torch.einsum("plc,pc->pl", topo["inc"], sbits)
+    l_link = torch.amax(loads / topo["link_bw"], dim=1)
+    # per-source path latency: package hops x per-hop latency (uniform
+    # latency reproduces the legacy hops * HOP_LATENCY_S program);
+    # heterogeneous protocol latencies split the hop count by link kind
+    mesh_on = cfg.comm == "mesh_noc"
+    if mesh_on:
+        nocv = v[:, cfg.noc_col:cfg.noc_col + 2 * C].reshape(P, C, 2)
+        mi = torch.where(nmask, nocv[:, :, 0], 0)
+        ei = torch.where(nmask, nocv[:, :, 1], 0)
+        noc_h = torch.where(nmask, tb["noc_hops"][mi, ei], 0.0)
+        noc_r = torch.where(nmask, tb["noc_routers"][mi], 1.0)
+    if cfg.hop_uniform is not None:
+        path_lat = topo["hops"].to(F64) * cfg.hop_uniform
+    else:
+        h25 = tb["p25_hl"][torch.clamp(v[:, COL_PAIR25], min=0)]
+        h3 = tb["p3_hl"][torch.clamp(v[:, COL_PAIR3], min=0)]
+        path_lat = ((topo["hops"] - topo["hops3"]).to(F64) * h25[:, None]
+                    + topo["hops3"].to(F64) * h3[:, None])
+    if mesh_on:
+        # on-chiplet mesh traversal: source egress + destination ingress
+        # mean hop counts, per NoC hop latency
+        noc_dest = torch.gather(noc_h, 1, dest[:, None])
+        pair_noc = noc_h + noc_dest
+        path_lat = path_lat + pair_noc * cfg.noc_hop_latency_s
+    hop_term = torch.amax(torch.where(sbits > 0, path_lat, 0.0), dim=1)
+    l_d2d = l_link + hop_term
+
+    # Eq. 5 term 3: DRAM write-back (split-K dependent)
+    eff_dest = torch.gather(eff_bw, 1, dest[:, None])[:, 0]
+    wr_split = cfg.wr_bits / eff_dest
+    wr_direct = torch.amax(torch.where(wr > 0, wr / den_bw, 0.0), dim=1)
+    l_wr = torch.where(split == 1, wr_split, wr_direct)
+    latency = l_cr + l_d2d + l_wr
+
+    # energy (Eqs. 12-14)
+    mem_idx = torch.clamp(v[:, COL_MEM], 0, cfg.M - 1)
+    mrow = tb["mem3"][mem_idx]  # [P, 3]: rd/wr energy + cost
+    m_rd = mrow[:, 0][:, None]
+    m_wr = mrow[:, 1][:, None]
+    sram_e = nphys[:, :, 1]
+    mac_e = nphys[:, :, 2]
+    e_comp_pj = torch.sum(rd * m_rd + wr * m_wr + sram_b * sram_e
+                          + macs * mac_e, dim=1)
+    e_mem_d2d_pj = torch.sum((rd + wr) * topo["dram_e"], dim=1)
+    e_link_pj = torch.sum(loads * topo["link_e"], dim=1)
+    if mesh_on:
+        # NoC traversal energy: routed reduction bits x mesh hops x pJ/bit
+        e_link_pj = e_link_pj + (torch.sum(sbits * pair_noc, dim=1)
+                                 * cfg.noc_energy_pj_bit)
+    e_compute_j = e_comp_pj * 1e-12
+    e_d2d_j = (e_link_pj + e_mem_d2d_pj) * 1e-12
+    static_w = torch.where(mask, cphys[:, :, 1], 0.0)
+    e_static_j = torch.sum(static_w, dim=1) * latency
+    energy = e_compute_j + e_d2d_j + e_static_j
+
+    # area, dollar cost (Eqs. 15-16)
+    area = topo["pkg_area"]
+    chip_cost = torch.sum(torch.where(mask, cphys[:, :, 2], 0.0), dim=1)
+    icost = torch.where(topo["interp"], _interposer_cost(area, cfg), 0.0)
+    package = cfg.substrate_cost_mm2 * area + topo["assembly"]
+    bond_y = topo["bond_y"]
+    active_s = cfg.lifetime_years * SECONDS_PER_YEAR * cfg.use_fraction
+    runs = cfg.duty_runs_per_s * active_s
+    # decoded duty weights: window spaces roll the gathered shape row to
+    # the per-design start hour; fixed spaces read the shared row 0
+    # (= the static load_profile values). Both branches shape the
+    # weights [P, 24], so the fixed and window programs reduce the
+    # operational products identically (the neutral schedule stays
+    # bit-invisible).
+    if cfg.schedule == "window":
+        sc = cfg.sched_col
+        s_start = v[:, sc]
+        s_shape = torch.clamp(v[:, sc + 1], 0, cfg.n_sched - 1)
+        hrs = torch.arange(HOURS_PER_DAY, device=v.device)
+        roll = (hrs[None, :] - s_start[:, None]) % HOURS_PER_DAY
+        load = torch.gather(tb["sched_tab"][s_shape], 1, roll)
+    else:
+        load = tb["sched_tab"][0][None, :].expand(P, HOURS_PER_DAY)
+    eff_price = price + torch.sum((pprofile - price) * load, dim=-1)
+    dollar = ((chip_cost + icost + package) / bond_y + mrow[:, 2]
+              + energy * runs / 3.6e6 * eff_price)
+
+    # embodied + operational CFP (Eqs. 2-3)
+    mfg_pc = torch.where(mask, cphys[:, :, 3], 0.0)
+    mfg = torch.sum(mfg_pc, dim=1)
+    des = torch.sum(torch.where(mask, nphys[:, :, 3], 0.0), dim=1)
+    icfp = torch.where(
+        topo["interp"],
+        area * cfg.interposer_cpa / _nb_yield(
+            area, cfg.interposer_defect, cfg.yield_alpha), 0.0)
+    pkg_cfp_multi = (cfg.substrate_cfp_mm2 * area
+                     + topo["p25_rate"] * area + icfp
+                     + topo["p3_bonded"]) / bond_y
+    pkg_cfp = torch.where(topo["is2d"], cfg.substrate_cfp_mm2 * area,
+                          pkg_cfp_multi)
+    if mesh_on:
+        # router carbon scales with each die's physical router count
+        # (mx * my) instead of the flat per-die share
+        pkg_cfp = pkg_cfp + cfg.router_area_frac * torch.sum(
+            mfg_pc * noc_r, dim=1)
+    else:
+        pkg_cfp = pkg_cfp + cfg.router_area_frac * mfg
+    emb = (mfg + des + pkg_cfp) * embf
+    eff_ci = ci + torch.sum((profile - ci) * load, dim=-1)
+    ope = energy * runs / 3.6e6 * eff_ci
+
+    return (latency, energy, area, dollar, emb, ope, l_cr, l_d2d, l_wr,
+            e_compute_j, e_d2d_j, torch.sum(loads, dim=1),
+            torch.sum(macs, dim=1))
+
+
+def _interposer_cost(area, cfg: _Cfg):
+    r = cfg.wafer_diameter_mm / 2.0
+    dpw = (math.pi * r * r / area
+           - math.pi * cfg.wafer_diameter_mm / torch.sqrt(2.0 * area))
+    dpw = torch.clamp(torch.trunc(dpw), min=1.0)
+    y = _nb_yield(area, cfg.interposer_defect, cfg.yield_alpha)
+    return cfg.interposer_wafer_cost / dpw / y
+
+
+def _nb_yield(area, d0: float, alpha: float):
+    return (1.0 + area * d0 / alpha) ** (-alpha)
+
+
+def _eval_cost(v, mins, medians, w, ci, price, embf, profile, pprofile,
+               tb, cfg: _Cfg):
+    """Fused metrics + Eq. 17 cost (METRIC_FIELDS column order) + the
+    ``OBJECTIVE_AXES`` vector ``(latency_s, dollar, total_cfp)``.
+
+    ``w`` is a ``[6]`` weight row or a per-row ``[P, 6]`` matrix."""
+    mets = _metrics(v, tb, cfg, ci, price, embf, profile, pprofile)
+    x = torch.stack([mets[1], mets[2], mets[0], mets[3], mets[4], mets[5]],
+                    dim=1)
+    cost = ((x - mins[None, :]) / medians[None, :]
+            * torch.atleast_2d(w)).sum(dim=1)
+    vec = torch.stack([mets[0], mets[3], mets[4] + mets[5]], dim=1)
+    return mets, cost, vec
+
+
+# ---------------------------------------------------------------------------
+# Vectorized hierarchical moves (device rendering of sa.propose)
+# ---------------------------------------------------------------------------
+
+
+def _validity(v, tb, cfg: _Cfg):
+    """Torch port of :meth:`DesignSpace.validity_mask` (int64 ``v``)."""
+    C = cfg.C
+    n = v[:, COL_N]
+    style = v[:, COL_STYLE]
+    p25, p3, stck = v[:, COL_PAIR25], v[:, COL_PAIR3], v[:, COL_STACK]
+    ok = (n >= 1) & (n <= C)
+    ok &= (style >= 0) & (style < 4)
+    ok &= (v[:, COL_MEM] >= 0) & (v[:, COL_MEM] < cfg.M)
+    ok &= (v[:, COL_ORDER] >= 0) & (v[:, COL_ORDER] <= 1)
+    ok &= (v[:, COL_DATAFLOW] >= 0) & (v[:, COL_DATAFLOW] < 3)
+    ok &= (v[:, COL_SPLITK] >= 0) & (v[:, COL_SPLITK] <= 1)
+    chip = v[:, COL_CHIP:COL_CHIP + 3 * C].reshape(-1, C, 3)
+    active = torch.arange(C, device=v.device)[None, :] < n[:, None]
+    a, t, s = chip[:, :, 0], chip[:, :, 1], chip[:, :, 2]
+    a_ok = (a >= 0) & (a < cfg.A)
+    chip_ok = (a_ok & (t >= 0) & (t < cfg.T_nodes) & (s >= 0)
+               & (s < tb["n_sram"][torch.where(a_ok, a, 0)]))
+    ok &= (chip_ok | ~active).all(dim=1)
+    if cfg.comm == "mesh_noc":
+        nocv = v[:, cfg.noc_col:cfg.noc_col + 2 * C].reshape(-1, C, 2)
+        mi, ei = nocv[:, :, 0], nocv[:, :, 1]
+        noc_ok = ((mi >= 0) & (mi < cfg.n_mesh)
+                  & (ei >= 0) & (ei < cfg.n_entry))
+        ok &= (noc_ok | ~active).all(dim=1)
+    if cfg.schedule == "window":
+        st_ = v[:, cfg.sched_col]
+        sh_ = v[:, cfg.sched_col + 1]
+        ok &= ((st_ >= 0) & (st_ < HOURS_PER_DAY)
+               & (sh_ >= 0) & (sh_ < cfg.n_sched))
+    pc = _popcount(stck, C)
+    no3d, no25, nostk = p3 == -1, p25 == -1, stck == 0
+    has25 = (p25 >= 0) & (p25 < cfg.n_pairs25)
+    has3 = (p3 >= 0) & (p3 < cfg.n_pairs3)
+    in_range = stck < (1 << torch.clamp(n, max=30))
+    ok &= torch.where(style == S_2D, (n == 1) & no25 & no3d & nostk, True)
+    ok &= torch.where(style == S_25D, (n >= 2) & has25 & no3d & nostk, True)
+    ok &= torch.where(style == S_3D, (n >= 2) & has3 & no25 & nostk, True)
+    ok &= torch.where(style == S_HYBRID,
+                      (n >= 3) & has25 & has3 & (pc >= 2) & (pc < n)
+                      & in_range & (stck >= 0), True)
+    return ok
+
+
+def _propose(key, v, tb, cfg: _Cfg):
+    """One hierarchical move per encoded row (int64 ``v``), mirroring the
+    level/branch distribution of :func:`repro_torch.core.sa.propose`.
+
+    Every draw of the sweep comes from one threefry pass
+    (``uniform(key, (31 + C, P))``: row i is the i-th logical stream,
+    uniform ints are ``floor(u * m)``); the mesh-NoC and window-schedule
+    levels read their own ``fold_in(key, 7)`` / ``fold_in(key, 8)``
+    side-streams, so the legacy draws are the same whichever levels
+    exist. Chiplet redraw-until-different uses two resamples. Rows whose
+    candidate fails validity keep the incumbent."""
+    C = cfg.C
+    P = v.shape[0]
+    dev = v.device
+    slot = torch.arange(C, device=dev)
+    mesh = cfg.comm == "mesh_noc"
+    win = cfg.schedule == "window"
+    U = trandom.uniform(key, (31 + C, P))
+
+    def uni(i):
+        return U[i]
+
+    def ri(i, maxv):
+        return torch.floor(U[i] * maxv).to(I64)
+
+    n = v[:, COL_N]
+    style = v[:, COL_STYLE]
+    mem = v[:, COL_MEM]
+    order = v[:, COL_ORDER]
+    df = v[:, COL_DATAFLOW]
+    sk = v[:, COL_SPLITK]
+    p25 = v[:, COL_PAIR25]
+    p3 = v[:, COL_PAIR3]
+    stck = v[:, COL_STACK]
+    chip = v[:, COL_CHIP:COL_CHIP + 3 * C].reshape(P, C, 3)
+
+    # -- application level: dataflow | split-K | order ----------------------
+    which = ri(0, 3)
+    cand_app = v.clone()
+    cand_app[:, COL_DATAFLOW] = torch.where(which == 0,
+                                            (df + 1 + ri(1, 2)) % 3, df)
+    cand_app[:, COL_SPLITK] = torch.where(which == 1, 1 - sk, sk)
+    cand_app[:, COL_ORDER] = torch.where(which == 2, 1 - order, order)
+
+    # -- memory move --------------------------------------------------------
+    cand_mem = v.clone()
+    cand_mem[:, COL_MEM] = (mem + 1 + ri(2, cfg.M - 1)) % cfg.M
+
+    # -- chiplet replacement ------------------------------------------------
+    def draw_chiplet(ia, it, iu):
+        a = ri(ia, cfg.A)
+        t = ri(it, cfg.T_nodes)
+        s = torch.floor(uni(iu) * tb["n_sram"][a].to(F64)).to(I64)
+        return torch.stack([a, t, s], dim=1)
+
+    r_rep = torch.floor(uni(3) * n.to(F64)).to(I64)
+    old = torch.gather(chip, 1, r_rep[:, None, None].expand(P, 1, 3))[:, 0]
+    new = draw_chiplet(4, 5, 6)
+    for ia, it, iu in ((7, 8, 9), (10, 11, 12)):
+        new = torch.where((new == old).all(dim=1)[:, None],
+                          draw_chiplet(ia, it, iu), new)
+    chip_rep = torch.where(slot[None, :, None] == r_rep[:, None, None],
+                           new[:, None, :], chip)
+    cand_rep = v.clone()
+    cand_rep[:, COL_CHIP:COL_CHIP + 3 * C] = chip_rep.reshape(P, -1)
+
+    # -- chip-architecture: grow / shrink + dynamic HI-type repair ----------
+    dlt = torch.where(uni(13) < 0.5, -1, 1)
+    n2a = torch.clamp(n + dlt, 1, C)
+    n2 = torch.where(n2a == n, torch.clamp(n - dlt, 1, C), n2a)
+    grow = n2 > n
+    r_del = torch.floor(uni(14) * n.to(F64)).to(I64)
+    idx_shift = torch.clamp(
+        slot[None, :] + (slot[None, :] >= r_del[:, None]).to(I64), max=C - 1)
+    chip_shr = torch.gather(chip, 1, idx_shift[:, :, None].expand(P, C, 3))
+    chip_grow = torch.where(slot[None, :, None] == n[:, None, None],
+                            draw_chiplet(15, 16, 17)[:, None, :], chip)
+    chip_gs = torch.where(grow[:, None, None], chip_grow, chip_shr)
+    chip_gs = torch.where((slot[None, :] < n2[:, None])[:, :, None],
+                          chip_gs, -1)
+    style2 = torch.where(
+        n2 == 1, S_2D,
+        torch.where((n2 == 2) & (style == S_HYBRID), S_3D,
+                    torch.where((n2 >= 2) & (style == S_2D), S_25D, style)))
+    need25 = (style2 == S_25D) | (style2 == S_HYBRID)
+    need3 = (style2 == S_3D) | (style2 == S_HYBRID)
+    pkg_d = ri(18, cfg.n_pkg25)
+    pr_d = torch.floor(
+        uni(19) * tb["p25_cnt"][pkg_d].to(F64)).to(I64)
+    pair25_draw = tb["p25_flat"][tb["p25_off"][pkg_d] + pr_d]
+    pair3_draw = tb["pair3_of_pkg"][ri(20, cfg.n_pkg3)]
+    p25_2 = torch.where(need25, torch.where(p25 < 0, pair25_draw, p25), -1)
+    p3_2 = torch.where(need3, torch.where(p3 < 0, pair3_draw, p3), -1)
+    keep = stck & ((1 << n2) - 1)
+    pc = _popcount(keep, C)
+    bad = (pc < 2) | (pc >= n2)
+    size = torch.where(
+        n2 > 2,
+        2 + torch.floor(uni(21) * (n2 - 2).to(F64)).to(I64), 2)
+    scores = torch.where(slot[None, :] < n2[:, None],
+                         U[31:31 + C].T, math.inf)
+    rank = _argsort(_argsort(scores))
+    mask_new = torch.sum((rank < size[:, None]).to(I64) << slot[None, :],
+                         dim=1)
+    stack2 = torch.where(style2 == S_HYBRID,
+                         torch.where(bad, mask_new, keep), 0)
+    head = torch.stack([n2, style2, mem, order, df, sk, p25_2, p3_2, stack2],
+                       dim=1)
+    gs_parts = [head, chip_gs.reshape(P, -1)]
+    if mesh:
+        # mirror the chiplet-slot shift/append on the NoC columns: grown
+        # slots seed the neutral (1x1, corner) = (0, 0) pair
+        noc = v[:, cfg.noc_col:cfg.noc_col + 2 * C].reshape(P, C, 2)
+        noc_shr = torch.gather(noc, 1,
+                               idx_shift[:, :, None].expand(P, C, 2))
+        noc_grow = torch.where(slot[None, :, None] == n[:, None, None],
+                               0, noc)
+        noc_gs = torch.where(grow[:, None, None], noc_grow, noc_shr)
+        noc_gs = torch.where((slot[None, :] < n2[:, None])[:, :, None],
+                             noc_gs, -1)
+        gs_parts.append(noc_gs.reshape(P, -1))
+    if win:
+        # whole-design schedule columns ride through grow/shrink intact
+        gs_parts.append(v[:, cfg.sched_col:cfg.sched_col + 2])
+    cand_gs = torch.cat(gs_parts, dim=1)
+
+    # -- package level ------------------------------------------------------
+    p25c = torch.clamp(p25, min=0)
+    cur_pkg25 = tb["pair25_pkg"][p25c]
+    new_pkg25 = (cur_pkg25 + 1 + ri(23, cfg.n_pkg25 - 1)) % cfg.n_pkg25
+    kept = tb["pair25_by_pkg_proto"][new_pkg25, tb["pair25_proto"][p25c]]
+    cnt_np = tb["p25_cnt"][new_pkg25]
+    rnd_pair = tb["p25_flat"][
+        tb["p25_off"][new_pkg25]
+        + torch.floor(uni(24) * cnt_np.to(F64)).to(I64)]
+    pkg25_res = torch.where(kept >= 0, kept, rnd_pair)
+    cnt_cur = tb["p25_cnt"][cur_pkg25]
+    others = cnt_cur - 1
+    loc = tb["pair25_local"][p25c]
+    j_o = torch.floor(
+        uni(25) * torch.clamp(others, min=1).to(F64)).to(I64)
+    proto25_res = tb["p25_flat"][
+        tb["p25_off"][cur_pkg25]
+        + (loc + 1 + j_o) % torch.clamp(cnt_cur, min=1)]
+    cur_pkg3 = tb["pair3_pkg"][torch.clamp(p3, min=0)]
+    pkg3_res = tb["pair3_of_pkg"][
+        (cur_pkg3 + 1 + ri(26, cfg.n_pkg3 - 1)) % cfg.n_pkg3]
+    n_opts = torch.where(style == S_25D, 2,
+                         torch.where(style == S_HYBRID, 3, 1))
+    pick = torch.floor(uni(27) * n_opts.to(F64)).to(I64)
+    has_plane = (style == S_25D) | (style == S_HYBRID)
+    sel_pkg25 = has_plane & (pick == 0)
+    sel_proto25 = has_plane & (pick == 1) & (others > 0)
+    sel_pkg3 = (style == S_3D) | ((style == S_HYBRID) & (pick == 2))
+    cand_pkg = v.clone()
+    cand_pkg[:, COL_PAIR25] = torch.where(
+        sel_pkg25, pkg25_res, torch.where(sel_proto25, proto25_res, p25))
+    cand_pkg[:, COL_PAIR3] = torch.where(sel_pkg3, pkg3_res, p3)
+
+    # -- NoC level: redraw one chiplet's (mesh dims, entry) pair ------------
+    if mesh:
+        Un = trandom.uniform(trandom.fold_in(key, 7), (5, P))
+        r_noc = torch.floor(Un[0] * n.to(F64)).to(I64)
+
+        def draw_noc(im, ie):
+            m_ = torch.floor(Un[im] * cfg.n_mesh).to(I64)
+            e_ = torch.floor(Un[ie] * cfg.n_entry).to(I64)
+            return torch.stack([m_, e_], dim=1)
+
+        old_noc = torch.gather(noc, 1,
+                               r_noc[:, None, None].expand(P, 1, 2))[:, 0]
+        new_noc = draw_noc(1, 2)
+        new_noc = torch.where((new_noc == old_noc).all(dim=1)[:, None],
+                              draw_noc(3, 4), new_noc)
+        noc_mv = torch.where(slot[None, :, None] == r_noc[:, None, None],
+                             new_noc[:, None, :], noc)
+        cand_noc = v.clone()
+        cand_noc[:, cfg.noc_col:cfg.noc_col + 2 * C] = noc_mv.reshape(P, -1)
+
+    # -- schedule level: nudge start hour or redraw the window shape --------
+    if win:
+        Us = trandom.uniform(trandom.fold_in(key, 8), (3, P))
+        sc = cfg.sched_col
+        s_start = v[:, sc]
+        s_shape = v[:, sc + 1]
+        start2 = (s_start + 1 + torch.floor(
+            Us[1] * (HOURS_PER_DAY - 1)).to(I64)) % HOURS_PER_DAY
+        shape2 = (s_shape + 1 + torch.floor(
+            Us[2] * (cfg.n_sched - 1)).to(I64)) % cfg.n_sched
+        s_coin = Us[0] < 0.5  # start-hour nudge vs shape redraw
+        cand_sched = v.clone()
+        cand_sched[:, sc] = torch.where(s_coin, start2, s_start)
+        cand_sched[:, sc + 1] = torch.where(s_coin, s_shape, shape2)
+
+    # -- hierarchical branch selection + validity gate ----------------------
+    is_app = uni(28) < P_APPLICATION
+    coin = uni(30)
+    if mesh or win:
+        # live axes widen the uniform level draw from 3 to up to 5
+        # options; floor(u * 3.0) is the legacy ri(29, 3) exactly, so
+        # frozen-axis spaces replay the 3-level distribution
+        noc_on_f = (1.0 if cfg.noc_live else 0.0) if mesh else None
+        sched_on_f = (1.0 if cfg.sched_live else 0.0) if win else None
+        n_levels = 3.0
+        if mesh:
+            n_levels = n_levels + noc_on_f
+        if win:
+            n_levels = n_levels + sched_on_f
+        level = torch.floor(U[29] * n_levels).to(I64)
+        if mesh and win:
+            # the schedule level sits after the NoC level iff NoC moves
+            # are on
+            is_noc = (level == 3) & (int(noc_on_f) == 1)
+            lower = torch.where(
+                (level == 1)[:, None], cand_rep,
+                torch.where((level == 2)[:, None], cand_pkg,
+                            torch.where(is_noc[:, None], cand_noc,
+                                        cand_sched)))
+        elif mesh:
+            lower = torch.where(
+                (level == 1)[:, None], cand_rep,
+                torch.where((level == 2)[:, None], cand_pkg, cand_noc))
+        else:
+            lower = torch.where(
+                (level == 1)[:, None], cand_rep,
+                torch.where((level == 2)[:, None], cand_pkg, cand_sched))
+    else:
+        level = ri(29, 3)
+        lower = torch.where((level == 1)[:, None], cand_rep, cand_pkg)
+    cand = torch.where(
+        is_app[:, None], cand_app,
+        torch.where((level == 0)[:, None],
+                    torch.where((coin < 0.5)[:, None], cand_gs, cand_mem),
+                    lower))
+    ok = _validity(cand, tb, cfg)
+    return torch.where(ok[:, None], cand, v)
+
+
+def _exchange(v, costs, inv_t, us):
+    """Sequential adjacent-pair replica exchange, in place on the device
+    tensors ``v``/``costs``. ``d >= 0`` short-circuits in the host
+    reference, so only exp of non-positive ``d`` is compared."""
+    for j in range(costs.shape[0] - 1):
+        c_i, c_j = costs[j].clone(), costs[j + 1].clone()
+        d = (inv_t[j] - inv_t[j + 1]) * (c_i - c_j)
+        sw = (d >= 0) | (us[j] < torch.exp(torch.clamp(d, max=0.0)))
+        costs[j] = torch.where(sw, c_j, c_i)
+        costs[j + 1] = torch.where(sw, c_i, c_j)
+        v_i, v_j = v[j].clone(), v[j + 1].clone()
+        v[j] = torch.where(sw, v_j, v_i)
+        v[j + 1] = torch.where(sw, v_i, v_j)
+
+
+# ---------------------------------------------------------------------------
+# Shared table/cfg builders
+# ---------------------------------------------------------------------------
+
+
+def _base_cfg(sp: DesignSpace, db: TechDB, T0: int, T1: int,
+              wr_bits: float) -> _Cfg:
+    """The static constants of one (TechDB, DesignSpace, workload)."""
+    return _Cfg(
+        C=sp.max_chiplets, W=sp.width, A=len(sp.arrays),
+        T_nodes=len(sp.nodes), S=int(sp.n_sram.max()),
+        M=len(sp.memories), n_pairs25=len(sp.pairs_25d),
+        n_pairs3=len(sp.pairs_3d),
+        n_pkg25=len(sp.pkg25_pairs), n_pkg3=len(sp.pkg3_pairs),
+        L=sp.max_chiplets * (sp.max_chiplets - 1) // 2
+        + sp.max_chiplets - 1,
+        T0=T0, T1=T1, wr_bits=wr_bits,
+        acost=db.assembly_cost,
+        substrate_cost_mm2=db.substrate_cost_mm2,
+        substrate_cfp_mm2=db.substrate_cfp_mm2,
+        interposer_cpa=db.interposer_cpa,
+        interposer_defect=db.interposer_defect,
+        interposer_wafer_cost=db.interposer_wafer_cost,
+        yield_alpha=db.yield_alpha,
+        wafer_diameter_mm=db.wafer_diameter_mm,
+        lifetime_years=db.lifetime_years,
+        use_fraction=db.use_fraction,
+        duty_runs_per_s=db.duty_runs_per_s,
+        router_area_frac=db.router_area_frac,
+        comm=sp.comm,
+        noc_col=sp.noc_col,
+        n_mesh=len(comm_mod.MESH_DIMS),
+        n_entry=len(comm_mod.ENTRY_PLACEMENTS),
+        noc_hop_latency_s=db.noc_hop_latency_s,
+        noc_energy_pj_bit=db.noc_energy_pj_bit,
+        hop_uniform=db.uniform_hop_latency(),
+        noc_live=sp.noc_live,
+        schedule=sp.schedule,
+        sched_col=sp.sched_col if sp.schedule == "window" else -1,
+        n_sched=sched_mod.n_schedule_shapes(),
+        sched_live=sp.sched_live,
+    )
+
+
+def _shared_tables(host, sp: DesignSpace, dev: torch.device) -> dict:
+    """Workload-independent tables (chiplet physicals, node rates,
+    memory energies, package info, move tables) on ``dev``. Integer
+    tables are int64 so they index directly."""
+    mt = sp.move_tables()
+    noc_h, noc_r = comm_mod.noc_tables()
+
+    def f8(x):
+        return torch.tensor(np.asarray(x, dtype=np.float64), device=dev)
+
+    def i8(x):
+        return torch.tensor(np.asarray(x, dtype=np.int64), device=dev)
+
+    return dict(
+        # per-chiplet physicals / node rates / memory energies are
+        # stacked along a trailing axis: one gather per site
+        chiplet=f8(np.stack(
+            [host.t_area, host.t_static, host.t_cost, host.t_mfg], axis=-1)),
+        node=f8(np.stack(
+            [host.t_freq, host.t_sram_e, host.t_mac_e, host.t_des], axis=-1)),
+        mem3=f8(np.stack([host.m_rd, host.m_wr, host.m_cost], axis=-1)),
+        t_power=f8(host.t_power),
+        m_bw=f8(host.m_bw),
+        p25=f8([i[:7] for i in host.p25_info]),
+        p25_interp=torch.as_tensor(
+            np.asarray([i[7] for i in host.p25_info], dtype=bool),
+            device=dev),
+        p3=f8([i[:7] for i in host.p3_info]),
+        p25_hl=f8(host.p25_hl),
+        p3_hl=f8(host.p3_hl),
+        noc_hops=f8(noc_h),
+        noc_routers=f8(noc_r),
+        # duty-weight shape table (row 0 = db.load_profile verbatim)
+        sched_tab=f8(sched_mod.schedule_tables(host.db)),
+        n_sram=i8(sp.n_sram),
+        **{k: i8(a) for k, a in mt.items()},
+    )
+
+
+def _tile_tables(host, dev: torch.device) -> dict:
+    """Per-workload prefix-sum tables: the int64 ``[5, A*S*3, T+1]``
+    stacks the gather kernel reads (one plane per sim metric, row
+    ``(a*S + s)*3 + dataflow``) and the ``mn`` prefix rows."""
+    out = {}
+    for sk, name in ((0, "pref0_flat"), (1, "pref1_flat")):
+        pref = np.stack([host.tiles[sk]["pref"][f] for f in _SIM_METRICS])
+        out[name] = torch.as_tensor(
+            np.ascontiguousarray(
+                pref.reshape(len(_SIM_METRICS), -1, pref.shape[-1])),
+            device=dev)
+    out["mn0"] = torch.as_tensor(host.tiles[0]["mn_pref"], device=dev)
+    out["mn1"] = torch.as_tensor(host.tiles[1]["mn_pref"], device=dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The device evaluator + tempering engine
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DevicePTResult:
+    """Output of the parallel-tempering engine (host arrays)."""
+
+    best_enc: np.ndarray          # encoded best row
+    best_cost: float
+    history: List[float]          # [initial best] + coldest-chain per sweep
+    evaluations: int
+    final_enc: np.ndarray         # [n_chains, width] final population
+    final_costs: np.ndarray
+    # every evaluated design + its OBJECTIVE_AXES vector (seed population
+    # first): enc [1 + sweeps, n, width], vec [1 + sweeps, n, 3] — the
+    # Pareto archive's input when no archive is passed
+    samples: Optional[Dict[str, np.ndarray]] = None
+
+
+def _db_region_cols(db: TechDB) -> Tuple[np.float64, np.float64,
+                                         np.ndarray, np.ndarray]:
+    """The (price, embf, profile, pprofile) runtime region columns a
+    single-region evaluator synthesizes from its TechDB. A ``None`` grid
+    (price) profile becomes the flat row at ``carbon_intensity``
+    (``electricity_price``), so the default columns are bit-neutral."""
+    price = np.float64(db.electricity_price)
+    embf = np.float64(db.emb_factor)
+    if db.grid_profile is None:
+        profile = np.full(len(db.load_profile),
+                          np.float64(db.carbon_intensity))
+    else:
+        profile = np.asarray(db.grid_profile, dtype=np.float64)
+    if db.price_profile is None:
+        pprofile = np.full(len(db.load_profile), price)
+    else:
+        pprofile = np.asarray(db.price_profile, dtype=np.float64)
+    return price, embf, profile, pprofile
+
+
+class DeviceEvaluator:
+    """Fused evaluate+cost and tempering engine for one workload on one
+    torch device.
+
+    Reuses the host :class:`~repro_torch.pathfinding.batch.
+    BatchEvaluator`'s numpy tables (chiplet physicals, tile prefix sums,
+    package info), copied once to ``torch_device`` (``None`` = cuda)."""
+
+    def __init__(self, wl: GEMMWorkload, db: TechDB = DEFAULT_DB,
+                 tile_sizes: Tuple[int, int, int] = DEFAULT_TILE,
+                 space: Optional[DesignSpace] = None,
+                 torch_device: DeviceLike = None):
+        self.device = resolve_device(torch_device)
+        self.wl, self.db, self.tile_sizes = wl, db, tile_sizes
+        host = get_evaluator(wl, db, tile_sizes, space)
+        self.host = host
+        self.space = host.space
+        self.cfg = _base_cfg(
+            self.space, db, T0=host.tiles[0]["T"], T1=host.tiles[1]["T"],
+            wr_bits=float(wl.M * wl.N * OPERAND_BYTES * 8))
+        self.tables = {**_shared_tables(host, self.space, self.device),
+                       **_tile_tables(host, self.device)}
+
+    def _t(self, x, dtype=F64) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=self.device)
+
+    def _enc(self, encoded) -> torch.Tensor:
+        v = np.atleast_2d(np.asarray(encoded, dtype=np.int32))
+        return torch.as_tensor(v.astype(np.int64), device=self.device)
+
+    def _region(self):
+        price, embf, profile, pprofile = _db_region_cols(self.db)
+        return (self._t(np.float64(self.db.carbon_intensity)),
+                self._t(price), self._t(embf), self._t(profile),
+                self._t(pprofile))
+
+    def evaluate_cost(self, encoded: np.ndarray, norm: Normalizer,
+                      template: Template
+                      ) -> Tuple[MetricsBatch, np.ndarray]:
+        """Fused metrics + Eq. 17 cost for an encoded population."""
+        mb, cost, _ = self.evaluate_cost_vector(encoded, norm, template)
+        return mb, cost
+
+    def evaluate_cost_vector(self, encoded: np.ndarray, norm: Normalizer,
+                             template: Template
+                             ) -> Tuple[MetricsBatch, np.ndarray,
+                                        np.ndarray]:
+        """Fused metrics + cost + ``(latency, dollar, total_cfp)``
+        vectors."""
+        mins, medians = norm.weights_arrays()
+        mets, cost, vec = _eval_cost(
+            self._enc(encoded), self._t(mins), self._t(medians),
+            self._t(np.asarray(template.weights, dtype=np.float64)),
+            *self._region(), self.tables, self.cfg)
+        return (MetricsBatch(*[m.cpu().numpy() for m in mets]),
+                cost.cpu().numpy(), vec.cpu().numpy())
+
+    def metrics(self, encoded: np.ndarray) -> MetricsBatch:
+        """Raw metrics through the fused path (identity normalizer)."""
+        from repro_torch.core.templates import IDENTITY_NORMALIZER, TEMPLATES
+
+        return self.evaluate_cost(encoded, IDENTITY_NORMALIZER,
+                                  TEMPLATES["T1"])[0]
+
+    def propose(self, encoded: np.ndarray, seed: int = 0) -> np.ndarray:
+        """One vectorized hierarchical move per row (valid rows only)."""
+        out = _propose(trandom.PRNGKey(seed, self.device),
+                       self._enc(encoded), self.tables, self.cfg)
+        return out.to(torch.int32).cpu().numpy()
+
+    def parallel_tempering(self, v0: np.ndarray, temps, sweeps: int,
+                           swap_every: int, seed: int, norm: Normalizer,
+                           template: Template,
+                           collect_samples: bool = True,
+                           segment: Optional[int] = None,
+                           checkpoint=None,
+                           archive=None) -> DevicePTResult:
+        """Run the propose/evaluate/accept/exchange loop.
+
+        ``v0`` is the encoded seed population (one row per chain, coldest
+        chain last); ``temps`` the matching temperature ladder.
+        ``collect_samples`` keeps every evaluated design + objective
+        vector; with ``archive`` (a :class:`~repro_torch.pathfinding.
+        pareto.ParetoArchive`) they feed it at each segment boundary,
+        otherwise they return in ``.samples``. ``segment`` cuts the
+        sweeps into chunks of that many (default: one chunk) without
+        changing the trajectory. ``checkpoint`` is not supported yet:
+        checkpoint/resume is a later slice of the port."""
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpoint/resume of the torch tempering engine is not "
+                "ported yet (it comes with the resume slice)")
+        v0 = np.atleast_2d(np.asarray(v0, dtype=np.int32))
+        n, width = v0.shape
+        sweeps = int(sweeps)
+        if segment is not None and int(segment) < 1:
+            raise ValueError(f"segment must be >= 1, got {segment}")
+        seg_size = max(1, sweeps) if segment is None else int(segment)
+        tb, cfg, dev = self.tables, self.cfg, self.device
+        mins, medians = norm.weights_arrays()
+        mins_t, med_t = self._t(mins), self._t(medians)
+        w = self._t(np.asarray(template.weights, np.float64))
+        temps_t = self._t(np.asarray(temps, np.float64))
+        inv_t = 1.0 / temps_t
+        region = self._region()
+        key = trandom.PRNGKey(seed, dev)
+
+        v = self._enc(v0)
+        _, costs, vec0 = _eval_cost(v, mins_t, med_t, w, *region, tb, cfg)
+        bi = _argmin_first(costs)
+        best_v, best_c = v[bi].clone(), costs[bi].clone()
+        hist_parts = [costs.min()[None]]
+        seed_block = (v.clone(), vec0) if collect_samples else None
+        enc_parts: List[torch.Tensor] = []
+        vec_parts: List[torch.Tensor] = []
+
+        def absorb(enc_s, vec_s):
+            nonlocal seed_block
+            if archive is None:
+                enc_parts.append(enc_s)
+                vec_parts.append(vec_s)
+                return
+            if seed_block is not None:
+                enc_s = torch.cat([seed_block[0][None], enc_s])
+                vec_s = torch.cat([seed_block[1][None], vec_s])
+                seed_block = None
+            archive.insert(enc_s.reshape(-1, width).to(torch.int32).cpu()
+                           .numpy(), vec_s.reshape(-1, 3).cpu().numpy())
+
+        done = 0
+        while done < sweeps:
+            seg = min(seg_size, sweeps - done)
+            seg_enc, seg_vec = [], []
+            for sweep in range(done, done + seg):
+                key, kp, ka, ksw = trandom.split(key, 4)
+                prop = _propose(kp, v, tb, cfg)
+                _, pcost, pvec = _eval_cost(prop, mins_t, med_t, w, *region,
+                                            tb, cfg)
+                u = trandom.uniform(ka, (n,))
+                delta = pcost - costs
+                accept = (delta <= 0) | (
+                    u < torch.exp(-delta / torch.clamp(temps_t, min=1e-12)))
+                v = torch.where(accept[:, None], prop, v)
+                costs = torch.where(accept, pcost, costs)
+                acc = torch.where(accept, pcost, math.inf)
+                i = _argmin_first(acc)
+                better = acc[i] < best_c
+                best_c = torch.where(better, acc[i], best_c)
+                best_v = torch.where(better, prop[i], best_v)
+                us = trandom.uniform(ksw, (max(n - 1, 1),))
+                if sweep % swap_every == 0:
+                    _exchange(v, costs, inv_t, us)
+                hist_parts.append(costs[-1:].clone())
+                if collect_samples:
+                    seg_enc.append(prop)
+                    seg_vec.append(pvec)
+            if collect_samples:
+                absorb(torch.stack(seg_enc), torch.stack(seg_vec))
+            done += seg
+        if seed_block is not None and archive is not None:
+            # zero sweeps: the seed population is all there is to feed
+            archive.insert(seed_block[0].to(torch.int32).cpu().numpy(),
+                           seed_block[1].cpu().numpy())
+            seed_block = None
+
+        samples = None
+        if collect_samples and archive is None:
+            blocks_e = [seed_block[0][None]] + enc_parts
+            blocks_v = [seed_block[1][None]] + vec_parts
+            samples = dict(
+                enc=torch.cat(blocks_e).to(torch.int32).cpu().numpy(),
+                vec=torch.cat(blocks_v).cpu().numpy())
+        return DevicePTResult(
+            best_enc=best_v.to(torch.int32).cpu().numpy(),
+            best_cost=float(best_c),
+            history=torch.cat(hist_parts).cpu().tolist(),
+            evaluations=n + n * sweeps,
+            final_enc=v.to(torch.int32).cpu().numpy(),
+            final_costs=costs.cpu().numpy(),
+            samples=samples)
+
+
+# ---------------------------------------------------------------------------
+# Cached evaluators + functional entry points
+# ---------------------------------------------------------------------------
+
+_DEVICE_EVALUATORS: Dict[tuple, Tuple[TechDB, DeviceEvaluator]] = {}
+_DEVICE_EVALUATOR_CACHE_MAX = 8
+
+
+def get_device_evaluator(wl: GEMMWorkload, db: TechDB = DEFAULT_DB,
+                         tile_sizes: Tuple[int, int, int] = DEFAULT_TILE,
+                         space: Optional[DesignSpace] = None,
+                         torch_device: DeviceLike = None
+                         ) -> DeviceEvaluator:
+    """Cached :class:`DeviceEvaluator`, one per (workload, db, tiles,
+    space layout, torch device) like ``get_evaluator``."""
+    from repro_torch.pathfinding.batch import (
+        cached_evaluator,
+        evaluator_cache_key,
+    )
+
+    dev = resolve_device(torch_device)
+    key = evaluator_cache_key(wl, db, tile_sizes, space) + (str(dev),)
+    return cached_evaluator(
+        _DEVICE_EVALUATORS, key, db,
+        lambda: DeviceEvaluator(wl, db, tile_sizes, space, dev),
+        _DEVICE_EVALUATOR_CACHE_MAX)
+
+
+def propose_batch(encoded: np.ndarray, wl: GEMMWorkload,
+                  db: TechDB = DEFAULT_DB,
+                  space: Optional[DesignSpace] = None,
+                  seed: int = 0,
+                  torch_device: DeviceLike = None) -> np.ndarray:
+    """Vectorized hierarchical moves over encoded rows (see
+    :func:`_propose`); invalid candidates keep the incumbent row."""
+    return get_device_evaluator(wl, db, space=space,
+                                torch_device=torch_device
+                                ).propose(encoded, seed)

@@ -1,0 +1,344 @@
+"""Pareto-frontier archive for the torch search engine.
+
+The counterpart of the archive half of :mod:`repro.pathfinding.pareto`:
+
+* :func:`non_dominated_mask` / :func:`non_dominated_mask_torch` — exact
+  host reference and vectorized torch renderings of the non-dominated
+  (minimization) filter. Both use exact float comparisons, so they agree
+  exactly on any input.
+* :class:`ParetoArchive` — a bounded archive of non-dominated
+  ``(encoded design, objective vector)`` pairs over the
+  :data:`repro_torch.core.sa.OBJECTIVE_AXES` axes ``(latency_s, dollar,
+  total_cfp)``. Inserts are chunked, storage order is canonical
+  (lexicographic), duplicates are dropped, and the archive is pruned to
+  ``max_size`` by NSGA-II crowding distance — all deterministic.
+* :func:`hypervolume` — exact 2-D/3-D dominated hypervolume w.r.t. a
+  reference point.
+* :class:`FrontierFeed` — buffered inserts for the host strategies.
+
+The scalarization and scenario sweeps of the reference module are later
+slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.sa import OBJECTIVE_AXES
+from repro_torch.pathfinding.space import DesignSpace
+
+N_AXES = len(OBJECTIVE_AXES)
+
+# pairwise-filter block size: chunked inserts keep the O(n^2) dominance
+# comparison bounded at (chunk + max_size)^2 regardless of how many
+# samples a sweep feeds in; total work scales as n_samples * chunk, so
+# smaller chunks are *cheaper* for bulk feeds (each chunk is pre-filtered
+# on its own before the merge — search batches are mostly dominated)
+_INSERT_CHUNK = 512
+
+
+# ---------------------------------------------------------------------------
+# Non-dominated filtering: exact host reference + vectorized torch rendering
+# ---------------------------------------------------------------------------
+
+
+def non_dominated_mask(points: np.ndarray) -> np.ndarray:
+    """Exact host reference: boolean mask of non-dominated rows.
+
+    Minimization on every axis. Row ``j`` is dominated iff some row ``i``
+    is <= on all axes and < on at least one; exact duplicates do not
+    dominate each other (both survive — dedup is the archive's job)."""
+    p = np.atleast_2d(np.asarray(points, dtype=np.float64))
+    if p.shape[0] == 0:
+        return np.zeros(0, dtype=bool)
+    le = np.all(p[:, None, :] <= p[None, :, :], axis=2)   # i <= j per pair
+    lt = np.any(p[:, None, :] < p[None, :, :], axis=2)    # i < j somewhere
+    return ~(le & lt).any(axis=0)
+
+
+def non_dominated_mask_torch(points, torch_device: DeviceLike = None
+                             ) -> np.ndarray:
+    """Vectorized torch non-dominated filter on ``torch_device``
+    (``None`` = cuda).
+
+    Same exact float64 comparisons as :func:`non_dominated_mask`, so the
+    two agree bit-for-bit on any front. Supports leading batch
+    dimensions: ``[..., n, d] -> [..., n]``."""
+    p = torch.as_tensor(np.asarray(points, dtype=np.float64),
+                        device=resolve_device(torch_device))
+    if p.shape[-2] == 0:
+        return np.zeros(p.shape[:-1], dtype=bool)
+    le = torch.all(p[..., :, None, :] <= p[..., None, :, :], dim=-1)
+    lt = torch.any(p[..., :, None, :] < p[..., None, :, :], dim=-1)
+    return (~torch.any(le & lt, dim=-2)).cpu().numpy()
+
+
+def crowding_distance(points: np.ndarray) -> np.ndarray:
+    """NSGA-II crowding distance per row (boundary rows get ``inf``).
+
+    Deterministic: per-axis sorting is stable, so exact ties contribute
+    identically regardless of input order."""
+    p = np.atleast_2d(np.asarray(points, dtype=np.float64))
+    n, d = p.shape
+    dist = np.zeros(n)
+    if n <= 2:
+        return np.full(n, np.inf)
+    for a in range(d):
+        order = np.argsort(p[:, a], kind="stable")
+        v = p[order, a]
+        span = v[-1] - v[0]
+        dist[order[0]] = dist[order[-1]] = np.inf
+        if span > 0:
+            gaps = (v[2:] - v[:-2]) / span
+            np.add.at(dist, order[1:-1], gaps)
+    return dist
+
+
+def hypervolume(points: np.ndarray, ref: Sequence[float]) -> float:
+    """Exact dominated hypervolume (minimization) w.r.t. ``ref``.
+
+    Supports 1/2/3 objectives — 3-D uses slicing along the last axis
+    (each z-slab contributes its active points' 2-D area). Points not
+    strictly better than ``ref`` on every axis contribute nothing."""
+    p = np.atleast_2d(np.asarray(points, dtype=np.float64))
+    r = np.asarray(ref, dtype=np.float64)
+    if p.shape[0] == 0:
+        return 0.0
+    p = p[np.all(p < r, axis=1)]
+    if p.shape[0] == 0:
+        return 0.0
+    d = p.shape[1]
+    if d == 1:
+        return float(r[0] - p[:, 0].min())
+    if d == 2:
+        return _hv2(p, r)
+    if d == 3:
+        order = np.argsort(p[:, 2], kind="stable")
+        p = p[order]
+        zs = np.unique(p[:, 2])
+        uppers = np.append(zs[1:], r[2])
+        hv = 0.0
+        for z, hi in zip(zs, uppers):
+            hv += _hv2(p[p[:, 2] <= z, :2], r[:2]) * (hi - z)
+        return float(hv)
+    raise NotImplementedError(f"hypervolume supports <= 3 axes, got {d}")
+
+
+def _hv2(p: np.ndarray, r: np.ndarray) -> float:
+    """2-D dominated area: sweep x ascending with a falling y staircase."""
+    p = p[np.lexsort((p[:, 1], p[:, 0]))]
+    hv, y_best = 0.0, r[1]
+    for x, y in p:
+        if y < y_best:
+            hv += (r[0] - x) * (y_best - y)
+            y_best = y
+    return float(hv)
+
+
+# ---------------------------------------------------------------------------
+# The archive
+# ---------------------------------------------------------------------------
+
+
+class ParetoArchive:
+    """Bounded deterministic archive of non-dominated designs.
+
+    Stores ``(encoded row, objective vector)`` pairs; every insert
+    re-filters to the non-dominated set (``backend="torch"`` uses the
+    vectorized filter on ``torch_device``, ``"numpy"`` the exact host
+    reference — they agree exactly), drops duplicate rows, prunes to ``max_size`` by largest
+    crowding distance (stable index tie-break) and canonicalizes storage
+    to lexicographic ``(vector, encoding)`` order.
+
+    Determinism: the same insert sequence always yields the identical
+    archive, re-inserting the archive into itself is a no-op, and while
+    the bound is not hit the contents are independent of insertion order
+    entirely. Once crowding pruning engages, chunked feeds may retain a
+    (deterministic) subset that differs from a single-shot insert —
+    pruning is greedy and pruned points cannot return."""
+
+    def __init__(self, max_size: int = 256, n_axes: int = N_AXES,
+                 width: Optional[int] = None, backend: str = "numpy",
+                 torch_device: DeviceLike = None):
+        if max_size < 1:
+            raise ValueError(f"max_size must be >= 1, got {max_size}")
+        if backend not in ("numpy", "torch"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.max_size = max_size
+        self.n_axes = n_axes
+        self.backend = backend
+        self.torch_device = torch_device
+        self._vec = np.zeros((0, n_axes), dtype=np.float64)
+        self._enc = np.zeros((0, 0 if width is None else width),
+                             dtype=np.int32)
+
+    # -- views --------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return self._vec.shape[0]
+
+    def __repr__(self) -> str:
+        return (f"ParetoArchive(size={len(self)}/{self.max_size}, "
+                f"axes={OBJECTIVE_AXES[:self.n_axes]})")
+
+    @property
+    def vectors(self) -> np.ndarray:
+        """``[m, n_axes]`` objective vectors, canonical order."""
+        return self._vec.copy()
+
+    @property
+    def encoded(self) -> np.ndarray:
+        """``[m, width]`` encoded design rows, canonical order."""
+        return self._enc.copy()
+
+    def systems(self, space: DesignSpace) -> List:
+        return space.decode_many(self._enc)
+
+    # -- mutation -----------------------------------------------------------
+
+    def insert(self, encoded: np.ndarray, vectors: np.ndarray) -> int:
+        """Insert a batch; returns the archive size afterwards."""
+        enc = np.atleast_2d(np.asarray(encoded, dtype=np.int32))
+        vec = np.atleast_2d(np.asarray(vectors, dtype=np.float64))
+        if enc.shape[0] != vec.shape[0]:
+            raise ValueError(
+                f"{enc.shape[0]} encodings vs {vec.shape[0]} vectors")
+        if vec.shape[1] != self.n_axes:
+            raise ValueError(
+                f"expected {self.n_axes} axes, got {vec.shape[1]}")
+        if self._enc.shape[1] == 0 and enc.shape[1] > 0:
+            self._enc = np.zeros((0, enc.shape[1]), dtype=np.int32)
+        if enc.shape[1] != self._enc.shape[1]:
+            raise ValueError(
+                f"row width {enc.shape[1]} != archive {self._enc.shape[1]}")
+        for lo in range(0, enc.shape[0], _INSERT_CHUNK):
+            self._insert_chunk(enc[lo:lo + _INSERT_CHUNK],
+                               vec[lo:lo + _INSERT_CHUNK])
+        return len(self)
+
+    def merge(self, other: "ParetoArchive") -> int:
+        return self.insert(other._enc, other._vec)
+
+    def _mask(self, vec: np.ndarray) -> np.ndarray:
+        if self.backend == "torch":
+            return non_dominated_mask_torch(vec, self.torch_device)
+        return non_dominated_mask(vec)
+
+    def _insert_chunk(self, enc: np.ndarray, vec: np.ndarray) -> None:
+        if vec.shape[0] > 64:
+            # pre-reduce the incoming block alone: dominated rows can
+            # never enter the archive, and dropping them first keeps the
+            # merge pairwise tiny
+            pre = self._mask(vec)
+            enc, vec = enc[pre], vec[pre]
+        all_enc = np.vstack([self._enc, enc])
+        all_vec = np.vstack([self._vec, vec])
+        # canonical order + exact-duplicate dedup in one pass (int32
+        # encodings are exact in float64, so the combined key is lossless)
+        key = np.hstack([all_vec, all_enc.astype(np.float64)])
+        # np.unique returns first-occurrence indices in sorted-key order:
+        # dedup + canonical lexicographic order in one pass
+        _, uniq = np.unique(key, axis=0, return_index=True)
+        all_enc, all_vec = all_enc[uniq], all_vec[uniq]
+        mask = self._mask(all_vec)
+        all_enc, all_vec = all_enc[mask], all_vec[mask]
+        if all_vec.shape[0] > self.max_size:
+            cd = crowding_distance(all_vec)
+            keep = np.argsort(-cd, kind="stable")[:self.max_size]
+            keep.sort()
+            all_enc, all_vec = all_enc[keep], all_vec[keep]
+        self._enc, self._vec = all_enc, all_vec
+
+    # -- checkpointing ------------------------------------------------------
+    # the repro.checkpoint protocol: archives ride inside checkpoint
+    # pytrees as first-class objects (their row count is elastic across
+    # restore, so a resumed search continues the exact frontier)
+
+    def checkpoint_arrays(self) -> Dict[str, np.ndarray]:
+        """The archive's full state as plain arrays (row widths and
+        counts are restored from the checkpoint, not the template).
+
+        Returns references, not copies: mutation always rebinds
+        ``_enc``/``_vec`` wholesale (see ``_insert_chunk``), so a
+        returned snapshot can never be corrupted in place."""
+        return {"enc": self._enc, "vec": self._vec}
+
+    def from_checkpoint_arrays(self, arrays: Dict[str, np.ndarray]
+                               ) -> "ParetoArchive":
+        """New archive with this one's bounds/backend and the saved
+        contents (the restore half of the checkpoint protocol)."""
+        out = ParetoArchive(max_size=self.max_size, n_axes=self.n_axes,
+                            backend=self.backend,
+                            torch_device=self.torch_device)
+        out.load_checkpoint_arrays(arrays)
+        return out
+
+    def load_checkpoint_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Overwrite contents in place from :meth:`checkpoint_arrays`."""
+        enc = np.atleast_2d(np.asarray(arrays["enc"], dtype=np.int32))
+        vec = np.atleast_2d(np.asarray(arrays["vec"], dtype=np.float64))
+        if enc.shape[0] != vec.shape[0]:
+            raise ValueError(
+                f"{enc.shape[0]} encodings vs {vec.shape[0]} vectors")
+        self._enc, self._vec = enc, vec
+
+    # -- analysis -----------------------------------------------------------
+
+    def reference_point(self, margin: float = 0.1) -> np.ndarray:
+        """Nadir + ``margin`` * range per axis (a usable default HV ref)."""
+        if len(self) == 0:
+            return np.ones(self.n_axes)
+        lo, hi = self._vec.min(axis=0), self._vec.max(axis=0)
+        span = np.where(hi > lo, hi - lo, np.maximum(np.abs(hi), 1.0))
+        return hi + margin * span
+
+    def hypervolume(self, ref: Optional[Sequence[float]] = None) -> float:
+        return hypervolume(self._vec,
+                           self.reference_point() if ref is None else ref)
+
+    def project(self, axes: Sequence[int]) -> np.ndarray:
+        """Re-filtered 2-D (or 1-D) front over a subset of axes — e.g.
+        ``project((1, 2))`` is the Fig. 13 CFP-vs-cost frontier."""
+        sub = self._vec[:, list(axes)]
+        return sub[non_dominated_mask(sub)]
+
+
+class FrontierFeed:
+    """Buffered (encoded, vector) accumulator in front of an archive.
+
+    Scalar strategies evaluate one candidate at a time; inserting rows
+    singly would re-run the dominance filter per evaluation. The feed
+    buffers rows and flushes in blocks. ``size=0`` disables collection
+    (``archive`` stays ``None``)."""
+
+    def __init__(self, size: int = 256, chunk: int = 512):
+        self.archive = ParetoArchive(max_size=size) if size > 0 else None
+        self._enc: List[np.ndarray] = []
+        self._vec: List[np.ndarray] = []
+        self._chunk = chunk
+        self._pending = 0
+
+    def add(self, encoded: np.ndarray, vectors: np.ndarray) -> None:
+        if self.archive is None:
+            return
+        enc = np.atleast_2d(np.asarray(encoded, dtype=np.int32))
+        self._enc.append(enc)
+        self._vec.append(np.atleast_2d(np.asarray(vectors)))
+        self._pending += enc.shape[0]
+        if self._pending >= self._chunk:
+            self._flush()
+
+    def _flush(self) -> None:
+        if self._pending:
+            self.archive.insert(np.vstack(self._enc), np.vstack(self._vec))
+            self._enc, self._vec, self._pending = [], [], 0
+
+    def done(self) -> Optional[ParetoArchive]:
+        if self.archive is not None:
+            self._flush()
+        return self.archive
+
+

@@ -1,0 +1,103 @@
+"""jax's threefry2x32 key stream in torch, bit for bit.
+
+The reference search draws every random number through ``jax.random``
+with the threefry2x32 PRNG in its *non-partitionable* mode (the mode the
+checked-in goldens were recorded in). Replaying a search therefore needs
+the same bits, not just the same distribution. This module reproduces
+
+* ``PRNGKey(seed)``   -> ``[2]`` key words,
+* ``split(key, n)``   -> ``[n, 2]`` keys,
+* ``fold_in(key, d)`` -> ``[2]`` key,
+* ``uniform(key, shape)`` -> float64 in ``[0, 1)``,
+
+exactly as ``jax.random`` computes them with
+``jax_threefry_partitionable=False``.
+
+Keys are int64 tensors holding uint32 words. All arithmetic runs on
+int64 and is masked back to 32 bits after every add and shift (torch's
+``>>`` on int64 is arithmetic, and its uint32 coverage is thin), so the
+same code runs on the CPU and on CUDA, and the key stays on the device
+it was made on.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def threefry_2x32(key: torch.Tensor, x0: torch.Tensor,
+                  x1: torch.Tensor):
+    """The threefry2x32 block cipher on two equal-shape word arrays
+    (20 rounds, key schedule injected every 4 rounds)."""
+    k0, k1 = key[0], key[1]
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _hash_counts(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``threefry_2x32(key, iota(n))`` for even ``n``: the counter array
+    is cut into halves, hashed pairwise and the halves concatenated."""
+    half = n // 2
+    cnt = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry_2x32(key, cnt[:half], cnt[half:])
+    return torch.cat([y0, y1])
+
+
+def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
+    """Key words of ``jax.random.PRNGKey(seed)`` (64-bit seed split into
+    its high and low words)."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return torch.tensor([s >> 32, s & _M32], dtype=torch.int64,
+                        device=device)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` -> ``[num, 2]``."""
+    return _hash_counts(key, 2 * num).reshape(num, 2)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the key hashed with the counter
+    pair ``(0, data)``."""
+    x0 = torch.zeros(1, dtype=torch.int64, device=key.device)
+    x1 = torch.full((1,), int(data) & _M32, dtype=torch.int64,
+                    device=key.device)
+    y0, y1 = threefry_2x32(key, x0, x1)
+    return torch.cat([y0, y1])
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype=float64)``.
+
+    jax draws 64 random bits per value (the high word from the first
+    half of the hashed counters, the low word from the second half) and
+    keeps the top 52 as the mantissa of a number in ``[1, 2)``, minus
+    one. That is exactly ``mantissa * 2**-52``, which is what is
+    computed here."""
+    shape = tuple(int(s) for s in shape)
+    size = math.prod(shape)
+    if size == 0:
+        return torch.zeros(shape, dtype=torch.float64, device=key.device)
+    bits = _hash_counts(key, 2 * size)
+    hi, lo = bits[:size], bits[size:]
+    mant = (hi << 20) | (lo >> 12)
+    return (mant.to(torch.float64) * 2.0 ** -52).reshape(shape)

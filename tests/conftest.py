@@ -24,3 +24,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-device subprocess tests and jit-compile-heavy device "
         "searches (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; skips without one (the port's CUDA "
+        "kernels have no CPU mode)")
