@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU::
 It imports nothing of jax or of the JAX package. Phases, each printing
 one JSON line that carries the card's name and power limit:
 
-1. ``build``    — compile every CUDA kernel of the main path from the
-   sources in the checkout (``nvcc``, sm_90a).
+1. ``build``    — compile every CUDA kernel of the port's paths from the
+   sources in the checkout (``nvcc``, sm_90a, one process per source,
+   all started together): ``prefix_select.cu`` and ``wkv6.cu``.
 2. ``kernel``   — ``prefix_select`` on the card against its plain torch
    version on the card, bitwise (``torch.equal``), on the real int64
    tables of workload 1 (single layout) and workloads 1+6 (stacked
@@ -25,6 +26,20 @@ one JSON line that carries the card's name and power limit:
    .search(ParallelTempering(n_chains=512, sweeps=100), key=0)`` with
    the default normalizer fit, timed, with the kernel launch counts of
    that run; the best design is re-evaluated on the card and on the CPU.
+6. ``profile``  — device busy share of a short search window.
+7. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
+   version on the card, at the serve phase's shapes: prefill (G = 160,
+   T = 512, zero start), decode (G = 160, T = 1, nonzero start) and an
+   edge case (G = 1, T = 37); max errors of ``y`` and ``S_T``, kernel and
+   plain times (in a CUDA graph and eager) and the bound.
+8. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
+   layers) on cuda against the same weights on the CPU: prefill and
+   eight teacher-forced greedy steps (the CPU's tokens fed to both).
+9. ``serve``    — the language-model path: ``rwkv6-3b`` at full width in
+   float32 through ``repro_torch.launch.serve`` (batch 4, prompt 512,
+   32 generated tokens, seeded weights and prompts), timed, with the
+   ``wkv6`` launch count of that run (32 + 31 * 32 = 1024) and every
+   logit checked finite.
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line and,
 last, ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -47,6 +62,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor-core rate (data sheet)
 TOL = 1e-6
+WKV_TOL = 1e-6                 # of the recurrence's magnitude M (phase_wkv6)
+LM_TOL = 1e-4                  # of max |logit|, cuda vs CPU (phase_lm_parity)
 DEV = "cuda"                   # the card the phases run on
 
 
@@ -452,6 +469,192 @@ def phase_profile(card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# wkv6 kernel / lm_parity / serve phases: the RWKV-6 serving path
+# ---------------------------------------------------------------------------
+
+
+def wkv6_inputs(G: int, T: int, heads: int, with_state: bool, seed: int):
+    """Recurrence inputs in the model's regime: normal r, k, v; decays
+    ``exp(-exp(-6 + noise))`` (about 0.9975); per-head ``u`` at the
+    model's init scale; a random start state when asked."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+
+    D = 64
+    r, k, v = n(G, T, D), n(G, T, D), n(G, T, D)
+    w = torch.exp(-torch.exp(-6 + n(G, T, D)))
+    u = n(heads, D) * (0.5 / math.sqrt(heads))
+    s0 = n(G, D, D) if with_state else None
+    return r, k, v, w, u, s0
+
+
+def wkv6_bound(r, u, s0) -> dict:
+    """r, k, v, w read once, u and the start state (when given) read
+    once, y and S_T written once, over HBM bandwidth; against the least
+    operations the function needs per (g, t), over the fp32
+    non-tensor-core rate: y_v = sum_k r_k S[k, v] + v_v sum_k r_k u_k k_k
+    (2 D^2 + 5 D) and S <- w * S + k v^T (3 D^2)."""
+    G, T, D = r.shape
+    nbytes = 4 * (5 * G * T * D + u.numel() + G * D * D
+                  + (G * D * D if s0 is not None else 0))
+    ops = G * T * (5 * D * D + 5 * D)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def phase_wkv6(card: str) -> dict:
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    lib = wops.build()
+    recs = {}
+    worst = 0.0
+    for shape, G, T, heads, with_state in (
+            ("prefill", 160, 512, 40, False), ("decode", 160, 1, 40, True),
+            ("edge", 1, 37, 1, False)):
+        r, k, v, w, u, s0 = wkv6_inputs(G, T, heads, with_state, seed=T)
+        y_k, s_k = wops.wkv6(r, k, v, w, u, s0)
+        y_p, s_p = wkv6_plain(r, k, v, w, u, s0)
+        # M: the largest sum of absolute terms an output accumulates
+        m_y, m_s = (float(x.max()) for x in wkv6_plain(
+            r.abs(), k.abs(), v.abs(), w, u.abs(),
+            None if s0 is None else s0.abs()))
+        torch.cuda.synchronize()
+        err_y = float((y_k - y_p).abs().max())
+        err_s = float((s_k - s_p).abs().max())
+        if not (err_y <= WKV_TOL * m_y and err_s <= WKV_TOL * m_s):
+            raise AssertionError(
+                f"wkv6 != plain ({shape}): max abs err y {err_y} (M {m_y}),"
+                f" S {err_s} (M {m_s}), tolerance {WKV_TOL} x M")
+        worst = max(worst, err_y, err_s)
+        y = torch.empty_like(r)
+        s_out = torch.empty((G, 64, 64), device=DEV)
+        s0_ptr = None if s0 is None else s0.data_ptr()
+
+        def launch():
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.wkv6_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 w.data_ptr(), u.data_ptr(), u.shape[0],
+                                 s0_ptr, y.data_ptr(), s_out.data_ptr(), G,
+                                 T, 64, stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        plain = lambda: wkv6_plain(r, k, v, w, u, s0)  # noqa: E731
+        p_iters = 3 if T > 64 else 20
+        rec = dict(phase="wkv6_kernel", kernel="wkv6", shape=shape, G=G, T=T,
+                   D=64, s0=with_state, max_abs_err_y=err_y,
+                   max_abs_err_s=err_s,
+                   rel_err_y=err_y / float(y_p.abs().max()),
+                   rel_err_s=err_s / float(s_p.abs().max()),
+                   err_y_over_M=err_y / m_y, err_s_over_M=err_s / m_s,
+                   ms=graph_ms(launch), eager_ms=cuda_ms(launch),
+                   plain_ms=graph_ms(plain, iters=p_iters),
+                   plain_eager_ms=cuda_ms(plain, iters=p_iters, warmup=1),
+                   **wkv6_bound(r, u, s0), card=card)
+        emit(rec)
+        recs[shape] = rec
+    return dict(recs["prefill"], max_abs_err=worst, decode=recs["decode"])
+
+
+def phase_lm_parity(card: str) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import decode_step, init_model, prefill
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b").reduced(), d_model=256)
+    cpu = init_model(cfg, seed=3, torch_device="cpu")
+    gpu = init_model(cfg, seed=3, torch_device=DEV)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = make_prompts(cfg.vocab, 2, 32, seed=4, device="cpu")
+    steps = 8
+    lc, cc, nc = prefill(cpu, prompts, 32 + steps)
+    lg, cg, ng = prefill(gpu, prompts.to(DEV), 32 + steps)
+    worst, compared = 0.0, 0
+    for i in range(steps + 1):
+        lg_c = lg.cpu()
+        scale = float(lc.abs().max())
+        err = float((lg_c - lc).abs().max())
+        if not (torch.isfinite(lg_c).all() and err <= LM_TOL * scale):
+            raise AssertionError(f"lm_parity step {i}: max abs err {err} > "
+                                 f"{LM_TOL} x {scale}")
+        worst = max(worst, err / scale)
+        top2 = lc.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LM_TOL * scale
+        if not torch.equal(lg_c.argmax(-1)[clear], lc.argmax(-1)[clear]):
+            raise AssertionError(f"lm_parity step {i}: greedy tokens differ")
+        compared += int(clear.sum())
+        if i == steps:
+            break
+        token = lc.argmax(-1).to(torch.int32)        # the CPU's token
+        lc, cc = decode_step(cpu, token, cc, nc)
+        lg, cg = decode_step(gpu, token.to(DEV), cg, ng)
+    rec = dict(phase="lm_parity", d_model=256, heads=4, layers=cfg.n_layers,
+               batch=2, prompt=32, steps=steps, max_rel_err=worst,
+               tol=LM_TOL, tokens_compared=compared, card=card)
+    emit(rec)
+    return rec
+
+
+def phase_serve(card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.models.transformer import init_model
+
+    batch, prompt_len, gen = 4, 512, 32
+    cfg = get_config("rwkv6-3b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = init_model(cfg, DTypePolicy(), seed=0, torch_device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = make_prompts(cfg.vocab, batch, prompt_len, seed=1, device=DEV)
+    warm = generate(model, prompts[:, :16], gen=2)       # cuBLAS warm-up
+    kops.reset_launch_count()
+    wops.reset_launch_count()
+    out = generate(model, prompts, gen)
+    torch.cuda.synchronize()
+    launches = {"prefix_select": kops.launch_count(),
+                "wkv6": wops.launch_count()}
+    want = cfg.n_layers * (1 + (gen - 1))
+    if launches["wkv6"] != want:
+        raise AssertionError(f"serve launched wkv6 {launches['wkv6']} times, "
+                             f"expected {want}")
+    toks = out["tokens"]
+    if not (out["all_finite"] and toks.shape == (batch, gen)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"serve output malformed: finite="
+                             f"{out['all_finite']}, tokens {tuple(toks.shape)}")
+    rec = dict(phase="serve", arch=cfg.name, dtype="float32",
+               params=n_params, batch=batch, prompt_len=prompt_len, gen=gen,
+               init_s=init_s, warmup_prefill_ms=warm["prefill_ms"],
+               prefill_ms=out["prefill_ms"],
+               prefill_tokens_per_s=batch * prompt_len / out["prefill_ms"]
+               * 1e3,
+               decode_first_ms=out["decode_ms"][0],
+               decode_p50_ms=out["decode_p50_ms"],
+               decode_p90_ms=out["decode_p90_ms"],
+               decode_tokens_per_s=out["decode_tokens_per_s"],
+               launches=launches, all_finite=out["all_finite"],
+               sample_row0=toks[0][:16].tolist(),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -466,21 +669,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.wkv6 import ops as wops
 
     t = time.perf_counter()
+    _build.compile_sources([kops.SOURCE, wops.SOURCE])   # in parallel
     kops.build()
-    log = kops.BUILD_DIR.glob("prefix_select_*.log")
-    emit(dict(phase="build", kernels=["prefix_select"],
+    wops.build()
+    emit(dict(phase="build", kernels=["prefix_select", "wkv6"],
               seconds=time.perf_counter() - t,
-              ptxas=[ln.strip() for p in log for ln in
-                     p.read_text().splitlines() if "ptxas info" in ln],
+              ptxas={"prefix_select": _build.ptxas_report(kops.SOURCE),
+                     "wkv6": _build.ptxas_report(wops.SOURCE)},
               card=card))
     kmain = phase_kernel(card)
     phase_evaluate(card)
     phase_golden(card)
     search = phase_search(card)
     phase_profile(card)
+    wmain = phase_wkv6(card)
+    phase_lm_parity(card)
+    serve = phase_serve(card)
 
     print(card)
     emit({"kernels": [{
@@ -491,7 +700,14 @@ def main() -> int:
         "launches": search["launches"]["prefix_select"],
         "max_abs_err": kmain["max_abs_err"], "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"], "bound_ms": kmain["bound_ms"],
-        "bound_by": kmain["bound_by"], "library_ms": None}]})
+        "bound_by": kmain["bound_by"], "library_ms": None}, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:28",
+        "launches": serve["launches"]["wkv6"],
+        "max_abs_err": wmain["max_abs_err"], "ms": wmain["ms"],
+        "plain_ms": wmain["plain_ms"], "bound_ms": wmain["bound_ms"],
+        "bound_by": wmain["bound_by"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

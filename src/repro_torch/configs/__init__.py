@@ -1,0 +1,39 @@
+"""Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
+
+It holds only the architectures whose serving path is ported. The JAX
+package's other architectures are known by name and raise
+``NotImplementedError`` until their slice of the port lands (ROADMAP,
+queue 1, item 12).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+}
+
+# architectures of the JAX package that the port does not serve yet
+_NOT_PORTED: Tuple[str, ...] = (
+    "smollm-135m", "qwen2.5-14b", "qwen3-8b", "yi-6b", "internvl2-26b",
+    "deepseek-v2-236b", "llama4-maverick-400b-a17b", "hubert-xlarge",
+    "recurrentgemma-9b",
+)
+
+ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet (ROADMAP, "
+            f"queue 1, item 12: the LM substrate); ported: {ARCH_NAMES}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
+    return importlib.import_module(_MODULES[name]).CONFIG
+
+
+__all__ = ["ModelConfig", "ARCH_NAMES", "get_config"]

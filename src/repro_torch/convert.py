@@ -3,17 +3,20 @@
 The reference's state leaves it as plain data: ``dataclasses.asdict`` of
 its ``TechDB`` (possibly through JSON, which turns int keys into strings
 and tuples into lists), a fitted normalizer's ``(mins, medians)``
-arrays, and a Pareto archive's ``checkpoint_arrays()`` dict. Encoded
-populations are int32 arrays and pass unchanged. Nothing here imports
-the reference.
+arrays, a Pareto archive's ``checkpoint_arrays()`` dict, and a language
+model's parameter and decode-cache pytrees (nested dicts of arrays with
+the layers stacked on a leading axis). Encoded populations are int32
+arrays and pass unchanged. Nothing here imports the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.techdb import MemorySpec, PackageSpec, ProtocolSpec, TechDB
 from repro_torch.core.templates import METRIC_FIELDS, Normalizer
 from repro_torch.pathfinding.pareto import ParetoArchive
@@ -73,3 +76,52 @@ def archive_from_arrays(arrays: Mapping[str, np.ndarray],
     float64 objective vectors)."""
     return ParetoArchive(max_size=max_size).from_checkpoint_arrays(
         {"enc": arrays["enc"], "vec": arrays["vec"]})
+
+
+def _layer_slices(tree: Mapping[str, Any], n_layers: int, prefix: str,
+                  out: Dict[str, torch.Tensor]) -> None:
+    """Split each leaf of a layer-stacked subtree into ``n_layers``
+    entries ``{prefix}{l}.{path}``."""
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+            return
+        arr = np.asarray(node)
+        if arr.ndim < 1 or arr.shape[0] != n_layers:
+            raise ValueError(f"{path}: expected a leading axis of "
+                             f"{n_layers} layers, got shape {arr.shape}")
+        for i in range(n_layers):
+            out[f"{prefix}{i}.{path}"] = torch.tensor(arr[i])
+    walk(tree, "")
+
+
+def lm_params_from_reference(tree: Mapping[str, Any],
+                             cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of :class:`repro_torch.models.transformer.LM`
+    from the reference's ``init_model`` pytree as numpy arrays (layers
+    stacked on a leading L axis), unstacked per layer. Load it with
+    ``model.load_state_dict(...)``, which rejects missing or extra
+    names."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet")
+    out = {k: torch.tensor(np.asarray(tree[k]))
+           for k in ("embed", "final_norm", "lm_head") if k in tree}
+    _layer_slices(tree["layers"], cfg.n_layers, "layers.", out)
+    return out
+
+
+def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig
+                         ) -> List[Dict[str, torch.Tensor]]:
+    """The port's decode cache (one dict per layer) from the reference's
+    stacked ``ssm`` cache ``{"wkv": (L,B,H,Dh,Dh), "tm_x": (L,B,D),
+    "cm_x": (L,B,D)}`` as numpy arrays."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet")
+    flat: Dict[str, torch.Tensor] = {}
+    _layer_slices({k: cache[k] for k in ("tm_x", "wkv", "cm_x")},
+                  cfg.n_layers, "", flat)
+    return [{k: flat[f"{i}.{k}"] for k in ("tm_x", "wkv", "cm_x")}
+            for i in range(cfg.n_layers)]

@@ -9,70 +9,34 @@ version (:func:`~repro_torch.kernels.prefix_gather.ref.
 prefix_select_plain`). There is no other switch, and a failed build or
 launch raises.
 
-The kernel is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, under ``build/kernels/`` at the
-repository root, named by a hash of its source, and loaded with
+The kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
+``sm_90a``, under ``build/kernels/``) at first use and loaded with
 ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.prefix_gather.ref import prefix_select_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "prefix_select.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library.
-
-    The compiler's resource report (``-Xptxas -v``) is kept beside the
-    library as ``<name>.log``."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"prefix_select_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc={proc.returncode}) building {SOURCE}:\n"
-                f"{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.prefix_select_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source version) and load the kernel library."""
+    return _build.load(SOURCE, _configure)
 
 
 def launch_count() -> int:

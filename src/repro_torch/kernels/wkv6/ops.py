@@ -1,0 +1,122 @@
+"""Wrapper, build and launch count of the ``wkv6`` CUDA kernel.
+
+:func:`wkv6` runs the RWKV-6 WKV recurrence over G = batch x heads rows
+(see :mod:`repro_torch.kernels.wkv6.ref` for the function). On a CUDA
+tensor it launches the hand-written Hopper kernel in ``csrc/wkv6.cu``;
+on a CPU tensor it runs the plain torch version
+(:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`). There is no other
+switch, and a failed build or launch raises.
+
+Layout. Rows are g = b*H + h. ``u`` is read as row ``g % H_u``: the
+model passes its per-head ``u`` of shape (H, D) as it is, a row stride
+of 0 over the batch, and nothing is expanded. The state ``(G, D, D)`` is
+indexed [g, k, v], which is the decode cache's ``(B, H, Dk, Dv)`` slab
+as it lies in memory; ``s_out`` may be that same slab, and the update is
+then in place.
+
+The kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
+``sm_90a``, under ``build/kernels/``) at first use and loaded with
+``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.wkv6.ref import wkv6_plain
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+SUPPORTED_D = (64,)          # the model's HEAD_DIM; the kernel is built for it
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    fn = lib.wkv6_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source version) and load the kernel library."""
+    return _build.load(SOURCE, _configure)
+
+
+def launch_count() -> int:
+    """Kernel launches since the last :func:`reset_launch_count`."""
+    return wkv6.launches
+
+
+def reset_launch_count() -> None:
+    wkv6.launches = 0
+
+
+def _check(r, k, v, w, u, s0, s_out):
+    dev = r.device
+    ts = [x for x in (r, k, v, w, u, s0, s_out) if x is not None]
+    if any(x.device != dev for x in ts):
+        raise ValueError("wkv6: all tensors must share one device")
+    if any(x.dtype != torch.float32 for x in ts):
+        raise TypeError("wkv6: every tensor must be float32, got "
+                        f"{[str(x.dtype) for x in ts]}")
+    if r.dim() != 3 or any(x.shape != r.shape for x in (k, v, w)):
+        raise ValueError("wkv6: r, k, v, w must be one (G, T, D) shape; got "
+                         f"{[tuple(x.shape) for x in (r, k, v, w)]}")
+    g, t, d = r.shape
+    if d not in SUPPORTED_D:
+        raise ValueError(f"wkv6: D = {d} is not supported (D in "
+                         f"{SUPPORTED_D})")
+    if g < 1 or t < 1:
+        raise ValueError(f"wkv6: need G >= 1 and T >= 1, got G={g}, T={t}")
+    if u.dim() != 2 or u.shape[1] != d or u.shape[0] < 1 or \
+            g % u.shape[0]:
+        raise ValueError(f"wkv6: u must be (H_u, {d}) with G={g} a multiple "
+                         f"of H_u; got {tuple(u.shape)}")
+    for name, s in (("s0", s0), ("s_out", s_out)):
+        if s is not None and s.shape != (g, d, d):
+            raise ValueError(f"wkv6: {name} must be ({g}, {d}, {d}), got "
+                             f"{tuple(s.shape)}")
+    if not all(x.is_contiguous() for x in ts):
+        raise ValueError("wkv6: tensors must be contiguous")
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None, *,
+         s_out: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y (G, T, D), S_T (G, D, D))`` float32 — see the module docstring
+    and :func:`~repro_torch.kernels.wkv6.ref.wkv6_plain` for the
+    arguments. The final state is written into ``s_out`` when it is
+    given (it may be ``s0`` itself) and returned."""
+    _check(r, k, v, w, u, s0, s_out)
+    if r.device.type == "cpu":
+        y, s = wkv6_plain(r, k, v, w, u, s0)
+        if s_out is not None:
+            s = s_out.copy_(s)
+        return y, s
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    lib = build()
+    g, t, d = r.shape
+    y = torch.empty_like(r)
+    s = s_out if s_out is not None else torch.empty(
+        (g, d, d), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wkv6_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), u.shape[0],
+            None if s0 is None else s0.data_ptr(), y.data_ptr(),
+            s.data_ptr(), g, t, d, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+    wkv6.launches += 1
+    return y, s
+
+
+wkv6.launches = 0

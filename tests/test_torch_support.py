@@ -28,7 +28,7 @@ import os
 import subprocess
 import sys
 import textwrap
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -84,3 +84,33 @@ def run_reference(body: str, inputs: Optional[Dict[str, np.ndarray]],
             f"reference run failed (rc={proc.returncode}):\n"
             f"{proc.stderr[-4000:]}")
     return dict(np.load(out_path, allow_pickle=False))
+
+
+# Reference-side helper for pytrees, prepended to a body that saves one:
+# ``flat(tree, "p/")`` turns nested dicts of arrays into "p/a/b" keys,
+# which np.savez can hold.
+FLAT = """
+def flat(tree, pre):
+    res = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            res.update(flat(v, pre + k + "/"))
+        else:
+            res[pre + k] = np.asarray(v)
+    return res
+"""
+
+
+def nest(arrays: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
+    """The nested dict under ``prefix`` of "prefix/a/b"-keyed arrays (the
+    inverse of the reference-side ``flat``)."""
+    out: Dict[str, Any] = {}
+    for key, arr in arrays.items():
+        if not key.startswith(prefix):
+            continue
+        node = out
+        *path, leaf = key[len(prefix):].split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return out
