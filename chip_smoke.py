@@ -10,7 +10,8 @@ one JSON line that carries the card's name and power limit:
 
 1. ``build``    — compile every CUDA kernel of the port's paths from the
    sources in the checkout (``nvcc``, sm_90a, one process per source,
-   all started together): ``prefix_select.cu`` and ``wkv6.cu``.
+   all started together): ``prefix_select.cu``, ``wkv6.cu`` and
+   ``rglru.cu``.
 2. ``kernel``   — ``prefix_select`` on the card against its plain torch
    version on the card, bitwise (``torch.equal``), on the real int64
    tables of workload 1 (single layout) and workloads 1+6 (stacked
@@ -40,6 +41,22 @@ one JSON line that carries the card's name and power limit:
    32 generated tokens, seeded weights and prompts), timed, with the
    ``wkv6`` launch count of that run (32 + 31 * 32 = 1024) and every
    logit checked finite.
+10. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
+    version on the card, bitwise (``torch.equal``), at the serve_hybrid
+    phase's shapes: prefill (B = 4, T = 3072, C = 4096, zero start),
+    decode (T = 1, nonzero start, ``h_out`` aliasing ``h0``) and an edge
+    case (1, 37, 200); kernel and plain times (in a CUDA graph and
+    eager) and the bound.
+11. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
+    of 64, 1 KV head, RG-LRU width 256, 5 layers: one group and the
+    2-layer tail, window 32) on cuda against the same weights on the
+    CPU: a 48-token prompt (beyond the window, so the ring cache is
+    rotated) and eight teacher-forced greedy steps.
+12. ``serve_hybrid`` — ``recurrentgemma-9b`` at full width in float32
+    through ``repro_torch.launch.serve`` (batch 4, prompt 3072, 1.5x the
+    2048 window, 32 generated tokens, seeded weights and prompts), timed,
+    with the ``rglru`` launch count of that run (26 RG-LRU layers x 32 =
+    832) and every logit checked finite.
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line and,
 last, ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -48,6 +65,8 @@ checkout of the repository, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -63,7 +82,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor-core rate (data sheet)
 TOL = 1e-6
 WKV_TOL = 1e-6                 # of the recurrence's magnitude M (phase_wkv6)
-LM_TOL = 1e-4                  # of max |logit|, cuda vs CPU (phase_lm_parity)
+LM_TOL = 1e-4                  # of max |logit|, cuda vs CPU (_decode_parity)
 DEV = "cuda"                   # the card the phases run on
 
 
@@ -563,57 +582,80 @@ def phase_wkv6(card: str) -> dict:
     return dict(recs["prefill"], max_abs_err=worst, decode=recs["decode"])
 
 
-def phase_lm_parity(card: str) -> dict:
-    import dataclasses
-
-    from repro_torch.configs import get_config
+def _decode_parity(cfg, prompt_len: int, seed: int, steps: int = 8,
+                   batch: int = 2) -> dict:
+    """The model of ``cfg`` on cuda against the same weights on the CPU:
+    prefill of a ``prompt_len`` prompt, then ``steps`` teacher-forced
+    greedy steps (the CPU's tokens fed to both); every step's logits
+    within ``LM_TOL`` of max |logit| and the greedy tokens equal where
+    the CPU's top-2 gap exceeds that."""
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models.transformer import decode_step, init_model, prefill
 
-    cfg = dataclasses.replace(get_config("rwkv6-3b").reduced(), d_model=256)
-    cpu = init_model(cfg, seed=3, torch_device="cpu")
-    gpu = init_model(cfg, seed=3, torch_device=DEV)
+    cpu = init_model(cfg, seed=seed, torch_device="cpu")
+    gpu = init_model(cfg, seed=seed, torch_device=DEV)
     gpu.load_state_dict(cpu.state_dict())
-    prompts = make_prompts(cfg.vocab, 2, 32, seed=4, device="cpu")
-    steps = 8
-    lc, cc, nc = prefill(cpu, prompts, 32 + steps)
-    lg, cg, ng = prefill(gpu, prompts.to(DEV), 32 + steps)
+    prompts = make_prompts(cfg.vocab, batch, prompt_len, seed=seed + 1,
+                           device="cpu")
+    lc, cc, nc = prefill(cpu, prompts, prompt_len + steps)
+    lg, cg, ng = prefill(gpu, prompts.to(DEV), prompt_len + steps)
     worst, compared = 0.0, 0
     for i in range(steps + 1):
         lg_c = lg.cpu()
         scale = float(lc.abs().max())
         err = float((lg_c - lc).abs().max())
         if not (torch.isfinite(lg_c).all() and err <= LM_TOL * scale):
-            raise AssertionError(f"lm_parity step {i}: max abs err {err} > "
-                                 f"{LM_TOL} x {scale}")
+            raise AssertionError(f"{cfg.name} parity step {i}: max abs err "
+                                 f"{err} > {LM_TOL} x {scale}")
         worst = max(worst, err / scale)
         top2 = lc.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > LM_TOL * scale
         if not torch.equal(lg_c.argmax(-1)[clear], lc.argmax(-1)[clear]):
-            raise AssertionError(f"lm_parity step {i}: greedy tokens differ")
+            raise AssertionError(f"{cfg.name} parity step {i}: greedy "
+                                 "tokens differ")
         compared += int(clear.sum())
         if i == steps:
             break
         token = lc.argmax(-1).to(torch.int32)        # the CPU's token
         lc, cc = decode_step(cpu, token, cc, nc)
         lg, cg = decode_step(gpu, token.to(DEV), cg, ng)
-    rec = dict(phase="lm_parity", d_model=256, heads=4, layers=cfg.n_layers,
-               batch=2, prompt=32, steps=steps, max_rel_err=worst,
-               tol=LM_TOL, tokens_compared=compared, card=card)
+        nc, ng = nc + 1, ng + 1
+    return dict(d_model=cfg.d_model, layers=cfg.n_layers,
+                batch=batch, prompt=prompt_len, steps=steps,
+                max_rel_err=worst, tol=LM_TOL, tokens_compared=compared)
+
+
+def phase_lm_parity(card: str) -> dict:
+    from repro_torch.configs import get_config
+
+    from repro_torch.models.rwkv6 import n_heads
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b").reduced(), d_model=256)
+    rec = dict(phase="lm_parity", **_decode_parity(cfg, 32, seed=3),
+               heads=n_heads(cfg), card=card)
     emit(rec)
     return rec
 
 
-def phase_serve(card: str) -> dict:
-    from repro_torch.configs import get_config
+def _launch_counters() -> dict:
     from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.rglru import ops as rops
     from repro_torch.kernels.wkv6 import ops as wops
+
+    return {"prefix_select": kops, "wkv6": wops, "rglru": rops}
+
+
+def _serve(card: str, phase: str, arch: str, prompt_len: int,
+           expect: dict, batch: int = 4, gen: int = 32) -> dict:
+    """``arch`` at full width in float32 through ``generate`` (prefill,
+    then ``gen - 1`` greedy steps), after a short warm-up run; the
+    kernel launch counts of the timed run must equal ``expect``."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models.common import DTypePolicy
     from repro_torch.models.transformer import init_model
 
-    batch, prompt_len, gen = 4, 512, 32
-    cfg = get_config("rwkv6-3b")
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -623,22 +665,22 @@ def phase_serve(card: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     prompts = make_prompts(cfg.vocab, batch, prompt_len, seed=1, device=DEV)
     warm = generate(model, prompts[:, :16], gen=2)       # cuBLAS warm-up
-    kops.reset_launch_count()
-    wops.reset_launch_count()
+    counters = _launch_counters()
+    for ops in counters.values():
+        ops.reset_launch_count()
     out = generate(model, prompts, gen)
     torch.cuda.synchronize()
-    launches = {"prefix_select": kops.launch_count(),
-                "wkv6": wops.launch_count()}
-    want = cfg.n_layers * (1 + (gen - 1))
-    if launches["wkv6"] != want:
-        raise AssertionError(f"serve launched wkv6 {launches['wkv6']} times, "
-                             f"expected {want}")
+    launches = {name: ops.launch_count() for name, ops in counters.items()}
+    for name, want in expect.items():
+        if launches[name] != want:
+            raise AssertionError(f"{phase} launched {name} "
+                                 f"{launches[name]} times, expected {want}")
     toks = out["tokens"]
     if not (out["all_finite"] and toks.shape == (batch, gen)
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
-        raise AssertionError(f"serve output malformed: finite="
+        raise AssertionError(f"{phase} output malformed: finite="
                              f"{out['all_finite']}, tokens {tuple(toks.shape)}")
-    rec = dict(phase="serve", arch=cfg.name, dtype="float32",
+    rec = dict(phase=phase, arch=cfg.name, dtype="float32",
                params=n_params, batch=batch, prompt_len=prompt_len, gen=gen,
                init_s=init_s, warmup_prefill_ms=warm["prefill_ms"],
                prefill_ms=out["prefill_ms"],
@@ -653,6 +695,137 @@ def phase_serve(card: str) -> dict:
                peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
     emit(rec)
     return rec
+
+
+def phase_serve(card: str) -> dict:
+    from repro_torch.configs import get_config
+
+    gen = 32
+    n_layers = get_config("rwkv6-3b").n_layers
+    return _serve(card, "serve", "rwkv6-3b", 512,
+                  {"wkv6": n_layers * gen}, gen=gen)
+
+
+# ---------------------------------------------------------------------------
+# rglru kernel / hybrid_parity / serve_hybrid phases: the RecurrentGemma
+# serving path
+# ---------------------------------------------------------------------------
+
+
+def rglru_inputs(B: int, T: int, C: int, with_state: bool, seed: int):
+    """Recurrence inputs in the model's regime: a = exp(-8 softplus(lam)
+    r) with lam uniform in [0.2, 0.9) and r = sigmoid(n); b = sqrt(1 -
+    a^2) * sigmoid(n) * n; a standard normal start state when asked."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+
+    lam = torch.rand((C,), generator=g, device=DEV) * 0.7 + 0.2
+    a = torch.exp(-8.0 * F.softplus(lam) * torch.sigmoid(n(B, T, C)))
+    b = torch.sqrt(1 - a * a) * torch.sigmoid(n(B, T, C)) * n(B, T, C)
+    h0 = n(B, C) if with_state else None
+    return a, b, h0
+
+
+def rglru_bound(a, h0) -> dict:
+    """a and b read once, the start state (when given) read once, h and
+    the final state written once, over HBM bandwidth; against one
+    multiply and one add per element over the fp32 non-tensor-core
+    rate."""
+    B, T, C = a.shape
+    nbytes = 4 * (3 * B * T * C + B * C + (B * C if h0 is not None else 0))
+    ops = 2 * B * T * C
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def phase_rglru(card: str) -> dict:
+    from repro_torch.kernels.rglru import ops as rops
+    from repro_torch.kernels.rglru import rglru_plain
+
+    lib = rops.build()
+    recs = {}
+    for shape, (B, T, C), with_state in (
+            ("prefill", (4, 3072, 4096), False),
+            ("decode", (4, 1, 4096), True), ("edge", (1, 37, 200), False)):
+        a, b, h0 = rglru_inputs(B, T, C, with_state, seed=T)
+        aliased = None
+        if with_state:                  # the decode cache's in-place update
+            state = h0.clone()
+            h_k, t_k = rops.rglru(a, b, state, h_out=state)
+            aliased = t_k.data_ptr() == state.data_ptr()
+        else:
+            h_k, t_k = rops.rglru(a, b)
+        h_p, t_p = rglru_plain(a, b, h0)
+        torch.cuda.synchronize()
+        equal = torch.equal(h_k, h_p) and torch.equal(t_k, t_p)
+        err = float(max((h_k - h_p).abs().max(), (t_k - t_p).abs().max()))
+        if not equal or aliased is False:
+            raise AssertionError(f"rglru != plain ({shape}): max abs err "
+                                 f"{err}, h_out aliased {aliased}")
+        h = torch.empty_like(a)
+        h_out = torch.empty((B, C), device=DEV)
+        h0_ptr = None if h0 is None else h0.data_ptr()
+
+        def launch():
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.rglru_launch(a.data_ptr(), b.data_ptr(), h0_ptr,
+                                  h.data_ptr(), h_out.data_ptr(), B, T, C,
+                                  stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        plain = lambda: rglru_plain(a, b, h0)  # noqa: E731
+        p_iters = 3 if T > 64 else 20
+        rec = dict(phase="rglru_kernel", kernel="rglru", shape=shape, B=B,
+                   T=T, C=C, h0=with_state, equal=equal, max_abs_err=err,
+                   h_out_aliased=aliased, ms=graph_ms(launch),
+                   eager_ms=cuda_ms(launch),
+                   plain_ms=graph_ms(plain, iters=p_iters),
+                   plain_eager_ms=cuda_ms(plain, iters=p_iters, warmup=1),
+                   **rglru_bound(a, h0), card=card)
+        emit(rec)
+        recs[shape] = rec
+    return dict(recs["prefill"], decode=recs["decode"])
+
+
+def phase_hybrid_parity(card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru import ops as rops
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              d_model=256, d_head=64, rg_lru_width=256,
+                              n_layers=5)
+    steps = 8
+    rops.reset_launch_count()
+    rec = dict(phase="hybrid_parity", **_decode_parity(cfg, 48, seed=3,
+                                                       steps=steps),
+               heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+               window=cfg.local_window,
+               rglru_launches=rops.launch_count(), card=card)
+    want = 4 * (1 + steps)                 # 4 RG-LRU layers on the card
+    if rec["rglru_launches"] != want:
+        raise AssertionError(f"hybrid_parity launched rglru "
+                             f"{rec['rglru_launches']} times, expected {want}")
+    emit(rec)
+    return rec
+
+
+def phase_serve_hybrid(card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import hybrid_layout
+
+    gen = 32
+    n_groups, tail = hybrid_layout(get_config("recurrentgemma-9b"))
+    n_rg = 2 * n_groups + tail
+    return _serve(card, "serve_hybrid", "recurrentgemma-9b", 3072,
+                  {"rglru": n_rg * gen}, gen=gen)
 
 
 def main() -> int:
@@ -670,17 +843,16 @@ def main() -> int:
     card = card_line()
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.prefix_gather import ops as kops
-    from repro_torch.kernels.wkv6 import ops as wops
 
+    counters = _launch_counters()
     t = time.perf_counter()
-    _build.compile_sources([kops.SOURCE, wops.SOURCE])   # in parallel
-    kops.build()
-    wops.build()
-    emit(dict(phase="build", kernels=["prefix_select", "wkv6"],
+    _build.compile_sources([ops.SOURCE for ops in counters.values()])
+    for ops in counters.values():                      # built in parallel
+        ops.build()
+    emit(dict(phase="build", kernels=list(counters),
               seconds=time.perf_counter() - t,
-              ptxas={"prefix_select": _build.ptxas_report(kops.SOURCE),
-                     "wkv6": _build.ptxas_report(wops.SOURCE)},
+              ptxas={name: _build.ptxas_report(ops.SOURCE)
+                     for name, ops in counters.items()},
               card=card))
     kmain = phase_kernel(card)
     phase_evaluate(card)
@@ -690,6 +862,11 @@ def main() -> int:
     wmain = phase_wkv6(card)
     phase_lm_parity(card)
     serve = phase_serve(card)
+    gc.collect()                          # free the RWKV-6 model's memory
+    torch.cuda.empty_cache()
+    rmain = phase_rglru(card)
+    phase_hybrid_parity(card)
+    serve_h = phase_serve_hybrid(card)
 
     print(card)
     emit({"kernels": [{
@@ -707,7 +884,14 @@ def main() -> int:
         "launches": serve["launches"]["wkv6"],
         "max_abs_err": wmain["max_abs_err"], "ms": wmain["ms"],
         "plain_ms": wmain["plain_ms"], "bound_ms": wmain["bound_ms"],
-        "bound_by": wmain["bound_by"], "library_ms": None}]})
+        "bound_by": wmain["bound_by"], "library_ms": None}, {
+        "name": "rglru", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:23",
+        "launches": serve_h["launches"]["rglru"],
+        "max_abs_err": rmain["max_abs_err"], "ms": rmain["ms"],
+        "plain_ms": rmain["plain_ms"], "bound_ms": rmain["bound_ms"],
+        "bound_by": rmain["bound_by"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-It holds only the architectures whose serving path is ported. The JAX
+It holds only the architectures whose serving path is ported: RWKV-6
+(``rwkv6-3b``) and RecurrentGemma (``recurrentgemma-9b``). The JAX
 package's other architectures are known by name and raise
 ``NotImplementedError`` until their slice of the port lands (ROADMAP,
 queue 1, item 12).
@@ -14,13 +15,13 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 # architectures of the JAX package that the port does not serve yet
 _NOT_PORTED: Tuple[str, ...] = (
     "smollm-135m", "qwen2.5-14b", "qwen3-8b", "yi-6b", "internvl2-26b",
     "deepseek-v2-236b", "llama4-maverick-400b-a17b", "hubert-xlarge",
-    "recurrentgemma-9b",
 )
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)

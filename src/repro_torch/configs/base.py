@@ -1,9 +1,10 @@
 """Architecture configuration schema (from the JAX package's
 ``configs/base.py``, which imports no framework).
 
-It keeps the fields, the ``param_count`` branch and the ``reduced()``
-entries that the ported ``ssm`` family reads; the other families' fields
-come back with the slice that first reads them.
+It keeps the fields, the ``param_count`` branches and the ``reduced()``
+entries that the ported families read: ``ssm`` (RWKV-6) and ``hybrid``
+(RecurrentGemma: RG-LRU and local-attention layers). The other
+families' fields come back with the slice that first reads them.
 
 One :class:`ModelConfig` per ported architecture lives in
 ``repro_torch/configs/<id>.py``; ``repro_torch.configs.get_config(name)``
@@ -13,6 +14,9 @@ variant the CPU tests instantiate.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
+PORTED_FAMILIES = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,31 +29,76 @@ class ModelConfig:
     n_kv_heads: int
     d_ff: int
     vocab: int
+    d_head: Optional[int] = None  # defaults to d_model // n_heads
+    rope_theta: float = 10000.0
+
+    # hybrid / recurrent (recurrentgemma)
+    block_pattern: Tuple[str, ...] = ()   # e.g. ("rglru", "rglru", "local")
+    local_window: int = 2048
+    rg_conv_width: int = 4
+    rg_lru_width: Optional[int] = None    # defaults to d_model
+
     tie_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.d_head is None and self.n_heads:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
 
     def param_count(self) -> int:
         """Analytical parameter count (excludes biases/norms ~<0.1%)."""
-        if self.family != "ssm":
+        if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"param_count of family {self.family!r} is not ported")
         d = self.d_model
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
-        # rwkv6 time-mix: 5 projections d^2 + ddlerp lora (5-way, r=32)
-        # + decay lora (2r) + mixes/bonus; channel mix: 2 d*ff + r-gate
-        lora = 32
-        per_layer = (5 * d * d + 10 * lora * d + 4 * lora * d
-                     + 9 * d) + (2 * d * self.d_ff + d * d + 2 * d)
+        if self.family == "ssm":
+            # rwkv6 time-mix: 5 projections d^2 + ddlerp lora (5-way, r=32)
+            # + decay lora (2r) + mixes/bonus; channel mix: 2 d*ff + r-gate
+            lora = 32
+            per_layer = (5 * d * d + 10 * lora * d + 4 * lora * d
+                         + 9 * d) + (2 * d * self.d_ff + d * d + 2 * d)
+        else:
+            # mixture of rglru + local-attn layers; approximate with the
+            # pattern-weighted average
+            pat = self.block_pattern or ("rglru",)
+            n_rec = sum(1 for p in pat if p == "rglru") / len(pat)
+            w = self.rg_lru_width or d
+            rec = 2 * d * w + w * d + 4 * w  # gates + in/out proj + conv
+            attn = (d * self.n_heads * self.d_head
+                    + 2 * d * self.n_kv_heads * self.d_head
+                    + self.n_heads * self.d_head * d)
+            per_layer = n_rec * rec + (1 - n_rec) * attn + 3 * d * self.d_ff
         return int(emb + self.n_layers * per_layer)
 
     def reduced(self) -> "ModelConfig":
         """Family-preserving tiny config for CPU smoke tests."""
+        pat = self.block_pattern
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
-            n_layers=2,
+            n_layers=max(2, len(pat) or 2),
             d_model=64,
             n_heads=max(1, min(4, self.n_heads)),
             n_kv_heads=max(1, min(2, self.n_kv_heads)),
+            d_head=16,
             d_ff=128,
             vocab=128,
+            local_window=32,
+            rg_lru_width=64 if self.rg_lru_width else None,
         )
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported to "
+            "repro_torch yet (ROADMAP, queue 1, item 12); ported: "
+            f"{PORTED_FAMILIES}")
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, tail layers) of a hybrid config: ``n_layers`` split into
+    groups of ``len(block_pattern)`` and the remainder."""
+    pat = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // pat
+    return n_groups, cfg.n_layers - n_groups * pat

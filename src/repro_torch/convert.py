@@ -11,12 +11,12 @@ arrays and pass unchanged. Nothing here imports the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, hybrid_layout, require_ported
 from repro_torch.core.techdb import MemorySpec, PackageSpec, ProtocolSpec, TechDB
 from repro_torch.core.templates import METRIC_FIELDS, Normalizer
 from repro_torch.pathfinding.pareto import ParetoArchive
@@ -99,29 +99,53 @@ def _layer_slices(tree: Mapping[str, Any], n_layers: int, prefix: str,
 def lm_params_from_reference(tree: Mapping[str, Any],
                              cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of :class:`repro_torch.models.transformer.LM`
-    from the reference's ``init_model`` pytree as numpy arrays (layers
-    stacked on a leading L axis), unstacked per layer. Load it with
+    from the reference's ``init_model`` pytree as numpy arrays, unstacked
+    per layer: ``layers`` (ssm, stacked on L) or ``groups`` and ``tail``
+    (hybrid, stacked on the group and tail counts). Load it with
     ``model.load_state_dict(...)``, which rejects missing or extra
     names."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
+    require_ported(cfg)
     out = {k: torch.tensor(np.asarray(tree[k]))
            for k in ("embed", "final_norm", "lm_head") if k in tree}
-    _layer_slices(tree["layers"], cfg.n_layers, "layers.", out)
+    if cfg.family == "ssm":
+        _layer_slices(tree["layers"], cfg.n_layers, "layers.", out)
+        return out
+    n_groups, tail = hybrid_layout(cfg)
+    _layer_slices(tree["groups"], n_groups, "groups.", out)
+    if tail:
+        _layer_slices(tree["tail"], tail, "tail.", out)
     return out
 
 
-def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig
-                         ) -> List[Dict[str, torch.Tensor]]:
-    """The port's decode cache (one dict per layer) from the reference's
-    stacked ``ssm`` cache ``{"wkv": (L,B,H,Dh,Dh), "tm_x": (L,B,D),
-    "cm_x": (L,B,D)}`` as numpy arrays."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet")
-    flat: Dict[str, torch.Tensor] = {}
-    _layer_slices({k: cache[k] for k in ("tm_x", "wkv", "cm_x")},
-                  cfg.n_layers, "", flat)
-    return [{k: flat[f"{i}.{k}"] for k in ("tm_x", "wkv", "cm_x")}
-            for i in range(cfg.n_layers)]
+def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig):
+    """The port's decode cache from the reference's stacked one, as numpy
+    arrays:
+
+    - ssm: ``{"wkv": (L,B,H,Dh,Dh), "tm_x": (L,B,D), "cm_x": (L,B,D)}``
+      becomes one dict per layer;
+    - hybrid: ``{"rg1", "rg2", "tail": {"conv": (n,B,K-1,W), "h":
+      (n,B,W)}, "kv": (k, v) each (G,B,win,KV,Dh)}`` becomes
+      ``{"groups": [{"rg1", "rg2", "kv"}, ...], "tail": [...]}``.
+    """
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        names = ("tm_x", "wkv", "cm_x")
+        flat: Dict[str, torch.Tensor] = {}
+        _layer_slices({k: cache[k] for k in names}, cfg.n_layers, "", flat)
+        return [{k: flat[f"{i}.{k}"] for k in names}
+                for i in range(cfg.n_layers)]
+    n_groups, tail = hybrid_layout(cfg)
+    k, v = cache["kv"]
+    flat = {}
+    _layer_slices({"rg1": cache["rg1"], "rg2": cache["rg2"],
+                   "k": k, "v": v}, n_groups, "", flat)
+    if tail:
+        _layer_slices(cache["tail"], tail, "tail.", flat)
+
+    def state(pre):
+        return {"conv": flat[f"{pre}.conv"], "h": flat[f"{pre}.h"]}
+
+    return {"groups": [{"rg1": state(f"{i}.rg1"), "rg2": state(f"{i}.rg2"),
+                        "kv": (flat[f"{i}.k"], flat[f"{i}.v"])}
+                       for i in range(n_groups)],
+            "tail": [state(f"tail.{j}") for j in range(tail)]}

@@ -1,0 +1,107 @@
+"""Wrapper, build and launch count of the ``rglru`` CUDA kernel.
+
+:func:`rglru` runs the RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t``
+over (B, T, C) (see :mod:`repro_torch.kernels.rglru.ref` for the
+function). On a CUDA tensor it launches the hand-written Hopper kernel
+in ``csrc/rglru.cu``; on a CPU tensor it runs the plain torch version
+(:func:`~repro_torch.kernels.rglru.ref.rglru_plain`). There is no other
+switch, and a failed build or launch raises.
+
+The final state is written into ``h_out`` (B, C), which may be ``h0``
+itself: the decode cache's ``h`` slab is then updated in place. Any
+T >= 1 and C >= 1 run as they are, with no padding.
+
+The kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
+``sm_90a``, under ``build/kernels/``) at first use and loaded with
+``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rglru.ref import rglru_plain
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru.cu"
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    fn = lib.rglru_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source version) and load the kernel library."""
+    return _build.load(SOURCE, _configure)
+
+
+def launch_count() -> int:
+    """Kernel launches since the last :func:`reset_launch_count`."""
+    return rglru.launches
+
+
+def reset_launch_count() -> None:
+    rglru.launches = 0
+
+
+def _check(a, b, h0, h_out):
+    ts = [x for x in (a, b, h0, h_out) if x is not None]
+    if any(x.device != a.device for x in ts):
+        raise ValueError("rglru: all tensors must share one device")
+    if any(x.dtype != torch.float32 for x in ts):
+        raise TypeError("rglru: every tensor must be float32, got "
+                        f"{[str(x.dtype) for x in ts]}")
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError("rglru: a and b must be one (B, T, C) shape; got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    bsz, t, c = a.shape
+    if min(bsz, t, c) < 1:
+        raise ValueError(f"rglru: need B, T, C >= 1, got {tuple(a.shape)}")
+    for name, h in (("h0", h0), ("h_out", h_out)):
+        if h is not None and h.shape != (bsz, c):
+            raise ValueError(f"rglru: {name} must be ({bsz}, {c}), got "
+                             f"{tuple(h.shape)}")
+    if not all(x.is_contiguous() for x in ts):
+        raise ValueError("rglru: tensors must be contiguous")
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor,
+          h0: Optional[torch.Tensor] = None, *,
+          h_out: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(h (B, T, C), h_T (B, C))`` float32 from ``a, b`` (B, T, C) and
+    the start state ``h0`` (B, C) (zeros when None). The final state is
+    written into ``h_out`` when it is given (it may be ``h0`` itself)
+    and returned."""
+    _check(a, b, h0, h_out)
+    if a.device.type == "cpu":
+        h, h_t = rglru_plain(a, b, h0)
+        if h_out is not None:
+            h_t = h_out.copy_(h_t)
+        return h, h_t
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru: unsupported device {a.device}")
+    lib = build()
+    bsz, t, c = a.shape
+    h = torch.empty_like(a)
+    h_t = h_out if h_out is not None else torch.empty(
+        (bsz, c), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_launch(
+            a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(), h.data_ptr(),
+            h_t.data_ptr(), bsz, t, c, stream)
+    if err != 0:
+        raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
+    rglru.launches += 1
+    return h, h_t
+
+
+rglru.launches = 0

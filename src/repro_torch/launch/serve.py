@@ -4,6 +4,12 @@
         --batch 4 --prompt-len 512 --gen 32            # on cuda, full width
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --device cpu --reduced --batch 2 --prompt-len 16 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --batch 4 --prompt-len 3072 --gen 32
+        # on cuda, full width: 34.3 GB of float32 weights
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --device cpu --reduced --batch 2 \
+        --prompt-len 40 --gen 4
 
 Draws the model's weights from a seeded ``torch.Generator`` and the
 prompts from numpy, prefills the batch, then runs the decode loop

@@ -1,16 +1,18 @@
-"""Shared model building blocks: dtype policy, initializer, RMS norm.
+"""Shared model building blocks: dtype policy, initializer, RMS norm,
+rotary position embeddings, and the module that holds a layer's
+parameters.
 
 The torch counterparts of the JAX package's ``models/common.py`` that the
-RWKV-6 serving path uses. Parameters are created from an explicit
-``torch.Generator`` on the device they will live on; the JAX package's
-RoPE, scan helpers and cost-probe mode have no use here (layers run as a
-Python loop).
+RWKV-6 and RecurrentGemma serving paths use. Parameters are created from
+an explicit ``torch.Generator`` on the device they will live on; the JAX
+package's scan helpers and cost-probe mode have no use here (layers run
+as a Python loop).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -52,3 +54,41 @@ def init_rms_norm(d: int, dtype: torch.dtype, device=None) -> torch.Tensor:
 def frozen(t: torch.Tensor) -> nn.Parameter:
     """A parameter that takes no gradient (the port only serves)."""
     return nn.Parameter(t, requires_grad=False)
+
+
+class FrozenParams(nn.Module):
+    """A module holding a dict of tensors as parameters without grads,
+    under the JAX package's parameter names; the ``*_forward`` functions
+    read them as attributes."""
+
+    def __init__(self, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in params.items():
+            self.register_parameter(name, frozen(t))
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(d_head: int, theta: float = 10000.0, device=None
+               ) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: (..., S). Rotates the interleaved
+    pairs (2i, 2i+1), as the JAX package does (not the two halves), with
+    the angles in float32."""
+    d_head = x.shape[-1]
+    freqs = rope_freqs(d_head, theta, x.device)              # (Dh/2,)
+    angles = positions[..., :, None, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)

@@ -22,13 +22,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.models.common import (
     DTypePolicy,
-    frozen,
+    FrozenParams,
     init_rms_norm,
     normal_init,
     rms_norm,
@@ -177,16 +176,7 @@ def channel_mix_forward(p, x: torch.Tensor,
     return r * kv, x[:, -1].clone()
 
 
-class _Frozen(nn.Module):
-    """A module holding a dict of tensors as parameters without grads."""
-
-    def __init__(self, params: Params):
-        super().__init__()
-        for name, t in params.items():
-            self.register_parameter(name, frozen(t))
-
-
-class TimeMix(_Frozen):
+class TimeMix(FrozenParams):
     def __init__(self, cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(),
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__(init_time_mix(cfg, policy, generator, device))
@@ -196,7 +186,7 @@ class TimeMix(_Frozen):
         return time_mix_forward(self, x, self.cfg, state)
 
 
-class ChannelMix(_Frozen):
+class ChannelMix(FrozenParams):
     def __init__(self, cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(),
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__(init_channel_mix(cfg, policy, generator, device))

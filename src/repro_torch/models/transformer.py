@@ -1,8 +1,13 @@
-"""Model assembly: the ``ssm`` family (RWKV-6), the one the port serves.
+"""Model assembly: the families the port serves.
 
 The torch counterpart of the JAX package's ``models/transformer.py`` for
-attention-free RWKV-6 (time-mix + channel-mix layers). The other
-families (dense, vlm, audio, moe, hybrid) raise ``NotImplementedError``
+
+  ssm    — RWKV-6 (time-mix + channel-mix), attention-free;
+  hybrid — RecurrentGemma: groups of (RG-LRU, RG-LRU, local attention),
+           then a tail of RG-LRU layers, each sub-layer with its own
+           SwiGLU MLP.
+
+The other families (dense, vlm, audio, moe) raise ``NotImplementedError``
 until their slice of the port lands (ROADMAP, queue 1, item 12).
 
 API, as the JAX package's, with the parameters held by an :class:`LM`
@@ -14,22 +19,34 @@ module that also carries its config:
   prefill(model, tokens, cache_len)                -> (last logits (B,V), cache, lengths)
   decode_step(model, token, cache, length)         -> (logits (B,V), cache)
 
-Layers run as a Python loop. A cache is a list with one dict per layer,
-``{"tm_x": (B,D), "wkv": (B,H,Dh,Dh) float32, "cm_x": (B,D)}``;
-:func:`decode_step` updates each ``wkv`` slab in place. The JAX
-package's sharding constraints do nothing on one device and are left
+Layers run as a Python loop. Submodules are named as the reference's
+parameter tree: ``layers.{l}`` (ssm); ``groups.{i}.{rg1,rg2,attn}`` and
+``tail.{j}`` (hybrid). Caches:
+
+- ssm: a list with one dict per layer, ``{"tm_x": (B,D), "wkv":
+  (B,H,Dh,Dh) float32, "cm_x": (B,D)}``;
+- hybrid: ``{"groups": [{"rg1": st, "rg2": st, "kv": (k, v)}, ...],
+  "tail": [st, ...]}`` with ``st = {"conv": (B,K-1,W), "h": (B,W)
+  float32}`` and a ring-buffer window cache ``k, v (B,win,KV,Dh)`` that
+  holds position p at slot ``p % win``.
+
+:func:`decode_step` updates the ``wkv``, ``h`` and KV slabs in place. The
+JAX package's sharding constraints do nothing on one device and are left
 out. Entry points take ``torch_device``: ``None`` means cuda and raises
 without a GPU; the CPU runs only when asked for.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, hybrid_layout, require_ported
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (
     DTypePolicy,
@@ -39,16 +56,7 @@ from repro_torch.models.common import (
     rms_norm,
 )
 
-Cache = List[Dict[str, torch.Tensor]]
-
-
-def _require_ssm(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet (ROADMAP, queue 1, item 12); only 'ssm' "
-            "(RWKV-6) is")
-
+Cache = Union[List[Dict[str, torch.Tensor]], Dict[str, Any]]
 
 class RWKVLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
@@ -61,13 +69,51 @@ class RWKVLayer(nn.Module):
         self.cm = rwkv_mod.ChannelMix(cfg, policy, generator, device)
 
 
+class RGLayer(nn.Module):
+    """A recurrent sub-layer: norm, RG-LRU block, norm, MLP."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        d, dt = cfg.d_model, policy.param_dtype
+        self.ln1 = frozen(init_rms_norm(d, dt, device))
+        self.block = rg_mod.RGBlock(cfg, policy, generator, device)
+        self.ln2 = frozen(init_rms_norm(d, dt, device))
+        self.mlp = moe_mod.MLP(d, cfg.d_ff, policy, generator, device)
+
+
+class AttnLayer(nn.Module):
+    """A local-attention sub-layer: norm, GQA, norm, MLP."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        d, dt = cfg.d_model, policy.param_dtype
+        self.ln1 = frozen(init_rms_norm(d, dt, device))
+        self.attn = attn_mod.GQA(cfg, policy, generator, device)
+        self.ln2 = frozen(init_rms_norm(d, dt, device))
+        self.mlp = moe_mod.MLP(d, cfg.d_ff, policy, generator, device)
+
+
+class HybridGroup(nn.Module):
+    """(rglru, rglru, local attention)."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        self.rg1 = RGLayer(cfg, policy, generator, device)
+        self.rg2 = RGLayer(cfg, policy, generator, device)
+        self.attn = AttnLayer(cfg, policy, generator, device)
+
+
 class LM(nn.Module):
-    """Embedding, ``cfg.n_layers`` RWKV-6 layers, final norm, LM head."""
+    """Embedding, the family's layers, final norm, LM head (``embed.T``
+    when the embeddings are tied)."""
 
     def __init__(self, cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(),
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        _require_ssm(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         d, dt = cfg.d_model, policy.param_dtype
         self.embed = frozen(normal_init((cfg.vocab, d), 1.0, dt, generator,
@@ -76,20 +122,34 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = frozen(normal_init((d, cfg.vocab), 1.0, dt,
                                                generator, device))
-        self.layers = nn.ModuleList(
-            RWKVLayer(cfg, policy, generator, device)
-            for _ in range(cfg.n_layers))
+        if cfg.family == "ssm":
+            self.layers = nn.ModuleList(
+                RWKVLayer(cfg, policy, generator, device)
+                for _ in range(cfg.n_layers))
+        else:
+            n_groups, tail = hybrid_layout(cfg)
+            self.groups = nn.ModuleList(
+                HybridGroup(cfg, policy, generator, device)
+                for _ in range(n_groups))
+            self.tail = nn.ModuleList(
+                RGLayer(cfg, policy, generator, device)
+                for _ in range(tail))
 
 
 def init_model(cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(), *,
                seed: int = 0, torch_device: DeviceLike = None) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     the target device (so a full-width model is drawn where it lives)."""
-    _require_ssm(cfg)
+    require_ported(cfg)
     dev = resolve_device(torch_device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         return LM(cfg, policy, gen, dev)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
 
 
 def _rwkv_block(layer: RWKVLayer, x: torch.Tensor, cfg: ModelConfig,
@@ -104,6 +164,93 @@ def _rwkv_block(layer: RWKVLayer, x: torch.Tensor, cfg: ModelConfig,
     return x + y, {"tm_x": tm_x, "wkv": wkv, "cm_x": cm_x}
 
 
+def _mlp_block(layer, x: torch.Tensor) -> torch.Tensor:
+    """The second half of a hybrid sub-layer: x + MLP(norm(x))."""
+    return x + moe_mod.mlp_forward(layer.mlp, rms_norm(x, layer.ln2))
+
+
+def _rg_sub_block(layer: RGLayer, x: torch.Tensor, cfg: ModelConfig,
+                  state=None):
+    h = rms_norm(x, layer.ln1)
+    y, new_state = rg_mod.rg_block_forward(layer.block, h, cfg, state)
+    return _mlp_block(layer, x + y), new_state
+
+
+def _rg_to_state(st) -> Dict[str, torch.Tensor]:
+    conv, h = st
+    return {"conv": conv, "h": h}
+
+
+def _rg_decode(layer: RGLayer, x: torch.Tensor, cfg: ModelConfig,
+               state: Dict[str, torch.Tensor]):
+    """One step of a recurrent sub-layer; the state's ``h`` slab is
+    updated in place."""
+    y, st = _rg_sub_block(layer, x, cfg, (state["conv"], state["h"]))
+    return y, _rg_to_state(st)
+
+
+def _windowed_prefill(p, x, positions, cfg: ModelConfig, win: int):
+    """Sliding-window attention over the full sequence; returns the
+    ring-buffer cache holding the last ``win`` positions (aligned so
+    slot = pos mod win)."""
+    b, s, _ = x.shape
+    q, k, v = attn_mod._project_qkv(p, x, cfg)
+    q, k = attn_mod.rope_qk(q, k, positions, cfg)
+    out = attn_mod.chunked_attention(q, k, v, window=win)
+    y = out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo
+    # last `win` kv, placed at slots (pos mod win)
+    slots = positions[:, -win:] % win
+    bidx = torch.arange(b, device=x.device)[:, None]
+    ck = k.new_zeros((b, win) + k.shape[2:])
+    cv = v.new_zeros((b, win) + v.shape[2:])
+    ck[bidx, slots] = k[:, -win:]
+    cv[bidx, slots] = v[:, -win:]
+    return y, (ck, cv)
+
+
+def _hybrid_prefill(model: LM, tokens: torch.Tensor, win: int):
+    """Embedding and the hybrid layers over the full sequence with an
+    attention window of ``win``. Returns (x, cache). It embeds the tokens
+    itself, so that no caller holds the (B, S, D) embedding through the
+    layers."""
+    cfg = model.cfg
+    x = _embed(model, tokens)
+    positions = _positions(*x.shape[:2], x.device)
+    groups = []
+    for grp in model.groups:
+        x, rg1 = _rg_sub_block(grp.rg1, x, cfg)
+        x, rg2 = _rg_sub_block(grp.rg2, x, cfg)
+        y, kv = _windowed_prefill(grp.attn.attn, rms_norm(x, grp.attn.ln1),
+                                  positions, cfg, win)
+        x = _mlp_block(grp.attn, x + y)
+        groups.append({"rg1": _rg_to_state(rg1), "rg2": _rg_to_state(rg2),
+                       "kv": kv})
+    tail = []
+    for layer in model.tail:
+        x, st = _rg_sub_block(layer, x, cfg)
+        tail.append(_rg_to_state(st))
+    return x, {"groups": groups, "tail": tail}
+
+
+def _windowed_decode(p, x1, cache, length, cfg: ModelConfig):
+    """Sliding-window decode with a ring-buffer cache of ``win`` slots:
+    the new KV overwrites slot (length mod win) in place; attention masks
+    the slots beyond min(length+1, win)."""
+    b = x1.shape[0]
+    q, k, v = attn_mod._project_qkv(p, x1, cfg)
+    pos = length.long()
+    q, k = attn_mod.rope_qk(q, k, pos[:, None], cfg)
+    ck, cv = cache
+    win = ck.shape[1]
+    bidx = torch.arange(b, device=x1.device)
+    slot = pos % win
+    ck[bidx, slot] = k[:, 0]
+    cv[bidx, slot] = v[:, 0]
+    valid = torch.clamp(pos + 1, max=win)
+    out = attn_mod.decode_attention(q[:, 0], ck, cv, length=valid)
+    return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p.wo, (ck, cv)
+
+
 def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[torch.as_tensor(tokens, device=model.embed.device)]
 
@@ -114,14 +261,26 @@ def _unembed(model: LM, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device).expand(b, s)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
 @torch.inference_mode()
 def forward(model: LM, tokens: torch.Tensor):
     """Full-sequence forward. Returns (logits (B,S,V), aux_loss = 0)."""
     cfg = model.cfg
-    _require_ssm(cfg)
-    x = _embed(model, tokens)
-    for layer in model.layers:
-        x, _ = _rwkv_block(layer, x, cfg)
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        x = _embed(model, tokens)
+        for layer in model.layers:
+            x, _ = _rwkv_block(layer, x, cfg)
+    else:
+        x, _ = _hybrid_prefill(model, tokens, cfg.local_window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(model, x), aux
 
@@ -130,30 +289,54 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                policy: DTypePolicy = DTypePolicy(), *,
                torch_device: DeviceLike = None) -> Cache:
     """Decode state for ``batch`` sequences. RWKV-6's state is O(1) in the
-    context, so ``cache_len`` sets no size."""
-    _require_ssm(cfg)
+    context, so ``cache_len`` sets no size there; the hybrid window cache
+    has ``min(local_window, cache_len)`` slots."""
+    require_ported(cfg)
     dev = resolve_device(torch_device)
-    h, dh, dt = rwkv_mod.n_heads(cfg), rwkv_mod.HEAD_DIM, policy.compute_dtype
-    return [{"tm_x": torch.zeros((batch, cfg.d_model), dtype=dt, device=dev),
-             "wkv": torch.zeros((batch, h, dh, dh), dtype=torch.float32,
-                                device=dev),
-             "cm_x": torch.zeros((batch, cfg.d_model), dtype=dt, device=dev)}
-            for _ in range(cfg.n_layers)]
+    dt = policy.compute_dtype
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family == "ssm":
+        h, dh = rwkv_mod.n_heads(cfg), rwkv_mod.HEAD_DIM
+        return [{"tm_x": zeros(batch, cfg.d_model),
+                 "wkv": zeros(batch, h, dh, dh, dtype=torch.float32),
+                 "cm_x": zeros(batch, cfg.d_model)}
+                for _ in range(cfg.n_layers)]
+    w = cfg.rg_lru_width or cfg.d_model
+    n_groups, tail = hybrid_layout(cfg)
+    win = min(cfg.local_window, cache_len)
+
+    def rg_state():
+        return {"conv": zeros(batch, cfg.rg_conv_width - 1, w),
+                "h": zeros(batch, w, dtype=torch.float32)}
+
+    def kv():
+        return zeros(batch, win, cfg.n_kv_heads, cfg.d_head)
+
+    return {"groups": [{"rg1": rg_state(), "rg2": rg_state(),
+                        "kv": (kv(), kv())} for _ in range(n_groups)],
+            "tail": [rg_state() for _ in range(tail)]}
 
 
 @torch.inference_mode()
 def prefill(model: LM, tokens: torch.Tensor, cache_len: int):
     """Run the full prompt, build the decode cache. Returns
-    (last-position logits (B, V), cache, lengths (B,) int32).
-    ``cache_len`` sets no size (see :func:`init_cache`)."""
+    (last-position logits (B, V), cache, lengths (B,) int32). The hybrid
+    window is ``min(local_window, cache_len)``."""
     cfg = model.cfg
-    _require_ssm(cfg)
-    x = _embed(model, tokens)
-    b, s = x.shape[:2]
-    cache: Cache = []
-    for layer in model.layers:
-        x, st = _rwkv_block(layer, x, cfg)
-        cache.append(st)
+    require_ported(cfg)
+    b, s = tokens.shape[:2]
+    if cfg.family == "ssm":
+        x = _embed(model, tokens)
+        cache: Cache = []
+        for layer in model.layers:
+            x, st = _rwkv_block(layer, x, cfg)
+            cache.append(st)
+    else:
+        x, cache = _hybrid_prefill(model, tokens,
+                                   min(cfg.local_window, cache_len))
     logits = _unembed(model, x[:, -1:])[:, 0]
     lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache, lengths
@@ -162,15 +345,31 @@ def prefill(model: LM, tokens: torch.Tensor, cache_len: int):
 @torch.inference_mode()
 def decode_step(model: LM, token: torch.Tensor, cache: Cache,
                 length: torch.Tensor):
-    """token: (B,) int; length: (B,) current context lengths (RWKV-6
-    needs none). Returns (logits (B, V), cache); the cache's wkv slabs
-    are updated in place."""
+    """token: (B,) int; length: (B,) current context lengths (the
+    position of ``token``; RWKV-6 needs none). Returns (logits (B, V),
+    cache); the cache's state and KV slabs are updated in place."""
     cfg = model.cfg
-    _require_ssm(cfg)
+    require_ported(cfg)
     x = _embed(model, token)[:, None]                  # (B, 1, D)
-    new_cache: Cache = []
-    for layer, st in zip(model.layers, cache):
-        x, st = _rwkv_block(layer, x, cfg, st)
-        new_cache.append(st)
+    if cfg.family == "ssm":
+        new_cache: Cache = []
+        for layer, st in zip(model.layers, cache):
+            x, st = _rwkv_block(layer, x, cfg, st)
+            new_cache.append(st)
+    else:
+        groups = []
+        for grp, st in zip(model.groups, cache["groups"]):
+            x, rg1 = _rg_decode(grp.rg1, x, cfg, st["rg1"])
+            x, rg2 = _rg_decode(grp.rg2, x, cfg, st["rg2"])
+            y, kv = _windowed_decode(grp.attn.attn,
+                                     rms_norm(x, grp.attn.ln1), st["kv"],
+                                     length, cfg)
+            x = _mlp_block(grp.attn, x + y)
+            groups.append({"rg1": rg1, "rg2": rg2, "kv": kv})
+        tail = []
+        for layer, st in zip(model.tail, cache["tail"]):
+            x, st = _rg_decode(layer, x, cfg, st)
+            tail.append(st)
+        new_cache = {"groups": groups, "tail": tail}
     logits = _unembed(model, x)[:, 0]
     return logits, new_cache

@@ -1,0 +1,197 @@
+"""The RG-LRU recurrence: the port's plain torch version and its wrapper
+against the reference's oracles (the sequential ``rglru_ref``, the
+associative ``rglru_assoc_ref`` and the Pallas kernel ``ops.rglru`` in
+interpret mode) from a zero state, at ``tests/test_kernels.py``'s shapes,
+and against the model's ``_assoc_scan`` from a nonzero start state; the
+identity decay; the wrapper's input checks; and the CUDA kernel against
+the plain version on the card, bit for bit.
+
+Inputs are float32 as ``tests/test_kernels.py`` draws them:
+``a = sigmoid(n) * 0.9``, ``b = 0.3 n``, with the start state ``h0``
+standard normal.
+
+Tolerance: max |error| <= 1e-6 x M, where M is the largest value the
+recurrence reaches on |a|, |b|, |h0| (M >= max |h|). The reference's
+scans round in other places than the plain loop (the associative scan
+re-associates the products; XLA may fuse a*h + b into one FMA); the
+error scales with M, not with the output, which can cancel to near
+zero. Measured on the CPU: 5e-8 to 7e-8 of M.
+"""
+import numpy as np
+import pytest
+import torch
+
+from test_torch_support import run_reference
+
+from repro_torch.kernels.rglru import launch_count, rglru, rglru_plain
+
+RTOL = 1e-6                # of the magnitude scale M (module docstring)
+SHAPES = [(2, 64, 128), (1, 80, 200), (3, 33, 64)]          # (B, T, C)
+IMPLS = {"plain": rglru_plain, "wrapper": rglru}
+
+
+def _case(shape, seed):
+    rng = np.random.default_rng(seed)
+    a = 0.9 / (1.0 + np.exp(-rng.standard_normal(shape)))
+    b = 0.3 * rng.standard_normal(shape)
+    h0 = rng.standard_normal((shape[0], shape[2]))
+    return {n: x.astype(np.float32) for n, x in
+            (("a", a), ("b", b), ("h0", h0))}
+
+
+def _name(shape):
+    return "x".join(map(str, shape))
+
+
+REF = """
+import jax.numpy as jnp
+from repro.kernels.rglru import rglru, rglru_assoc_ref, rglru_ref
+from repro.models.rglru import _assoc_scan
+for c in inp["names"]:
+    a, b, h0 = (jnp.asarray(inp[f"{c}_{n}"]) for n in ("a", "b", "h0"))
+    out[f"{c}_seq"] = rglru_ref(a, b)
+    out[f"{c}_assoc"] = rglru_assoc_ref(a, b)
+    out[f"{c}_pallas"] = rglru(a, b, interpret=True)
+    out[f"{c}_model0"] = _assoc_scan(a, b)
+    out[f"{c}_model"] = _assoc_scan(a, b, h0)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    inputs = {"names": np.array([_name(s) for s in SHAPES])}
+    for i, shape in enumerate(SHAPES):
+        for n, x in _case(shape, seed=i).items():
+            inputs[f"{_name(shape)}_{n}"] = x
+    return run_reference(REF, inputs, tmp_path_factory.mktemp("ref_rglru"))
+
+
+def magnitude(a, b, h0=None) -> float:
+    """M: the recurrence on absolute values, maxed."""
+    h0 = None if h0 is None else torch.as_tensor(h0).abs()
+    h, _ = rglru_plain(torch.as_tensor(a).abs(), torch.as_tensor(b).abs(),
+                       h0)
+    return float(h.max())
+
+
+def _close(got, want, scale, what):
+    got = got.detach().cpu().numpy()
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.abs(got - want).max())
+    assert err <= RTOL * scale, f"{what}: max abs err {err} > {RTOL} x {scale}"
+
+
+def _t(c, *names):
+    return [torch.as_tensor(c[n]) for n in names]
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("oracle", ["seq", "assoc", "pallas", "model0"])
+@pytest.mark.parametrize("shape", SHAPES, ids=_name)
+def test_rglru_zero_state_matches_reference(ref, shape, oracle, impl):
+    c = _case(shape, seed=SHAPES.index(shape))
+    before = launch_count()
+    h, h_t = IMPLS[impl](*_t(c, "a", "b"))
+    assert launch_count() == before            # the CPU never launches
+    assert h.dtype == h_t.dtype == torch.float32
+    assert torch.equal(h_t, h[:, -1])
+    _close(h, ref[f"{_name(shape)}_{oracle}"], magnitude(c["a"], c["b"]),
+           f"h vs {oracle}")
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("shape", SHAPES, ids=_name)
+def test_rglru_start_state_matches_model_scan(ref, shape, impl):
+    """``_assoc_scan(a, b, h0)``, the function the serving path needs."""
+    c = _case(shape, seed=SHAPES.index(shape))
+    h, h_t = IMPLS[impl](*_t(c, "a", "b", "h0"))
+    m = magnitude(c["a"], c["b"], c["h0"])
+    want = ref[f"{_name(shape)}_model"]
+    _close(h, want, m, "h")
+    _close(h_t, want[:, -1], m, "h_T")
+
+
+def test_h_out_aliasing_h0_updates_in_place():
+    c = _case((3, 33, 64), seed=5)
+    a, b, h0 = _t(c, "a", "b", "h0")
+    h_ref, t_ref = rglru(a, b, h0.clone())
+    state = h0.clone()
+    h, h_t = rglru(a, b, state, h_out=state)
+    assert h_t.data_ptr() == state.data_ptr()
+    assert torch.equal(h, h_ref) and torch.equal(state, t_ref)
+
+
+def test_one_step_is_the_update():
+    """T = 1 (a decode step): h = a * h0 + b, rounded twice."""
+    c = _case((4, 1, 200), seed=6)
+    a, b, h0 = _t(c, "a", "b", "h0")
+    h, h_t = rglru(a, b, h0)
+    assert torch.equal(h_t, a[:, 0] * h0 + b[:, 0])
+    assert torch.equal(h[:, 0], h_t)
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_identity_decay_is_a_cumulative_sum(impl):
+    """a == 1 everywhere -> cumulative sum of the inputs."""
+    b = torch.ones((1, 10, 8))
+    h, h_t = IMPLS[impl](torch.ones_like(b), b)
+    assert torch.equal(h[0, :, 0], torch.arange(1, 11, dtype=torch.float32))
+    assert torch.equal(h_t, torch.full((1, 8), 10.0))
+
+
+def _bad(kind):
+    c = _case((2, 5, 16), seed=3)
+    a, b, h0 = _t(c, "a", "b", "h0")
+    kw = {}
+    if kind == "float64":
+        a = a.double()
+    elif kind == "shape":
+        b = b[:, :-1].contiguous()
+    elif kind == "rank":
+        a, b = a[0], b[0]
+    elif kind == "empty_T":
+        a, b = a[:, :0].contiguous(), b[:, :0].contiguous()
+    elif kind == "strided":
+        b = b.transpose(0, 1).contiguous().transpose(0, 1)
+    elif kind == "h0_shape":
+        kw["h0"] = h0[:, :-1].contiguous()
+    elif kind == "h_out_dtype":
+        kw["h_out"] = h0.double()
+    elif kind == "device":
+        kw["h0"] = h0.to("meta")
+    return (a, b), kw
+
+
+@pytest.mark.parametrize("kind,exc", [
+    ("float64", TypeError), ("shape", ValueError), ("rank", ValueError),
+    ("empty_T", ValueError), ("strided", ValueError),
+    ("h0_shape", ValueError), ("h_out_dtype", TypeError),
+    ("device", ValueError)])
+def test_wrapper_rejects_bad_input(kind, exc):
+    args, kw = _bad(kind)
+    with pytest.raises(exc):
+        rglru(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,start", [((4, 3072, 4096), "zero"),
+                                         ((4, 1, 4096), "nonzero"),
+                                         ((1, 37, 200), "zero"),
+                                         ((3, 33, 64), "nonzero")])
+def test_cuda_kernel_equals_plain_on_card(shape, start):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    c = _case(shape, seed=sum(shape))
+    a, b, h0 = (t.cuda() for t in _t(c, "a", "b", "h0"))
+    h0 = h0 if start == "nonzero" else None
+    before = launch_count()
+    h, h_t = rglru(a, b, h0)
+    torch.cuda.synchronize()
+    assert launch_count() == before + 1
+    h_p, t_p = rglru_plain(a, b, h0)
+    assert torch.equal(h, h_p) and torch.equal(h_t, t_p)
+    if h0 is not None:                          # in place on the card too
+        state = h0.clone()
+        rglru(a, b, state, h_out=state)
+        torch.cuda.synchronize()
+        assert torch.equal(state, t_p)

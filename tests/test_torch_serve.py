@@ -4,7 +4,9 @@ reference's ``init_model`` weights carried over by
 ``lm_params_from_reference`` and its stacked caches by
 ``cache_from_reference``, on the reduced config at one head
 (d_model 64) and four heads (d_model 256); the cache's shapes; the
-serve CLI on the CPU; and the device rule of the new entry points.
+serve CLI on the CPU (RWKV-6 and RecurrentGemma, whose model tests are
+in ``test_torch_hybrid.py``); the architecture registry; and the device
+rule of the entry points.
 
 Decoding is teacher-forced: both sides are fed the reference's greedy
 tokens, so a near-tie cannot make the two runs diverge; the port's own
@@ -21,7 +23,9 @@ import torch
 from test_torch_support import FLAT, nest, run_reference
 
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs.base import hybrid_layout
 from repro_torch.convert import cache_from_reference, lm_params_from_reference
+from repro_torch.kernels.rglru import launch_count as rglru_launch_count
 from repro_torch.kernels.wkv6 import launch_count
 from repro_torch.launch import serve
 from repro_torch.launch.steps import serve_step
@@ -213,16 +217,60 @@ def test_generate_counts_steps_and_tokens(models):
 
 
 def test_get_config_registry():
-    assert ARCH_NAMES == ("rwkv6-3b",)
+    assert ARCH_NAMES == ("rwkv6-3b", "recurrentgemma-9b")
     cfg = get_config("rwkv6-3b")
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == \
         (32, 2560, 8960, 65536)
     assert rwkv_mod.n_heads(cfg) == 40
     assert cfg.param_count() == 3_099_443_200
     with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("recurrentgemma-9b")
+        get_config("qwen3-8b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+def test_recurrentgemma_config():
+    """The full-width hybrid: 12 groups of (rglru, rglru, local) and a
+    2-layer tail; ``param_count`` is the reference's pattern-weighted
+    estimate (the model's exact ``numel`` is 8,578,519,040)."""
+    cfg = get_config("recurrentgemma-9b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == \
+        ("hybrid", 38, 4096, 12288, 256000)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.d_head) == (16, 1, 256)
+    assert (cfg.local_window, cfg.rg_lru_width, cfg.rg_conv_width) == \
+        (2048, 4096, 4)
+    assert cfg.tie_embeddings and hybrid_layout(cfg) == (12, 2)
+    assert cfg.param_count() == 8_513_454_080
+    small = cfg.reduced()
+    assert (small.n_layers, small.d_model, small.d_head, small.local_window,
+            small.rg_lru_width, small.n_kv_heads) == (3, 64, 16, 32, 64, 1)
+    assert get_config("rwkv6-3b").reduced().n_layers == 2
+
+
+def test_serve_cli_on_cpu_recurrentgemma(capsys):
+    before = rglru_launch_count()
+    rc = serve.main(["--arch", "recurrentgemma-9b", "--device", "cpu",
+                     "--reduced", "--batch", "2", "--prompt-len", "40",
+                     "--gen", "4"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "recurrentgemma-9b-smoke on cpu: prefill 2x40" in out
+    assert "decode latency p50" in out and "sample row 0" in out
+    assert rglru_launch_count() == before
+
+
+def test_hybrid_entry_points_need_a_gpu_unless_given_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    cfg = get_config("recurrentgemma-9b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "recurrentgemma-9b", "--reduced", "--batch",
+                    "1", "--prompt-len", "2", "--gen", "1"])
+    assert isinstance(init_cache(cfg, 1, 8, torch_device="cpu"), dict)
 
 
 def test_other_families_raise():
