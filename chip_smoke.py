@@ -10,8 +10,8 @@ one JSON line that carries the card's name and power limit:
 
 1. ``build``    — compile every CUDA kernel of the port's paths from the
    sources in the checkout (``nvcc``, sm_90a, one process per source,
-   all started together): ``prefix_select.cu``, ``wkv6.cu`` and
-   ``rglru.cu``.
+   all started together): ``prefix_select.cu``, ``prefix_segment.cu``,
+   ``wkv6.cu``, ``rglru.cu`` and ``systolic_gemm.cu``.
 2. ``kernel``   — ``prefix_select`` on the card against its plain torch
    version on the card, bitwise (``torch.equal``), on the real int64
    tables of workload 1 (single layout) and workloads 1+6 (stacked
@@ -57,6 +57,28 @@ one JSON line that carries the card's name and power limit:
     2048 window, 32 generated tokens, seeded weights and prompts), timed,
     with the ``rglru`` launch count of that run (26 RG-LRU layers x 32 =
     832) and every logit checked finite.
+13. ``gemm_kernel`` — the systolic GEMM path: first every case once
+    through ``systolic_gemm`` (its output within tolerance of
+    ``gemm_plain``), with the launch count of each of the four kernel
+    sites over that run; then each case's kernel (``os_gemm``,
+    ``os_gemm_splitk``, ``ws_gemm_partials`` or ``is_gemm_partials``) on
+    the padded operands against its plain version on the card, within
+    1e-5 x Mag for float32 outputs and slabs and 2^-7 x Mag for bfloat16
+    (Mag = max_mn sum_k |a_mk| |b_kn|, per slab), and four times, each
+    from 50 calls in one CUDA graph: the kernel alone (preallocated
+    output), the whole ``systolic_gemm``, the plain version and
+    ``torch.matmul`` (TF32 off); with the bound on the true shape, the
+    padded shape and its work factor. Cases: the six Table IV workloads
+    in float32 at the 128^3 tile under OS, OS split-K 2 and 4, WS and IS;
+    bfloat16 at WL1 and WL2 under OS and WS; the reference tests' tile
+    sweep at WL1; and ``rwkv6-3b``'s channel-mix key product at the
+    serve cell's prefill (2048 x 2560 x 8960) under the five settings.
+14. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
+    (the launch count of that run), bitwise against its plain version
+    on the card: the workload-1 int64 cycles plane and its float64 copy
+    at P = 512 and 4096 (C = 6), a synthetic int32 table (64 x 1025,
+    P = 4096) and one system of one slot on one row; kernel and plain
+    times (in a CUDA graph and eager) and the bound.
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line and,
 last, ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -83,6 +105,13 @@ FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor-core rate (data sheet)
 TOL = 1e-6
 WKV_TOL = 1e-6                 # of the recurrence's magnitude M (phase_wkv6)
 LM_TOL = 1e-4                  # of max |logit|, cuda vs CPU (_decode_parity)
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (data sheet)
+# of Mag = max_mn sum_k |a_mk| |b_kn| (phase_gemm), by output dtype
+GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -7}
+GEMM_SETTINGS = (("OS", 1), ("OS", 2), ("OS", 4), ("WS", 1), ("IS", 1))
+GEMM_TILES = ((64, 64, 64), (32, 64, 32), (32, 32, 32), (64, 128, 32),
+              (128, 64, 96))
 DEV = "cuda"                   # the card the phases run on
 
 
@@ -203,6 +232,18 @@ def kernel_inputs(layout: str, P: int, seed: int, dev):
     return (p0.contiguous(), p1.contiguous(), t(rows, i32),
             t(start, i32), t(end, i32), t(split, i32), t(t0, i32),
             t(t1, i32))
+
+
+def segment_inputs(P: int, seed: int, dev, dtype=torch.int64):
+    """One ``prefix_segment_gather`` call on real data: the workload-1
+    cycles plane ``[R, T+1]`` of the single-layout table that
+    :func:`kernel_inputs` builds, in ``dtype``, with its rows and its
+    ranges clipped into ``[0, T]`` (the kernel does not clip)."""
+    p0, _, rows, start, end, _, t0, _ = kernel_inputs("single", P, seed, dev)
+    t = t0[:, None]
+    start = torch.minimum(start.clamp(min=0), t).contiguous()
+    end = torch.minimum(end.clamp(min=0), t).contiguous()
+    return p0[0].to(dtype).contiguous(), rows, start, end
 
 
 def kernel_bound(args) -> dict:
@@ -638,11 +679,32 @@ def phase_lm_parity(card: str) -> dict:
 
 
 def _launch_counters() -> dict:
+    """Every kernel wrapper of the port by name; each keeps its launch
+    count in ``.launches``."""
     from repro_torch.kernels.prefix_gather import ops as kops
     from repro_torch.kernels.rglru import ops as rops
+    from repro_torch.kernels.systolic_gemm import ops as gops
     from repro_torch.kernels.wkv6 import ops as wops
 
-    return {"prefix_select": kops, "wkv6": wops, "rglru": rops}
+    return {"prefix_select": kops.prefix_select,
+            "prefix_segment": kops.prefix_segment_gather, "wkv6": wops.wkv6,
+            "rglru": rops.rglru,
+            **{fn.__name__: fn for fn in gops.KERNELS}}
+
+
+def _kernel_sources() -> dict:
+    """Every CUDA source of the port, with the function that loads its
+    library."""
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.rglru import ops as rops
+    from repro_torch.kernels.systolic_gemm import ops as gops
+    from repro_torch.kernels.wkv6 import ops as wops
+
+    return {"prefix_select": (kops.SOURCE, kops.build),
+            "prefix_segment": (kops.SEGMENT_SOURCE, kops.build_segment),
+            "wkv6": (wops.SOURCE, wops.build),
+            "rglru": (rops.SOURCE, rops.build),
+            "systolic_gemm": (gops.SOURCE, gops.build)}
 
 
 def _serve(card: str, phase: str, arch: str, prompt_len: int,
@@ -666,11 +728,11 @@ def _serve(card: str, phase: str, arch: str, prompt_len: int,
     prompts = make_prompts(cfg.vocab, batch, prompt_len, seed=1, device=DEV)
     warm = generate(model, prompts[:, :16], gen=2)       # cuBLAS warm-up
     counters = _launch_counters()
-    for ops in counters.values():
-        ops.reset_launch_count()
+    for fn in counters.values():
+        fn.launches = 0
     out = generate(model, prompts, gen)
     torch.cuda.synchronize()
-    launches = {name: ops.launch_count() for name, ops in counters.items()}
+    launches = {name: fn.launches for name, fn in counters.items()}
     for name, want in expect.items():
         if launches[name] != want:
             raise AssertionError(f"{phase} launched {name} "
@@ -828,6 +890,301 @@ def phase_serve_hybrid(card: str) -> dict:
                   {"rglru": n_rg * gen}, gen=gen)
 
 
+# ---------------------------------------------------------------------------
+# gemm_kernel phase: the systolic GEMM's four kernels against their plain
+# versions, and systolic_gemm against torch.matmul
+# ---------------------------------------------------------------------------
+
+
+def gemm_cases() -> list:
+    """(name, M, K, N, dtype, tile, dataflow, split_k) of every case: the
+    six Table IV workloads in float32 at the 128^3 tile under OS, OS
+    split-K 2 and 4, WS and IS; bfloat16 at WL1 and WL2 under OS and WS;
+    the reference tests' tile sweep at WL1; and rwkv6-3b's channel-mix
+    key product at the serve cell's prefill (batch 4 x prompt 512 rows,
+    d_model -> d_ff) under the five settings."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import WORKLOADS
+
+    f32, bf16, full = torch.float32, torch.bfloat16, (128, 128, 128)
+    wls = [(wl.name.split("-")[0], wl.M, wl.K, wl.N) for wl in WORKLOADS]
+    lm = get_config("rwkv6-3b")
+    cases = [(*w, f32, full, df, sk) for w in wls for df, sk in GEMM_SETTINGS]
+    cases += [(*w, bf16, full, df, 1) for w in wls[:2] for df in ("OS", "WS")]
+    cases += [(*wls[0], f32, tile, df, sk) for tile in GEMM_TILES
+              for df, sk in (("OS", 1), ("OS", 2), ("WS", 1), ("IS", 1))]
+    cases += [("rwkv6-3b-ffn-key", 4 * 512, lm.d_model, lm.d_ff, f32, full,
+               df, sk) for df, sk in GEMM_SETTINGS]
+    return cases
+
+
+def _gemm_site(df: str, sk: int) -> str:
+    if df == "OS":
+        return "os_gemm" if sk <= 1 else "os_gemm_splitk"
+    return "ws_gemm_partials" if df == "WS" else "is_gemm_partials"
+
+
+def _gemm_operands(case, seed: int):
+    _, M, K, N, dtype = case[:5]
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    a = torch.randn((M, K), generator=g, device=DEV).to(dtype)
+    b = torch.randn((K, N), generator=g, device=DEV).to(dtype)
+    return a, b
+
+
+def _magnitudes(a, b, n_slabs: int = 1) -> list:
+    """Mag of each of ``n_slabs`` equal k-ranges: max over (m, n) of
+    sum_k |a_mk| |b_kn|, in float64."""
+    kq = a.shape[1] // n_slabs
+    return [float((a[:, s * kq:(s + 1) * kq].double().abs()
+                   @ b[s * kq:(s + 1) * kq].double().abs()).max())
+            for s in range(n_slabs)]
+
+
+def gemm_bound(M: int, K: int, N: int, dtype, site: str,
+               n_slabs: int) -> dict:
+    """On the true (unpadded) shape: a and b read once and the kernel's
+    own outputs written once (the float32 slabs for split-K, WS and IS),
+    over HBM bandwidth; against 2 M N K operations at the fp32 FFMA rate
+    (bf16: the dense tensor-core rate)."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    out_bytes = M * N * (isz if site == "os_gemm" else 4 * n_slabs)
+    nbytes = (M * K + K * N) * isz + out_bytes
+    ops = 2 * M * N * K
+    rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def _gemm_pad(a, b, tile, df: str, sk: int):
+    """The operands zero-padded as ``systolic_gemm`` pads them."""
+    import torch.nn.functional as F
+
+    bm, bk, bn = tile
+    kq = bk * sk if df == "OS" and sk > 1 else bk
+    (M, K), N = a.shape, b.shape[1]
+    pm, pk, pn = -M % bm, -K % kq, -N % bn
+    return (F.pad(a, (0, pk, 0, pm)).contiguous(),
+            F.pad(b, (0, pn, 0, pk)).contiguous())
+
+
+def _gemm_launcher(lib, site, ap, bp, out, tile, sk):
+    """One launch of ``site``'s kernel through the library, into the
+    preallocated ``out``, on the current stream."""
+    from repro_torch.kernels.systolic_gemm import ops as gops
+
+    bm, bk, bn = tile
+    (Mp, Kp), Np = ap.shape, bp.shape[1]
+    code = gops.DTYPES[ap.dtype]
+    fn = getattr(lib, f"{site}_launch")
+    head = (ap.data_ptr(), bp.data_ptr(), out.data_ptr(), Mp, Kp, Np)
+    if site == "os_gemm":
+        args = (*head, bm, bk, bn, code, gops.DTYPES[out.dtype])
+    elif site == "os_gemm_splitk":
+        args = (*head, sk, bm, bk, bn, code)
+    else:
+        args = (*head, bm, bk, bn, code)
+
+    def launch():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+    return launch
+
+
+def phase_gemm(card: str) -> dict:
+    from repro_torch.kernels.systolic_gemm import ops as gops
+    from repro_torch.kernels.systolic_gemm import ref as G
+
+    lib = gops.build()
+    cases = gemm_cases()
+    # the main path: every case once through the public entry point,
+    # with the launch counts of that run; its output against gemm_plain
+    for fn in gops.KERNELS:
+        fn.launches = 0
+    wrapper_err = []
+    for i, case in enumerate(cases):
+        name, M, K, N, dtype, (bm, bk, bn), df, sk = case
+        a, b = _gemm_operands(case, seed=i)
+        out = gops.systolic_gemm(a, b, bm=bm, bk=bk, bn=bn, dataflow=df,
+                              split_k=sk)
+        want = G.gemm_plain(a, b)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        mag = _magnitudes(a, b)[0]
+        if not (out.shape == (M, N) and out.dtype == dtype
+                and err <= GEMM_TOL[dtype] * mag):
+            raise AssertionError(f"systolic_gemm != gemm_plain ({case}): "
+                                 f"max abs err {err}, Mag {mag}")
+        wrapper_err.append(err / mag)
+    launches = {fn.__name__: fn.launches for fn in gops.KERNELS}
+    # each kernel against its plain version on the padded operands, and
+    # the times
+    main, worst = {}, {}
+    for i, case in enumerate(cases):
+        name, M, K, N, dtype, tile, df, sk = case
+        bm, bk, bn = tile
+        site = _gemm_site(df, sk)
+        plain = getattr(G, f"{site}_plain")
+        a, b = _gemm_operands(case, seed=i)
+        ap, bp = _gemm_pad(a, b, tile, df, sk)
+        (Mp, Kp), Np = ap.shape, bp.shape[1]
+        kw = dict(bm=bm, bk=bk, bn=bn)
+        if site == "os_gemm":
+            kw["out_dtype"] = dtype
+        elif site == "os_gemm_splitk":
+            kw["splits"] = sk
+        got = getattr(gops, site)(ap, bp, **kw)
+        want = plain(ap, bp, **kw)
+        torch.cuda.synchronize()
+        slabs = got.shape[0] if got.dim() == 3 else 1
+        mags = _magnitudes(ap, bp, slabs)
+        errs = [float((g.float() - w.float()).abs().max()) for g, w in
+                zip(got.reshape(slabs, Mp, Np), want.reshape(slabs, Mp, Np))]
+        tol = GEMM_TOL[dtype] if site == "os_gemm" else GEMM_TOL[torch.float32]
+        if not all(e <= tol * m for e, m in zip(errs, mags)):
+            raise AssertionError(f"{site} != plain ({case}): max abs errs "
+                                 f"{errs}, Mag {mags}, tolerance {tol} x Mag")
+        worst[site] = max(worst.get(site, 0.0), max(errs))
+        out = torch.empty_like(got)
+        del got, want
+        launch = _gemm_launcher(lib, site, ap, bp, out, tile, sk)
+        grid = {"os_gemm": Mp // bm * (Np // bn),
+                "os_gemm_splitk": Mp // bm * (Np // bn) * sk,
+                "ws_gemm_partials": Np // bn * (Kp // bk),
+                "is_gemm_partials": Mp // bm * (Kp // bk)}[site]
+        rec = dict(phase="gemm_kernel", kernel=site, case=name, M=M, K=K,
+                   N=N, dtype=str(dtype).replace("torch.", ""), tile=tile,
+                   dataflow=df, split_k=sk, padded=(Mp, Kp, Np),
+                   pad_work=Mp * Kp * Np / (M * K * N), ctas=grid,
+                   smem_bytes=gops.smem_bytes(df, bm, bk, bn),
+                   max_abs_err=max(errs),
+                   err_over_mag=max(e / m if m else e
+                                    for e, m in zip(errs, mags)),
+                   wrapper_err_over_mag=wrapper_err[i],
+                   ms=graph_ms(launch),
+                   gemm_ms=graph_ms(lambda: gops.systolic_gemm(
+                       a, b, bm=bm, bk=bk, bn=bn, dataflow=df, split_k=sk)),
+                   plain_ms=graph_ms(lambda: plain(ap, bp, **kw)),
+                   library_ms=graph_ms(lambda: torch.matmul(a, b)),
+                   **gemm_bound(M, K, N, dtype, site, slabs), card=card)
+        rec["tflops"] = rec["ops"] / rec["ms"] / 1e9
+        rec["over_bound"] = rec["ms"] / rec["bound_ms"]
+        rec["over_library"] = rec["ms"] / rec["library_ms"]
+        emit(rec)
+        if (name, dtype, tile) == ("WL2", torch.float32, (128, 128, 128)) \
+                and sk in (1, 2):
+            main[site] = rec
+        del out, ap, bp, a, b
+    torch.cuda.empty_cache()
+    return {site: dict(rec, launches=launches[site],
+                       max_abs_err=worst[site])
+            for site, rec in main.items()}
+
+
+# ---------------------------------------------------------------------------
+# prefix_segment_kernel phase: the single-table gather against its plain
+# version
+# ---------------------------------------------------------------------------
+
+
+def segment_bound(pref, rows, start, end) -> dict:
+    """The distinct table entries these indices touch, the indices read
+    once and the outputs written once, over HBM bandwidth; against one
+    subtract and one add per slot over the non-tensor-core rate."""
+    R, T1 = pref.shape
+    P, C = rows.shape
+    ids = torch.cat([(rows.long() * T1 + idx.long()).reshape(-1)
+                     for idx in (start, end)])
+    isz = pref.element_size()
+    nbytes = (int(torch.unique(ids).numel()) * isz + 3 * P * C * 4
+              + (P * C + P) * isz)
+    ops = 2 * P * C
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def segment_cases() -> list:
+    """(name, pref, rows, start, end): the workload-1 int64 plane and its
+    float64 copy at P = 512 and 4096; a synthetic int32 table; and an
+    edge case of one system, one slot, one row."""
+    cases = []
+    for dtype in (torch.int64, torch.float64):
+        for P in (512, 4096):
+            name = f"wl1-{str(dtype).replace('torch.', '')}-P{P}"
+            cases.append((name, *segment_inputs(P, seed=P, dev=DEV,
+                                                dtype=dtype)))
+    rng = np.random.default_rng(5)
+    R, T1, P, C = 64, 1025, 4096, 6
+    pref = np.cumsum(rng.integers(0, 1000, (R, T1)), axis=1)
+    start = rng.integers(0, T1, (P, C))
+    end = np.minimum(start + rng.integers(0, T1, (P, C)), T1 - 1)
+
+    def t(x, dt=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=DEV)
+
+    cases.append(("synthetic-int32-P4096", t(pref), t(rng.integers(
+        0, R, (P, C))), t(start), t(end)))
+    cases.append(("edge-P1-C1-R1", t(np.arange(5)[None] * 7, torch.int64),
+                  t([[0]]), t([[1]]), t([[4]])))
+    return cases
+
+
+def phase_prefix_segment(card: str) -> dict:
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.prefix_gather import prefix_segment_plain
+
+    lib = kops.build_segment()
+    cases = segment_cases()
+    # the main path: every case once through the public entry point
+    kops.prefix_segment_gather.launches = 0
+    outs = [kops.prefix_segment_gather(*args) for _, *args in cases]
+    torch.cuda.synchronize()
+    launches = kops.prefix_segment_gather.launches
+    main = None
+    for (name, pref, rows, start, end), (diff, total) in zip(cases, outs):
+        d_p, t_p = prefix_segment_plain(pref, rows, start, end)
+        equal = torch.equal(diff, d_p) and torch.equal(total, t_p)
+        if not equal:
+            err = float(max((diff - d_p).abs().max(),
+                            (total - t_p).abs().max()))
+            raise AssertionError(f"prefix_segment != plain ({name}): max "
+                                 f"abs err {err}")
+        P, C = rows.shape
+        d_out, t_out = torch.empty_like(diff), torch.empty_like(total)
+        code = kops.SEGMENT_DTYPES[pref.dtype]
+
+        def launch():
+            rc = lib.prefix_segment_launch(
+                pref.data_ptr(), pref.shape[1], rows.data_ptr(),
+                start.data_ptr(), end.data_ptr(), P, C, d_out.data_ptr(),
+                t_out.data_ptr(), code,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        def plain():
+            return prefix_segment_plain(pref, rows, start, end)
+
+        rec = dict(phase="prefix_segment_kernel", kernel="prefix_segment",
+                   case=name, dtype=str(pref.dtype).replace("torch.", ""),
+                   R=pref.shape[0], T1=pref.shape[1], P=P, C=C, equal=equal,
+                   max_abs_err=0, ms=graph_ms(launch),
+                   eager_ms=cuda_ms(launch), plain_ms=graph_ms(plain),
+                   plain_eager_ms=cuda_ms(plain),
+                   **segment_bound(pref, rows, start, end), card=card)
+        emit(rec)
+        if name == "wl1-int64-P512":
+            main = rec
+    return dict(main, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -844,15 +1201,15 @@ def main() -> int:
 
     from repro_torch.kernels import _build
 
-    counters = _launch_counters()
+    sources = _kernel_sources()
     t = time.perf_counter()
-    _build.compile_sources([ops.SOURCE for ops in counters.values()])
-    for ops in counters.values():                      # built in parallel
-        ops.build()
-    emit(dict(phase="build", kernels=list(counters),
+    _build.compile_sources([src for src, _ in sources.values()])
+    for _, build in sources.values():                  # built in parallel
+        build()
+    emit(dict(phase="build", kernels=list(sources),
               seconds=time.perf_counter() - t,
-              ptxas={name: _build.ptxas_report(ops.SOURCE)
-                     for name, ops in counters.items()},
+              ptxas={name: _build.ptxas_report(src)
+                     for name, (src, _) in sources.items()},
               card=card))
     kmain = phase_kernel(card)
     phase_evaluate(card)
@@ -867,6 +1224,10 @@ def main() -> int:
     rmain = phase_rglru(card)
     phase_hybrid_parity(card)
     serve_h = phase_serve_hybrid(card)
+    gc.collect()                          # free the hybrid model's memory
+    torch.cuda.empty_cache()
+    gmain = phase_gemm(card)
+    smain = phase_prefix_segment(card)
 
     print(card)
     emit({"kernels": [{
@@ -891,7 +1252,27 @@ def main() -> int:
         "launches": serve_h["launches"]["rglru"],
         "max_abs_err": rmain["max_abs_err"], "ms": rmain["ms"],
         "plain_ms": rmain["plain_ms"], "bound_ms": rmain["bound_ms"],
-        "bound_by": rmain["bound_by"], "library_ms": None}]})
+        "bound_by": rmain["bound_by"], "library_ms": None}, {
+        "name": "prefix_segment", "route": "cuda",
+        "source": "src/repro_torch/kernels/prefix_gather/csrc/"
+                  "prefix_segment.cu",
+        "replaces": "src/repro/kernels/prefix_gather/kernel.py:44",
+        "launches": smain["launches"], "max_abs_err": smain["max_abs_err"],
+        "ms": smain["ms"], "plain_ms": smain["plain_ms"],
+        "bound_ms": smain["bound_ms"], "bound_by": smain["bound_by"],
+        "library_ms": None}] + [{
+        "name": site, "route": "cuda",
+        "source": "src/repro_torch/kernels/systolic_gemm/csrc/"
+                  "systolic_gemm.cu",
+        "replaces": f"src/repro/kernels/systolic_gemm/kernel.py:{line}",
+        "launches": gmain[site]["launches"],
+        "max_abs_err": gmain[site]["max_abs_err"], "ms": gmain[site]["ms"],
+        "plain_ms": gmain[site]["plain_ms"],
+        "bound_ms": gmain[site]["bound_ms"],
+        "bound_by": gmain[site]["bound_by"],
+        "library_ms": gmain[site]["library_ms"]} for site, line in (
+            ("os_gemm", 38), ("os_gemm_splitk", 54),
+            ("ws_gemm_partials", 71), ("is_gemm_partials", 71))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""Wrapper, build and launch count of the ``prefix_select`` CUDA kernel.
+"""Wrappers, builds and launch counts of the prefix-table gather kernels.
 
 :func:`prefix_select` is the tempering evaluator's whole prefix-table
 stage: both split-K gathers for all sim metrics, the per-row clip to the
@@ -9,9 +9,15 @@ version (:func:`~repro_torch.kernels.prefix_gather.ref.
 prefix_select_plain`). There is no other switch, and a failed build or
 launch raises.
 
-The kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
+:func:`prefix_segment_gather` is the single-table form: per-slot
+differences of one ``[R, T+1]`` table and their per-system totals, with
+no clipping. It launches ``csrc/prefix_segment.cu`` on a CUDA tensor and
+runs :func:`~repro_torch.kernels.prefix_gather.ref.prefix_segment_plain`
+on a CPU tensor, the same way.
+
+Each kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, under ``build/kernels/``) at first use and loaded with
-``ctypes``.
+``ctypes``; the two sources build apart.
 """
 from __future__ import annotations
 
@@ -21,9 +27,16 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.prefix_gather.ref import prefix_select_plain
+from repro_torch.kernels.prefix_gather.ref import (
+    prefix_segment_plain,
+    prefix_select_plain,
+)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "prefix_select.cu"
+SEGMENT_SOURCE = Path(__file__).resolve().parent / "csrc" / "prefix_segment.cu"
+# the table dtypes prefix_segment_gather takes, by the kernel's type code
+SEGMENT_DTYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2,
+                  torch.int32: 3}
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -34,18 +47,39 @@ def _configure(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
+def _configure_segment(lib: ctypes.CDLL) -> None:
+    fn = lib.prefix_segment_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     return _build.load(SOURCE, _configure)
 
 
+def build_segment() -> ctypes.CDLL:
+    """Compile and load the ``prefix_segment`` kernel library."""
+    return _build.load(SEGMENT_SOURCE, _configure_segment)
+
+
 def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
+    """``prefix_select`` launches since the last
+    :func:`reset_launch_count`."""
     return prefix_select.launches
+
+
+def segment_launch_count() -> int:
+    """``prefix_segment`` launches since the last
+    :func:`reset_launch_count`."""
+    return prefix_segment_gather.launches
 
 
 def reset_launch_count() -> None:
     prefix_select.launches = 0
+    prefix_segment_gather.launches = 0
 
 
 def _check(pref0, pref1, rows, start, end, split, t0, t1):
@@ -118,3 +152,73 @@ def prefix_select(pref0: torch.Tensor, pref1: torch.Tensor,
 
 
 prefix_select.launches = 0
+
+
+def _check_segment(pref, rows, start, end):
+    """The indices as int32 and contiguous, after checking every index
+    against the table (the TPU kernel reads them unchecked)."""
+    ts = (pref, rows, start, end)
+    if any(x.device != pref.device for x in ts):
+        raise ValueError("prefix_segment_gather: all tensors must share one "
+                         "device")
+    if pref.dtype not in SEGMENT_DTYPES:
+        raise TypeError("prefix_segment_gather: the table must be float64, "
+                        f"float32, int64 or int32, got {pref.dtype}")
+    if any(x.dtype.is_floating_point or x.dtype.is_complex
+           or x.dtype == torch.bool for x in ts[1:]):
+        raise TypeError("prefix_segment_gather: rows/start/end must be "
+                        "integer tensors")
+    if pref.dim() != 2 or not pref.is_contiguous():
+        raise ValueError("prefix_segment_gather: the table must be a "
+                         f"contiguous [R, T+1]; got {tuple(pref.shape)}")
+    if rows.dim() != 2 or start.shape != rows.shape or \
+            end.shape != rows.shape:
+        raise ValueError("prefix_segment_gather: rows/start/end must be one "
+                         "[P, C] shape")
+    if rows.shape[1] == 0:
+        raise ValueError("prefix_segment_gather: need C >= 1 slots")
+    R, T1 = pref.shape
+    if rows.numel():
+        bad = (rows.min() < 0) | (rows.max() >= R)
+        for idx in (start, end):
+            bad = bad | (idx.min() < 0) | (idx.max() >= T1)
+        if bool(bad):
+            raise ValueError("prefix_segment_gather: a row index lies "
+                             f"outside [0, {R}) or a tile index outside "
+                             f"[0, {T1 - 1}]")
+    return tuple(x.to(torch.int32).contiguous() for x in ts[1:])
+
+
+def prefix_segment_gather(pref: torch.Tensor, rows: torch.Tensor,
+                          start: torch.Tensor, end: torch.Tensor):
+    """``(diff [P, C], total [P])`` in ``pref.dtype``: per-slot prefix
+    differences of the ``[R, T+1]`` table and their per-system totals
+    (see :func:`~repro_torch.kernels.prefix_gather.ref.
+    prefix_segment_plain`). Indices of any integer dtype are cast to
+    int32, as the reference casts them."""
+    rows, start, end = _check_segment(pref, rows, start, end)
+    if pref.device.type == "cpu":
+        return prefix_segment_plain(pref, rows, start, end)
+    if pref.device.type != "cuda":
+        raise ValueError("prefix_segment_gather: unsupported device "
+                         f"{pref.device}")
+    P, C = rows.shape
+    diff = torch.empty((P, C), dtype=pref.dtype, device=pref.device)
+    total = torch.empty((P,), dtype=pref.dtype, device=pref.device)
+    if P == 0:
+        return diff, total
+    lib = build_segment()
+    with torch.cuda.device(pref.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.prefix_segment_launch(
+            pref.data_ptr(), pref.shape[1], rows.data_ptr(),
+            start.data_ptr(), end.data_ptr(), P, C, diff.data_ptr(),
+            total.data_ptr(), SEGMENT_DTYPES[pref.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"prefix_segment kernel launch failed: CUDA "
+                           f"error {err}")
+    prefix_segment_gather.launches += 1
+    return diff, total
+
+
+prefix_segment_gather.launches = 0

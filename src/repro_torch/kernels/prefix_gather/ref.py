@@ -1,4 +1,4 @@
-"""Plain torch version of the fused prefix-table gather kernel."""
+"""Plain torch versions of the prefix-table gather kernels."""
 from __future__ import annotations
 
 import torch
@@ -28,3 +28,21 @@ def prefix_select_plain(pref0: torch.Tensor, pref1: torch.Tensor,
     sel = torch.where((split == 1)[:, None, None],
                       gather(pref1, t1.long()), gather(pref0, t0.long()))
     return sel, sel.sum(dim=1)
+
+
+def prefix_segment_plain(pref: torch.Tensor, rows: torch.Tensor,
+                         start: torch.Tensor, end: torch.Tensor):
+    """Per-slot prefix differences and their per-system totals.
+
+    ``pref`` is a ``[R, T+1]`` prefix-sum table; ``rows``/``start``/``end``
+    are ``[P, C]`` indices, used as they are (no clipping). Returns
+    ``(diff [P, C], total [P])`` in the table's dtype, with ``diff[p, c] =
+    pref[rows[p, c], end[p, c]] - pref[rows[p, c], start[p, c]]`` and
+    ``total`` summed in slot order from slot 0's difference, as the
+    kernel sums (floating-point totals depend on that order)."""
+    rows = rows.long()
+    diff = pref[rows, end.long()] - pref[rows, start.long()]
+    total = diff[:, 0].clone()
+    for c in range(1, diff.shape[1]):
+        total = total + diff[:, c]
+    return diff, total
