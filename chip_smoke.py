@@ -60,19 +60,25 @@ one JSON line that carries the card's name and power limit:
 13. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
-    sites over that run; then each case's kernel (``os_gemm``,
-    ``os_gemm_splitk``, ``ws_gemm_partials`` or ``is_gemm_partials``) on
-    the padded operands against its plain version on the card, within
-    1e-5 x Mag for float32 outputs and slabs and 2^-7 x Mag for bfloat16
-    (Mag = max_mn sum_k |a_mk| |b_kn|, per slab), and four times, each
-    from 50 calls in one CUDA graph: the kernel alone (preallocated
-    output), the whole ``systolic_gemm``, the plain version and
-    ``torch.matmul`` (TF32 off); with the bound on the true shape, the
-    padded shape and its work factor. Cases: the six Table IV workloads
-    in float32 at the 128^3 tile under OS, OS split-K 2 and 4, WS and IS;
-    bfloat16 at WL1 and WL2 under OS and WS; the reference tests' tile
-    sweep at WL1; and ``rwkv6-3b``'s channel-mix key product at the
-    serve cell's prefill (2048 x 2560 x 8960) under the five settings.
+    sites, and of each WS/IS path ("simt", "wgmma"), over that run; then
+    each case's kernel (``os_gemm``, ``os_gemm_splitk``,
+    ``ws_gemm_partials`` or ``is_gemm_partials``) on the padded operands
+    against its plain version on the card, within 1e-5 x Mag for float32
+    outputs and slabs and 2^-7 x Mag for bfloat16 (Mag = max_mn sum_k
+    |a_mk| |b_kn|, per slab), and four times, each from 50 calls in one
+    CUDA graph: the kernel alone (preallocated output), the whole
+    ``systolic_gemm``, the plain version and ``torch.matmul`` (TF32
+    off); WS/IS rows also give their path and ``bmm_ms``, ``torch.bmm``
+    over the same k-block views (the one PyTorch call that computes the
+    slabs; in 16-bit it writes 16-bit slabs, an easier yardstick); with
+    the bound on the true shape, the padded shape and its work factor.
+    16-bit WS/IS at the 128^3 tile must take "wgmma". Cases: the six
+    Table IV workloads in float32 at the 128^3 tile under OS, OS split-K
+    2 and 4, WS and IS; bfloat16 at WL1 and WL2 under OS, WS and IS; the
+    reference tests' tile sweep at WL1; ``rwkv6-3b``'s channel-mix key
+    product at the serve cell's prefill (2048 x 2560 x 8960) under the
+    five settings in float32 and under WS and IS in bfloat16; float16 WS
+    at WL2.
 14. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -899,22 +905,26 @@ def phase_serve_hybrid(card: str) -> dict:
 def gemm_cases() -> list:
     """(name, M, K, N, dtype, tile, dataflow, split_k) of every case: the
     six Table IV workloads in float32 at the 128^3 tile under OS, OS
-    split-K 2 and 4, WS and IS; bfloat16 at WL1 and WL2 under OS and WS;
-    the reference tests' tile sweep at WL1; and rwkv6-3b's channel-mix
+    split-K 2 and 4, WS and IS; bfloat16 at WL1 and WL2 under OS, WS and
+    IS; the reference tests' tile sweep at WL1; rwkv6-3b's channel-mix
     key product at the serve cell's prefill (batch 4 x prompt 512 rows,
-    d_model -> d_ff) under the five settings."""
+    d_model -> d_ff) under the five settings in float32 and under WS and
+    IS in bfloat16; and float16 WS at WL2."""
     from repro_torch.configs import get_config
     from repro_torch.core import WORKLOADS
 
     f32, bf16, full = torch.float32, torch.bfloat16, (128, 128, 128)
     wls = [(wl.name.split("-")[0], wl.M, wl.K, wl.N) for wl in WORKLOADS]
     lm = get_config("rwkv6-3b")
+    lm_key = ("rwkv6-3b-ffn-key", 4 * 512, lm.d_model, lm.d_ff)
     cases = [(*w, f32, full, df, sk) for w in wls for df, sk in GEMM_SETTINGS]
-    cases += [(*w, bf16, full, df, 1) for w in wls[:2] for df in ("OS", "WS")]
+    cases += [(*w, bf16, full, df, 1) for w in wls[:2]
+              for df in ("OS", "WS", "IS")]
     cases += [(*wls[0], f32, tile, df, sk) for tile in GEMM_TILES
               for df, sk in (("OS", 1), ("OS", 2), ("WS", 1), ("IS", 1))]
-    cases += [("rwkv6-3b-ffn-key", 4 * 512, lm.d_model, lm.d_ff, f32, full,
-               df, sk) for df, sk in GEMM_SETTINGS]
+    cases += [(*lm_key, f32, full, df, sk) for df, sk in GEMM_SETTINGS]
+    cases += [(*lm_key, bf16, full, df, 1) for df in ("WS", "IS")]
+    cases += [(*wls[1], torch.float16, full, "WS", 1)]
     return cases
 
 
@@ -986,7 +996,8 @@ def _gemm_launcher(lib, site, ap, bp, out, tile, sk):
     elif site == "os_gemm_splitk":
         args = (*head, sk, bm, bk, bn, code)
     else:
-        args = (*head, bm, bk, bn, code)
+        path = gops.spill_path(ap.dtype, bm, bk, bn)
+        args = (*head, bm, bk, bn, code, gops.SPILL_PATHS.index(path))
 
     def launch():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -1003,8 +1014,7 @@ def phase_gemm(card: str) -> dict:
     cases = gemm_cases()
     # the main path: every case once through the public entry point,
     # with the launch counts of that run; its output against gemm_plain
-    for fn in gops.KERNELS:
-        fn.launches = 0
+    gops.reset_launch_count()
     wrapper_err = []
     for i, case in enumerate(cases):
         name, M, K, N, dtype, (bm, bk, bn), df, sk = case
@@ -1021,6 +1031,12 @@ def phase_gemm(card: str) -> dict:
                                  f"max abs err {err}, Mag {mag}")
         wrapper_err.append(err / mag)
     launches = {fn.__name__: fn.launches for fn in gops.KERNELS}
+    for fn in (gops.ws_gemm_partials, gops.is_gemm_partials):
+        for path, n in fn.path_launches.items():
+            launches[f"{fn.__name__}/{path}"] = n
+    idle = [name for name, n in launches.items() if n < 1]
+    if idle:
+        raise AssertionError(f"gemm_kernel never launched {idle}")
     # each kernel against its plain version on the padded operands, and
     # the times
     main, worst = {}, {}
@@ -1028,6 +1044,13 @@ def phase_gemm(card: str) -> dict:
         name, M, K, N, dtype, tile, df, sk = case
         bm, bk, bn = tile
         site = _gemm_site(df, sk)
+        path = None                     # the WS/IS kernel this case takes
+        if site in ("ws_gemm_partials", "is_gemm_partials"):
+            path = gops.spill_path(dtype, bm, bk, bn)
+            if dtype != torch.float32 and tile == (128, 128, 128) \
+                    and path != "wgmma":
+                raise AssertionError(f"{site} {case} took {path}")
+        key = f"{site}/{path}" if path else site
         plain = getattr(G, f"{site}_plain")
         a, b = _gemm_operands(case, seed=i)
         ap, bp = _gemm_pad(a, b, tile, df, sk)
@@ -1048,7 +1071,7 @@ def phase_gemm(card: str) -> dict:
         if not all(e <= tol * m for e, m in zip(errs, mags)):
             raise AssertionError(f"{site} != plain ({case}): max abs errs "
                                  f"{errs}, Mag {mags}, tolerance {tol} x Mag")
-        worst[site] = max(worst.get(site, 0.0), max(errs))
+        worst[key] = max(worst.get(key, 0.0), max(errs))
         out = torch.empty_like(got)
         del got, want
         launch = _gemm_launcher(lib, site, ap, bp, out, tile, sk)
@@ -1056,6 +1079,11 @@ def phase_gemm(card: str) -> dict:
                 "os_gemm_splitk": Mp // bm * (Np // bn) * sk,
                 "ws_gemm_partials": Np // bn * (Kp // bk),
                 "is_gemm_partials": Mp // bm * (Kp // bk)}[site]
+        if path is not None:
+            # the one PyTorch call that computes the same slabs (in the
+            # operand dtype: 16-bit slabs, half the bytes of float32)
+            a3 = ap.view(Mp, Kp // bk, bk).transpose(0, 1)
+            b3 = bp.view(Kp // bk, bk, Np)
         rec = dict(phase="gemm_kernel", kernel=site, case=name, M=M, K=K,
                    N=N, dtype=str(dtype).replace("torch.", ""), tile=tile,
                    dataflow=df, split_k=sk, padded=(Mp, Kp, Np),
@@ -1074,15 +1102,20 @@ def phase_gemm(card: str) -> dict:
         rec["tflops"] = rec["ops"] / rec["ms"] / 1e9
         rec["over_bound"] = rec["ms"] / rec["bound_ms"]
         rec["over_library"] = rec["ms"] / rec["library_ms"]
+        if path is not None:
+            rec["path"] = path
+            rec["bmm_ms"] = graph_ms(lambda: torch.bmm(a3, b3))
+            rec["over_bmm"] = rec["ms"] / rec["bmm_ms"]
+            del a3, b3
         emit(rec)
-        if (name, dtype, tile) == ("WL2", torch.float32, (128, 128, 128)) \
-                and sk in (1, 2):
-            main[site] = rec
+        if (name, tile) == ("WL2", (128, 128, 128)) and sk in (1, 2) \
+                and dtype in (torch.float32, torch.bfloat16) \
+                and (dtype == torch.float32) == (path != "wgmma"):
+            main[key] = rec
         del out, ap, bp, a, b
     torch.cuda.empty_cache()
-    return {site: dict(rec, launches=launches[site],
-                       max_abs_err=worst[site])
-            for site, rec in main.items()}
+    return {key: dict(rec, launches=launches[key], max_abs_err=worst[key])
+            for key, rec in main.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1272,7 +1305,8 @@ def main() -> int:
         "bound_by": gmain[site]["bound_by"],
         "library_ms": gmain[site]["library_ms"]} for site, line in (
             ("os_gemm", 38), ("os_gemm_splitk", 54),
-            ("ws_gemm_partials", 71), ("is_gemm_partials", 71))]})
+            ("ws_gemm_partials/simt", 71), ("ws_gemm_partials/wgmma", 71),
+            ("is_gemm_partials/simt", 71), ("is_gemm_partials/wgmma", 71))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

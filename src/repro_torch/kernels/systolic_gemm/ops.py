@@ -14,11 +14,22 @@ each runs its plain torch version (:mod:`repro_torch.kernels.
 systolic_gemm.ref`). There is no other switch, and a failed build or
 launch raises.
 
-Tiles. The kernels give each thread of a 16 x 16 block an 8 x 8 register
-tile, so ``bm`` and ``bn`` are multiples of 16 up to 128; ``bk`` is any
-size whose shared memory fits the 232,448 B a Hopper block may use (WS
-and IS keep a whole ``bk``-deep block of their stationary operand
-resident). Other tiles raise ``ValueError`` on every device.
+Kernels. OS and split-K run an FFMA kernel (an 8 x 8 register block a
+thread, operands staged through shared memory in float32). WS and IS
+take one of two kernels, by :func:`spill_path`, a function of the dtype
+and the tile alone: ``"wgmma"`` for bfloat16 / float16 at ``bm``, ``bn``
+in {64, 128} and ``bk % 16 == 0`` (TMA loads into a ring of shared
+memory, tensor-core ``wgmma`` products into float32 accumulators), else
+``"simt"`` (a double-buffered FFMA kernel in float32, with 16-byte loads
+and shared reads). Both write the same float32 slabs, and both are held
+against the plain version on the card.
+
+Tiles. ``bm`` and ``bn`` are multiples of 16 up to 128. ``bk`` is any
+size whose shared memory (:func:`smem_bytes`) fits the 232,448 B a Hopper
+block may use; WS and IS keep a whole ``bk``-deep block of their
+stationary operand resident, so at ``bm = bn = 128`` WS takes ``bk`` up
+to 388 and IS up to 378. The accepted set is the same on every device
+and for every dtype; other tiles raise ``ValueError``.
 
 The kernels are built by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, under ``build/kernels/``) at first use and loaded with
@@ -44,6 +55,8 @@ DATAFLOWS = ("OS", "WS", "IS")
 # operand dtypes the kernels take, by their type code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SIDE, MAX_SIDE, CHUNK = 16, 128, 32        # as in the kernel source
+SPILL_CHUNK, PITCH_PAD = 32, 4   # WS/IS simt path: kSpillKc, kPitchPad
+SPILL_PATHS = ("simt", "wgmma")  # by the launchers' path code
 SMEM_LIMIT = 232448           # shared memory one Hopper block may opt into
 
 
@@ -53,7 +66,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.os_gemm_splitk_launch.argtypes = [p, p, p, i64, i64, i64, i, i, i,
                                           i, i, p]
     for name in ("ws_gemm_partials_launch", "is_gemm_partials_launch"):
-        getattr(lib, name).argtypes = [p, p, p, i64, i64, i64, i, i, i, i, p]
+        getattr(lib, name).argtypes = [p, p, p, i64, i64, i64, i, i, i, i, i,
+                                       p]
     for name in ("os_gemm_launch", "os_gemm_splitk_launch",
                  "ws_gemm_partials_launch", "is_gemm_partials_launch",
                  "systolic_gemm_init"):
@@ -78,15 +92,32 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in (ws_gemm_partials, is_gemm_partials):
+        fn.path_launches = dict.fromkeys(SPILL_PATHS, 0)
 
 
 def smem_bytes(dataflow: str, bm: int, bk: int, bn: int) -> int:
-    """Shared memory one block of the ``dataflow`` kernel takes."""
+    """Shared memory one block of the ``dataflow`` kernel takes; for WS and
+    IS that of the simt path, which decides the accepted tiles on both
+    paths (the wgmma path sizes its ring to fit inside it). The same
+    formulas as ``os_smem`` and ``spill_smem`` in ``csrc/systolic_gemm.cu``.
+    """
     if dataflow == "WS":
-        return 4 * (bk * bn + CHUNK * (bm + 1))
+        return 4 * (bk * bn + 2 * SPILL_CHUNK * (bm + PITCH_PAD))
     if dataflow == "IS":
-        return 4 * (bk * (bm + 1) + CHUNK * bn)
+        return 4 * (bk * (bm + PITCH_PAD) + 2 * SPILL_CHUNK * bn)
     return 4 * CHUNK * (bm + 1 + bn)
+
+
+def spill_path(dtype, bm: int, bk: int, bn: int) -> str:
+    """The kernel a WS/IS call runs on the card: ``"wgmma"`` for bfloat16
+    and float16 operands at ``bm``, ``bn`` in {64, 128} and ``bk % 16 ==
+    0``, else ``"simt"``. The same rule as ``spill_path_of`` in
+    ``csrc/systolic_gemm.cu``, which refuses a launch told another path."""
+    if dtype in (torch.bfloat16, torch.float16) and bm in (64, 128) \
+            and bn in (64, 128) and bk % 16 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def check_tile(dataflow: str, bm: int, bk: int, bn: int) -> None:
@@ -179,10 +210,14 @@ def _spill(fn, plain, dataflow, a, b, bm, bk, bn):
     m, k, n = _check_blocks(a, b, dataflow, bm, bk, bn)
     if a.device.type == "cpu":
         return plain(a, b, bm=bm, bk=bk, bn=bn)
+    path = spill_path(a.dtype, bm, bk, bn)
+    if path == "wgmma":   # TMA reads from 16-B aligned bases
+        a, b = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
     slabs = torch.empty((k // bk, m, n), dtype=torch.float32,
                         device=a.device)
     _launch(fn, a.device, a.data_ptr(), b.data_ptr(), slabs.data_ptr(), m, k,
-            n, bm, bk, bn, DTYPES[a.dtype])
+            n, bm, bk, bn, DTYPES[a.dtype], SPILL_PATHS.index(path))
+    fn.path_launches[path] += 1
     return slabs
 
 

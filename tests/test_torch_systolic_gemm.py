@@ -40,6 +40,11 @@ from repro_torch.kernels.systolic_gemm import (
     ws_gemm_partials,
     ws_gemm_partials_plain,
 )
+from repro_torch.kernels.systolic_gemm.ops import (
+    check_tile,
+    smem_bytes,
+    spill_path,
+)
 
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -7}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -357,3 +362,87 @@ def test_cuda_kernels_match_plain_on_card(shape, tile, dt):
         else:
             tol, mags = TOL["float32"], slab_magnitudes(ap, bp, len(got))
         _close(got.cpu(), want.cpu().double().numpy(), mags, tol, site)
+
+
+@pytest.mark.parametrize("dt,tile,want", [
+    ("bfloat16", (128, 128, 128), "wgmma"), ("float16", (128, 128, 128),
+                                             "wgmma"),
+    ("bfloat16", (64, 64, 64), "wgmma"), ("float16", (128, 64, 64), "wgmma"),
+    ("bfloat16", (64, 48, 128), "wgmma"), ("bfloat16", (128, 16, 64),
+                                           "wgmma"),
+    ("float32", (128, 128, 128), "simt"), ("float32", (64, 64, 64), "simt"),
+    ("bfloat16", (128, 64, 96), "simt"), ("float16", (32, 32, 32), "simt"),
+    ("bfloat16", (96, 128, 128), "simt"), ("bfloat16", (128, 40, 128),
+                                           "simt"),
+    ("float16", (64, 7, 64), "simt")])
+def test_spill_path(dt, tile, want):
+    """WS/IS run on wgmma for 16-bit operands at bm, bn in {64, 128} and
+    bk % 16 == 0, and on the float32 FFMA kernel otherwise."""
+    assert spill_path(DTYPES[dt], *tile) == want
+
+
+# every tile of these tests, of chip_smoke.py and of tests/test_kernels.py
+_USED_TILES = sorted(set(TILES) | {(128, 128, 128), (64, 64, 64)})
+
+
+@pytest.mark.parametrize("df", ["OS", "WS", "IS"])
+@pytest.mark.parametrize("tile", _USED_TILES,
+                         ids=["x".join(map(str, t)) for t in _USED_TILES])
+def test_used_tiles_are_accepted(df, tile):
+    check_tile(df, *tile)
+    assert smem_bytes(df, *tile) <= 232448
+
+
+@pytest.mark.parametrize("df,bk_max,want_128", [("WS", 388, 99328),
+                                                ("IS", 378, 100352)])
+def test_spill_bk_limit_at_128(df, bk_max, want_128):
+    """The simt footprint, which decides the accepted set on both paths:
+    at bm = bn = 128, WS takes bk up to 388 and IS up to 378."""
+    assert smem_bytes(df, 128, 128, 128) == want_128
+    check_tile(df, 128, bk_max, 128)
+    with pytest.raises(ValueError, match=f"bk={bk_max + 1}.*{df}"):
+        check_tile(df, 128, bk_max + 1, 128)
+
+
+# (site, (M, K, N), tile): sweeps of 7 steps, so the wgmma ring (2-4
+# stages, 1-6 chunks a step) wraps several times; K/bk of 2 or 3; every
+# compiled N (64, 128) at bm = 64 and 128; k-chunks of 64 and 16; a
+# 16-bit tile that takes the simt path; a bk that is not a multiple of 4.
+_SPILL_CASES = [
+    ("ws", (7 * 128, 256, 256), (128, 128, 128)),
+    ("is", (256, 256, 7 * 128), (128, 128, 128)),
+    ("ws", (7 * 64, 192, 128), (64, 64, 64)),
+    ("is", (128, 192, 7 * 64), (64, 64, 64)),
+    ("ws", (7 * 64, 128, 256), (64, 64, 128)),
+    ("is", (256, 128, 7 * 128), (128, 64, 128)),
+    ("ws", (7 * 128, 96, 128), (128, 48, 64)),
+    ("is", (128, 96, 7 * 64), (64, 48, 64)),
+    ("ws", (256, 128, 192), (128, 64, 96)),
+    ("is", (96, 14, 64), (32, 7, 32)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("site,shape,tile", _SPILL_CASES,
+                         ids=[f"{c[0]}-{'x'.join(map(str, c[2]))}"
+                              for c in _SPILL_CASES])
+def test_cuda_spill_paths_match_plain_on_card(site, shape, tile, dt):
+    """WS/IS on the card, on the path ``spill_path`` names, slab by slab
+    within 1e-5 x each slab's Mag of the plain ``bmm``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn, plain = KERNELS[f"{site}_gemm_partials"]
+    bm, bk, bn = tile
+    a, b = (x.cuda() for x in _tensors(shape, dt))
+    path = spill_path(a.dtype, bm, bk, bn)
+    before = dict(fn.path_launches)
+    got = fn(a, b, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert fn.path_launches[path] == before[path] + 1
+    want = plain(a, b, bm=bm, bk=bk, bn=bn)
+    assert got.shape == (shape[1] // bk, shape[0], shape[2])
+    _close(got.cpu(), want.cpu().double().numpy(),
+           slab_magnitudes(a, b, len(got)), TOL["float32"],
+           f"{site} {path}")
