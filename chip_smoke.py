@@ -60,25 +60,26 @@ one JSON line that carries the card's name and power limit:
 13. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
-    sites, and of each WS/IS path ("simt", "wgmma"), over that run; then
-    each case's kernel (``os_gemm``, ``os_gemm_splitk``,
-    ``ws_gemm_partials`` or ``is_gemm_partials``) on the padded operands
-    against its plain version on the card, within 1e-5 x Mag for float32
-    outputs and slabs and 2^-7 x Mag for bfloat16 (Mag = max_mn sum_k
-    |a_mk| |b_kn|, per slab), and four times, each from 50 calls in one
-    CUDA graph: the kernel alone (preallocated output), the whole
-    ``systolic_gemm``, the plain version and ``torch.matmul`` (TF32
-    off); WS/IS rows also give their path and ``bmm_ms``, ``torch.bmm``
-    over the same k-block views (the one PyTorch call that computes the
-    slabs; in 16-bit it writes 16-bit slabs, an easier yardstick); with
-    the bound on the true shape, the padded shape and its work factor.
-    16-bit WS/IS at the 128^3 tile must take "wgmma". Cases: the six
-    Table IV workloads in float32 at the 128^3 tile under OS, OS split-K
-    2 and 4, WS and IS; bfloat16 at WL1 and WL2 under OS, WS and IS; the
-    reference tests' tile sweep at WL1; ``rwkv6-3b``'s channel-mix key
-    product at the serve cell's prefill (2048 x 2560 x 8960) under the
-    five settings in float32 and under WS and IS in bfloat16; float16 WS
-    at WL2.
+    sites, and of each site's path ("simt", "wgmma"), over that run;
+    then each case's kernel (``os_gemm``, ``os_gemm_splitk``,
+    ``ws_gemm_partials`` or ``is_gemm_partials``, on the path
+    ``kernel_path`` names) on the padded operands against its plain
+    version on the card, within 1e-5 x Mag for float32 outputs and slabs
+    and 2^-7 x Mag for 16-bit outputs (Mag = max_mn sum_k |a_mk| |b_kn|,
+    per slab), and four times, each from 50 calls in one CUDA graph: the
+    kernel alone (preallocated output), the whole ``systolic_gemm``, the
+    plain version and ``torch.matmul`` (TF32 off); WS/IS rows also give
+    ``bmm_ms``, ``torch.bmm`` over the same k-block views (the one
+    PyTorch call that computes the slabs; in 16-bit it writes 16-bit
+    slabs, an easier yardstick); with the bound on the true shape, the
+    padded shape and its work factor. 16-bit cases at the 128^3 tile
+    must take "wgmma" at every site. Cases (69): the six Table IV
+    workloads in float32 at the 128^3 tile under OS, OS split-K 2 and 4,
+    WS and IS; bfloat16 at WL1 and WL2 under OS, OS split-K 2, WS and IS;
+    the reference tests' tile sweep at WL1; ``rwkv6-3b``'s channel-mix
+    key product at the serve cell's prefill (2048 x 2560 x 8960) under
+    the five settings in float32 and under OS, OS split-K 2, WS and IS in
+    bfloat16; float16 OS and WS at WL2.
 14. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -905,11 +906,12 @@ def phase_serve_hybrid(card: str) -> dict:
 def gemm_cases() -> list:
     """(name, M, K, N, dtype, tile, dataflow, split_k) of every case: the
     six Table IV workloads in float32 at the 128^3 tile under OS, OS
-    split-K 2 and 4, WS and IS; bfloat16 at WL1 and WL2 under OS, WS and
-    IS; the reference tests' tile sweep at WL1; rwkv6-3b's channel-mix
-    key product at the serve cell's prefill (batch 4 x prompt 512 rows,
-    d_model -> d_ff) under the five settings in float32 and under WS and
-    IS in bfloat16; and float16 WS at WL2."""
+    split-K 2 and 4, WS and IS; bfloat16 at WL1 and WL2 under OS, OS
+    split-K 2, WS and IS; the reference tests' tile sweep at WL1;
+    rwkv6-3b's channel-mix key product at the serve cell's prefill (batch
+    4 x prompt 512 rows, d_model -> d_ff) under the five settings in
+    float32 and under OS, OS split-K 2, WS and IS in bfloat16; and
+    float16 OS and WS at WL2."""
     from repro_torch.configs import get_config
     from repro_torch.core import WORKLOADS
 
@@ -918,13 +920,14 @@ def gemm_cases() -> list:
     lm = get_config("rwkv6-3b")
     lm_key = ("rwkv6-3b-ffn-key", 4 * 512, lm.d_model, lm.d_ff)
     cases = [(*w, f32, full, df, sk) for w in wls for df, sk in GEMM_SETTINGS]
-    cases += [(*w, bf16, full, df, 1) for w in wls[:2]
-              for df in ("OS", "WS", "IS")]
+    cases += [(*w, bf16, full, df, sk) for w in wls[:2]
+              for df, sk in (("OS", 1), ("OS", 2), ("WS", 1), ("IS", 1))]
     cases += [(*wls[0], f32, tile, df, sk) for tile in GEMM_TILES
               for df, sk in (("OS", 1), ("OS", 2), ("WS", 1), ("IS", 1))]
     cases += [(*lm_key, f32, full, df, sk) for df, sk in GEMM_SETTINGS]
-    cases += [(*lm_key, bf16, full, df, 1) for df in ("WS", "IS")]
-    cases += [(*wls[1], torch.float16, full, "WS", 1)]
+    cases += [(*lm_key, bf16, full, df, sk)
+              for df, sk in (("OS", 1), ("OS", 2), ("WS", 1), ("IS", 1))]
+    cases += [(*wls[1], torch.float16, full, df, 1) for df in ("OS", "WS")]
     return cases
 
 
@@ -989,15 +992,15 @@ def _gemm_launcher(lib, site, ap, bp, out, tile, sk):
     bm, bk, bn = tile
     (Mp, Kp), Np = ap.shape, bp.shape[1]
     code = gops.DTYPES[ap.dtype]
+    path = gops.PATHS.index(gops.kernel_path(ap.dtype, bm, bk, bn))
     fn = getattr(lib, f"{site}_launch")
     head = (ap.data_ptr(), bp.data_ptr(), out.data_ptr(), Mp, Kp, Np)
     if site == "os_gemm":
-        args = (*head, bm, bk, bn, code, gops.DTYPES[out.dtype])
+        args = (*head, bm, bk, bn, code, gops.DTYPES[out.dtype], path)
     elif site == "os_gemm_splitk":
-        args = (*head, sk, bm, bk, bn, code)
+        args = (*head, sk, bm, bk, bn, code, path)
     else:
-        path = gops.spill_path(ap.dtype, bm, bk, bn)
-        args = (*head, bm, bk, bn, code, gops.SPILL_PATHS.index(path))
+        args = (*head, bm, bk, bn, code, path)
 
     def launch():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -1031,7 +1034,7 @@ def phase_gemm(card: str) -> dict:
                                  f"max abs err {err}, Mag {mag}")
         wrapper_err.append(err / mag)
     launches = {fn.__name__: fn.launches for fn in gops.KERNELS}
-    for fn in (gops.ws_gemm_partials, gops.is_gemm_partials):
+    for fn in gops.KERNELS:
         for path, n in fn.path_launches.items():
             launches[f"{fn.__name__}/{path}"] = n
     idle = [name for name, n in launches.items() if n < 1]
@@ -1044,13 +1047,11 @@ def phase_gemm(card: str) -> dict:
         name, M, K, N, dtype, tile, df, sk = case
         bm, bk, bn = tile
         site = _gemm_site(df, sk)
-        path = None                     # the WS/IS kernel this case takes
-        if site in ("ws_gemm_partials", "is_gemm_partials"):
-            path = gops.spill_path(dtype, bm, bk, bn)
-            if dtype != torch.float32 and tile == (128, 128, 128) \
-                    and path != "wgmma":
-                raise AssertionError(f"{site} {case} took {path}")
-        key = f"{site}/{path}" if path else site
+        path = gops.kernel_path(dtype, bm, bk, bn)   # the kernel it takes
+        if dtype != torch.float32 and tile == (128, 128, 128) \
+                and path != "wgmma":
+            raise AssertionError(f"{site} {case} took {path}")
+        key = f"{site}/{path}"
         plain = getattr(G, f"{site}_plain")
         a, b = _gemm_operands(case, seed=i)
         ap, bp = _gemm_pad(a, b, tile, df, sk)
@@ -1079,14 +1080,15 @@ def phase_gemm(card: str) -> dict:
                 "os_gemm_splitk": Mp // bm * (Np // bn) * sk,
                 "ws_gemm_partials": Np // bn * (Kp // bk),
                 "is_gemm_partials": Mp // bm * (Kp // bk)}[site]
-        if path is not None:
+        spill = site in ("ws_gemm_partials", "is_gemm_partials")
+        if spill:
             # the one PyTorch call that computes the same slabs (in the
             # operand dtype: 16-bit slabs, half the bytes of float32)
             a3 = ap.view(Mp, Kp // bk, bk).transpose(0, 1)
             b3 = bp.view(Kp // bk, bk, Np)
-        rec = dict(phase="gemm_kernel", kernel=site, case=name, M=M, K=K,
-                   N=N, dtype=str(dtype).replace("torch.", ""), tile=tile,
-                   dataflow=df, split_k=sk, padded=(Mp, Kp, Np),
+        rec = dict(phase="gemm_kernel", kernel=site, path=path, case=name,
+                   M=M, K=K, N=N, dtype=str(dtype).replace("torch.", ""),
+                   tile=tile, dataflow=df, split_k=sk, padded=(Mp, Kp, Np),
                    pad_work=Mp * Kp * Np / (M * K * N), ctas=grid,
                    smem_bytes=gops.smem_bytes(df, bm, bk, bn),
                    max_abs_err=max(errs),
@@ -1102,15 +1104,16 @@ def phase_gemm(card: str) -> dict:
         rec["tflops"] = rec["ops"] / rec["ms"] / 1e9
         rec["over_bound"] = rec["ms"] / rec["bound_ms"]
         rec["over_library"] = rec["ms"] / rec["library_ms"]
-        if path is not None:
-            rec["path"] = path
+        if spill:
             rec["bmm_ms"] = graph_ms(lambda: torch.bmm(a3, b3))
             rec["over_bmm"] = rec["ms"] / rec["bmm_ms"]
             del a3, b3
         emit(rec)
+        # the main case of each site and path: WL2 at 128^3, split-K 2,
+        # float32 on simt and bfloat16 on wgmma
         if (name, tile) == ("WL2", (128, 128, 128)) and sk in (1, 2) \
-                and dtype in (torch.float32, torch.bfloat16) \
-                and (dtype == torch.float32) == (path != "wgmma"):
+                and dtype == (torch.float32 if path == "simt"
+                              else torch.bfloat16):
             main[key] = rec
         del out, ap, bp, a, b
     torch.cuda.empty_cache()
@@ -1304,7 +1307,8 @@ def main() -> int:
         "bound_ms": gmain[site]["bound_ms"],
         "bound_by": gmain[site]["bound_by"],
         "library_ms": gmain[site]["library_ms"]} for site, line in (
-            ("os_gemm", 38), ("os_gemm_splitk", 54),
+            ("os_gemm/simt", 38), ("os_gemm/wgmma", 38),
+            ("os_gemm_splitk/simt", 54), ("os_gemm_splitk/wgmma", 54),
             ("ws_gemm_partials/simt", 71), ("ws_gemm_partials/wgmma", 71),
             ("is_gemm_partials/simt", 71), ("is_gemm_partials/wgmma", 71))]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -29,22 +29,52 @@
 //
 // What bounds it: operations for the real workloads at float32 (WL2:
 // 29.7 GFLOP, 0.44 ms at the 67 TFLOP/s FFMA rate, against 0.04 ms of
-// operand bytes); the float32 slabs that WS, IS and split-K write add
-// K/bk (or splits) x M x N x 4 bytes, which is what the paper charges
-// those dataflows for, and which bound WS/IS in 16-bit (WL2: 465 MB,
-// 0.139 ms at 3.35 TB/s).
+// operand bytes) and at 16-bit OS (0.030 ms at the 989 TFLOP/s tensor-core
+// rate); the float32 slabs that WS, IS and split-K write add K/bk (or
+// splits) x M x N x 4 bytes, which is what the paper charges those
+// dataflows for, and which bound them in 16-bit (WL2: WS/IS 465 MB, 0.139
+// ms at 3.35 TB/s; split-K 2 155 MB, 0.046 ms).
 //
-// OS and split-K: 256 threads as 16 x 16; thread (ty, tx) owns output rows
-// ty + 16 i and columns tx + 16 j of the (bm x bn) tile, i < bm/16,
-// j < bn/16 (an 8 x 8 register block). The operands come through shared
-// memory in k-chunks of 32, converted to float32 on the way in: a
-// transposed (sA[k][m], row pitch bm + 1) and b as it is (sB[k][n]); FFMA,
-// no tensor cores, no double buffering. Shared memory per block:
-//   OS, split: 4 * 32 * (bm + 1 + bn) bytes
+// Every site takes one of two kernels, by path_of() (mirrored by
+// ops.kernel_path in Python, a function of the dtype and the tile alone;
+// the launcher is told the path and refuses a mismatch): "wgmma" for
+// bfloat16 / float16 at bm, bn in {64, 128} and bk % 16 == 0, else
+// "simt".
 //
-// WS and IS take one of two kernels, by spill_path() (mirrored by
-// ops.spill_path in Python; the launcher is told the path and refuses a
-// mismatch):
+// OS and split-K (_os_kernel, _os_splitk_kernel), "simt": pipelined FFMA
+//   in float32 (no TF32, as the float32 contract is 1e-5 x Mag), bound by
+//   FFMA issue. So the thread block follows the tile and no register lane
+//   idles: each thread owns a 4 x 4 block ((bm/4)(bn/4) threads) while
+//   that is at most 256 threads, else an 8 x 8 block as two 4-row by two
+//   4-column halves, bm/2 and bn/2 apart ((bm/8)(bn/8) threads, 80 to
+//   256). A thread's operands of one k are kF/2 LDS.128 (8 or 16 FFMA
+//   each), loaded one k ahead. The k range streams through shared memory
+//   in 32-deep chunks of both operands, float32, a transposed (sA[k][m],
+//   pitch bm + 4) and b as it is; chunk c + 1 is loaded into registers in
+//   rounds of four 16-B loads a thread (8-B for 16-bit; scalar when
+//   bk % 4 != 0) while chunk c is multiplied, and stored into the other
+//   buffer, with one __syncthreads per chunk. The 128 x 128 tile has its
+//   own instantiation with compile-time pitches, capped at 128 registers
+//   so that two blocks share an SM. One epilogue per tile, from the
+//   registers, in the output type (the float32 slab for split-K).
+//   Shared memory per block (ops.smem_bytes mirrors it; no bk term, so
+//   every bm, bn is accepted at any bk):
+//     OS, split: 4 * 2 * 32 * (bm + 4 + bn)
+//
+// OS and split-K, "wgmma": bound by the tensor-core rate (os_gemm) or by
+//   the float32 slab writes (split-K). Warp-specialised, as WS/IS's
+//   below, with no resident operand: one producer warp streams the a tile (bm x KC) and
+//   the b tile (KC x bn) of each k-chunk by TMA into one mbarrier ring;
+//   bm/64 consumer warpgroups run m64nNk16 with scale-d 0 on the first
+//   chunk only, so the float32 accumulators stay in registers across all
+//   k-blocks, and wait for the previous chunk's group only (wait_group 1)
+//   before releasing its stage. The ring holds 96 KB (3 stages of 32 KB
+//   at 128 x 128, KC = 64), so that two blocks fit on one SM: the grid is
+//   the dataflow's and not persistent, and the second block hides one
+//   tile's epilogue (direct stores from the accumulators, in the output
+//   type) behind another tile's products.
+//
+// WS and IS:
 //
 // "simt" (float32 operands, and every 16-bit tile the other path does not
 //   take): 256 threads as 16 x 16; thread (ty, tx) owns rows 4ty + i and
@@ -100,158 +130,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 namespace {
 
 constexpr int kSide = 16;               // threads per tile side
 constexpr int kThreads = kSide * kSide;
 constexpr int kFrag = 8;                // rows (columns) a thread owns
 constexpr int kMaxTile = kSide * kFrag; // 128
-constexpr int kChunk = 32;              // k-depth staged per step
+constexpr int kChunk = 32;              // k-depth of one streamed chunk (simt)
 
 template <typename T> struct Tag { using type = T; };
-
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_float<__half>(__half x) {
-  return __half2float(x);
-}
-
-template <typename O> __device__ __forceinline__ O from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-// rows [r0, r0 + rows) x columns [k0, k0 + kc) of a row-major operand
-// with row length ld, into s[k * lds + r] (transposed). Neighbouring
-// threads read neighbouring k: coalesced.
-template <typename T>
-__device__ __forceinline__ void stage_t(const T* __restrict__ g, int64_t ld,
-                                        int64_t r0, int64_t k0, int rows,
-                                        int kc, float* s, int lds) {
-  for (int i = threadIdx.x; i < rows * kc; i += kThreads) {
-    const int r = i / kc, k = i - r * kc;
-    s[k * lds + r] = to_float(g[(r0 + r) * ld + k0 + k]);
-  }
-}
-
-// rows [k0, k0 + kc) x columns [c0, c0 + cols) of a row-major operand
-// with row length ld, into s[k * cols + c] (as it is).
-template <typename T>
-__device__ __forceinline__ void stage_n(const T* __restrict__ g, int64_t ld,
-                                        int64_t k0, int64_t c0, int kc,
-                                        int cols, float* s) {
-  for (int i = threadIdx.x; i < kc * cols; i += kThreads) {
-    const int k = i / cols, c = i - k * cols;
-    s[k * cols + c] = to_float(g[(k0 + k) * ld + c0 + c]);
-  }
-}
-
-// acc[i][j] += sum over k < kc of sA[k][ty + 16 i] * sB[k][tx + 16 j]
-__device__ __forceinline__ void mma(const float* sA, int lda, const float* sB,
-                                    int ldb, int kc, int fm, int fn,
-                                    float (&acc)[kFrag][kFrag]) {
-  const int ty = threadIdx.x / kSide, tx = threadIdx.x % kSide;
-#pragma unroll 2
-  for (int k = 0; k < kc; ++k) {
-    float av[kFrag], bv[kFrag];
-#pragma unroll
-    for (int i = 0; i < kFrag; ++i)
-      av[i] = i < fm ? sA[k * lda + ty + kSide * i] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kFrag; ++j)
-      bv[j] = j < fn ? sB[k * ldb + tx + kSide * j] : 0.f;
-#pragma unroll
-    for (int i = 0; i < kFrag; ++i)
-#pragma unroll
-      for (int j = 0; j < kFrag; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <typename O>
-__device__ __forceinline__ void flush(O* __restrict__ out, int64_t ldo,
-                                      int64_t r0, int64_t c0, int fm, int fn,
-                                      const float (&acc)[kFrag][kFrag]) {
-  const int ty = threadIdx.x / kSide, tx = threadIdx.x % kSide;
-#pragma unroll
-  for (int i = 0; i < kFrag; ++i) {
-    if (i >= fm) break;
-#pragma unroll
-    for (int j = 0; j < kFrag; ++j) {
-      if (j >= fn) break;
-      out[(r0 + ty + kSide * i) * ldo + c0 + tx + kSide * j] =
-          from_float<O>(acc[i][j]);
-    }
-  }
-}
-
-// Output-stationary tile (blockIdx.y, blockIdx.x) over k-blocks [kb0, kb1).
-template <typename T, typename O>
-__device__ __forceinline__ void os_tile(const T* __restrict__ a,
-                                        const T* __restrict__ b,
-                                        O* __restrict__ out, int64_t K,
-                                        int64_t N, int bm, int bk, int bn,
-                                        int64_t kb0, int64_t kb1) {
-  extern __shared__ float smem[];
-  const int lda = bm + 1;
-  float* sA = smem;
-  float* sB = smem + kChunk * lda;
-  const int64_t r0 = (int64_t)blockIdx.y * bm, c0 = (int64_t)blockIdx.x * bn;
-  const int fm = bm / kSide, fn = bn / kSide;
-  float acc[kFrag][kFrag];
-#pragma unroll
-  for (int i = 0; i < kFrag; ++i)
-#pragma unroll
-    for (int j = 0; j < kFrag; ++j) acc[i][j] = 0.f;
-  for (int64_t kb = kb0; kb < kb1; ++kb) {  // the TPU grid's k axis, in order
-    for (int kc0 = 0; kc0 < bk; kc0 += kChunk) {
-      const int kc = min(kChunk, bk - kc0);
-      const int64_t k0 = kb * bk + kc0;
-      __syncthreads();
-      stage_t(a, K, r0, k0, bm, kc, sA, lda);
-      stage_n(b, N, k0, c0, kc, bn, sB);
-      __syncthreads();
-      mma(sA, lda, sB, bn, kc, fm, fn, acc);
-    }
-  }
-  flush(out, N, r0, c0, fm, fn, acc);
-}
-
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads)
-    os_kernel(const T* __restrict__ a, const T* __restrict__ b,
-              O* __restrict__ out, int64_t K, int64_t N, int bm, int bk,
-              int bn) {
-  os_tile<T, O>(a, b, out, K, N, bm, bk, bn, 0, K / bk);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    os_splitk_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                     float* __restrict__ slabs, int64_t M, int64_t K,
-                     int64_t N, int bm, int bk, int bn, int64_t nk) {
-  const int64_t s = blockIdx.z;
-  os_tile<T, float>(a, b, slabs + s * M * N, K, N, bm, bk, bn, s * nk,
-                    (s + 1) * nk);
-}
 
 // ---------------------------------------------------------------------------
 // WS / IS, "simt" path: pipelined FFMA
 // ---------------------------------------------------------------------------
 
-constexpr int kSpillKc = 32;   // k-depth of one streamed chunk
 constexpr int kPitchPad = 4;   // sA[k][m] pitch bm + 4: rows stay 16-B aligned
 
 // four consecutive elements, as loaded: 16 B of float32, 8 B of 16-bit
@@ -421,12 +316,12 @@ __device__ __forceinline__ void spill_mma(const float* sA, int lda_rt,
                                           float (&acc)[kFrag][kFrag]) {
   const int lda = kFull ? kMaxTile + kPitchPad : lda_rt;
   const int ldb = kFull ? kMaxTile : ldb_rt;
-  if (kc == kSpillKc) {
+  if (kc == kChunk) {
     KOperands cur = load_k(sA, sB, h);
 #pragma unroll
-    for (int k = 0; k < kSpillKc; ++k) {
+    for (int k = 0; k < kChunk; ++k) {
       KOperands nxt = cur;
-      if (k + 1 < kSpillKc)
+      if (k + 1 < kChunk)
         nxt = load_k(sA + (k + 1) * lda, sB + (k + 1) * ldb, h);
       fma_k(cur, acc);
       cur = nxt;
@@ -473,28 +368,28 @@ __global__ void __launch_bounds__(kThreads)
   float* slab = slabs + (int64_t)blockIdx.y * M * N;
   const int64_t fixed = (int64_t)blockIdx.x * (kWS ? bn : bm);  // c0 / r0
   const int64_t steps = kWS ? M / bm : N / bn;
-  const int chunks = (bk + kSpillKc - 1) / kSpillKc;
+  const int chunks = (bk + kChunk - 1) / kChunk;
   // resident: WS sB[k][n] = b[k0 + k][fixed + n]; IS sA[k][m] = a[fixed +
   // m][k0 + k]. Then two buffers of the streamed operand's chunk.
   float* res = smem;
   float* ring = smem + (kWS ? bk * bn : bk * lda);
-  const int buf = kSpillKc * (kWS ? lda : bn);
+  const int buf = kChunk * (kWS ? lda : bn);
   const Halves<kFull> h(bm, bn);
 
   ATile<T, kVec> ta;   // WS streams a; IS stages its resident a with it
   BTile<T> tb;         // IS streams b; WS stages its resident b with it
   for (int c = 0; c < chunks; ++c) {
-    const int kc = min(kSpillKc, bk - c * kSpillKc);
+    const int kc = min(kChunk, bk - c * kChunk);
     if (kWS) {
-      tb.load(b, N, k0 + c * kSpillKc, fixed, kc, bn);
-      tb.store(res + c * kSpillKc * bn, kc, bn);
+      tb.load(b, N, k0 + c * kChunk, fixed, kc, bn);
+      tb.store(res + c * kChunk * bn, kc, bn);
     } else {
-      ta.load(a, K, fixed, k0 + c * kSpillKc, bm, kc);
-      ta.store(res + c * kSpillKc * lda, lda, bm, kc);
+      ta.load(a, K, fixed, k0 + c * kChunk, bm, kc);
+      ta.store(res + c * kChunk * lda, lda, bm, kc);
     }
   }
   {
-    const int kc = min(kSpillKc, bk);
+    const int kc = min(kChunk, bk);
     if (kWS) {
       ta.load(a, K, 0, k0, bm, kc);
       ta.store(ring, lda, bm, kc);
@@ -517,12 +412,12 @@ __global__ void __launch_bounds__(kThreads)
       ++sn;
     }
     const bool more = t + 1 < total;
-    const int kcn = min(kSpillKc, bk - cn * kSpillKc);
+    const int kcn = min(kChunk, bk - cn * kChunk);
     if (more) {  // the next chunk, into registers
       if (kWS)
-        ta.load(a, K, sn * bm, k0 + cn * kSpillKc, bm, kcn);
+        ta.load(a, K, sn * bm, k0 + cn * kChunk, bm, kcn);
       else
-        tb.load(b, N, k0 + cn * kSpillKc, sn * bn, kcn, bn);
+        tb.load(b, N, k0 + cn * kChunk, sn * bn, kcn, bn);
     }
     if (c == 0) {
 #pragma unroll
@@ -530,12 +425,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < kFrag; ++j) acc[i][j] = 0.f;
     }
-    const int kc = min(kSpillKc, bk - c * kSpillKc);
+    const int kc = min(kChunk, bk - c * kChunk);
     const float* cur = ring + (t & 1) * buf;
     if (kWS)
-      spill_mma(cur, lda, res + c * kSpillKc * bn, bn, kc, h, acc);
+      spill_mma(cur, lda, res + c * kChunk * bn, bn, kc, h, acc);
     else
-      spill_mma(res + c * kSpillKc * lda, lda, cur, bn, kc, h, acc);
+      spill_mma(res + c * kChunk * lda, lda, cur, bn, kc, h, acc);
     if (c == chunks - 1)
       spill_flush(slab, N, kWS ? step * bm : fixed, kWS ? fixed : step * bn,
                   h, acc);
@@ -559,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kWgThreads = 128;   // one warpgroup
 constexpr int kMaxStages = 4;
 constexpr int kAlignSlack = 1024; // swizzled tiles sit on 1024-B boundaries
-constexpr int kBarBytes = 128;    // 2 * kMaxStages + 1 mbarriers
+constexpr int kBarBytes = 128;    // WS/IS: 2 * kMaxStages + 1 mbarriers
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -628,8 +523,9 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving accumulator reads or writes across the
@@ -850,7 +746,7 @@ __global__ void __launch_bounds__(2 * kWgThreads + 32)
         wgmma_64xN(d, da, db, c > 0 || k > 0, Tag<T>{});
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_acc(d);
       mbar_arrive(&empty[s]);
       if (++s == stages) {
@@ -873,6 +769,403 @@ __global__ void __launch_bounds__(2 * kWgThreads + 32)
   }
 }
 
+// ---------------------------------------------------------------------------
+// OS / OS split-K, "simt" path: pipelined FFMA, the thread block sized to
+// the tile
+// ---------------------------------------------------------------------------
+
+// The (kF x kF) register block of one thread: thread (ty, tx), tx <
+// bn / kF, owns rows 4 ty + i and columns 4 tx + j (i, j < 4), and with
+// kF = 8 also rows bm / 2 + 4 ty + i and columns bn / 2 + 4 tx + j. Every
+// lane is inside the tile.
+template <int kF>
+struct OsLanes {
+  int a[kF / 4], b[kF / 4];  // offsets into a row of sA[k][.] / sB[k][.]
+  __device__ __forceinline__ OsLanes(int bm, int bn) {
+    const int tpr = bn / kF;  // threads a row
+    const int ty = threadIdx.x / tpr, tx = threadIdx.x % tpr;
+    a[0] = 4 * ty;
+    b[0] = 4 * tx;
+    if constexpr (kF == 8) {
+      a[1] = a[0] + bm / 2;
+      b[1] = b[0] + bn / 2;
+    }
+  }
+};
+
+// This thread's kF + kF operands of one k: kF / 2 LDS.128.
+template <int kF>
+struct OsOperands {
+  float4 a[kF / 4], b[kF / 4];
+};
+
+template <int kF>
+__device__ __forceinline__ OsOperands<kF> os_load_k(const float* sA,
+                                                    const float* sB,
+                                                    const OsLanes<kF>& l) {
+  OsOperands<kF> o;
+#pragma unroll
+  for (int h = 0; h < kF / 4; ++h) {
+    o.a[h] = *reinterpret_cast<const float4*>(sA + l.a[h]);
+    o.b[h] = *reinterpret_cast<const float4*>(sB + l.b[h]);
+  }
+  return o;
+}
+
+template <int kF>
+__device__ __forceinline__ void os_fma_k(const OsOperands<kF>& o,
+                                         float (&acc)[kF][kF]) {
+  float av[kF], bv[kF];
+#pragma unroll
+  for (int h = 0; h < kF / 4; ++h) {
+    av[4 * h] = o.a[h].x, av[4 * h + 1] = o.a[h].y;
+    av[4 * h + 2] = o.a[h].z, av[4 * h + 3] = o.a[h].w;
+    bv[4 * h] = o.b[h].x, bv[4 * h + 1] = o.b[h].y;
+    bv[4 * h + 2] = o.b[h].z, bv[4 * h + 3] = o.b[h].w;
+  }
+#pragma unroll
+  for (int i = 0; i < kF; ++i)
+#pragma unroll
+    for (int j = 0; j < kF; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
+
+// One k-chunk (kc <= 32 deep) of both operands, staged through registers
+// in rounds of four quads a thread, each quad at a fixed stride from the
+// thread's first, so no round needs a division. a: thread t < nt8 (nt
+// rounded down to a multiple of 8) takes k-quad t % 8 of rows t / 8 +
+// j rs, rs = nt8 / 8 (a warp reads four rows' 128-B runs), into sA[k][m]
+// (transposed, pitch lda). b: thread t takes column quad t % (bn / 4) of
+// k-rows t / (bn / 4) + j ks, ks = nt / (bn / 4) (exact: nt is a multiple
+// of bn / 4), into sB[k][n] as it is. Rounds r < ra take a's quads j =
+// 4 r + p, the rest b's quads j = 4 (r - ra) + p, p < 4.
+template <typename T, bool kVec>
+struct OsStage {
+  quad_t<T> q[4];
+  int row, c;  // this thread's first a row and a k offset (4 (t % 8))
+  int k, cq;   // its first b k-row and b column offset
+  int rs, ks;  // rows (k-rows) between its a (b) quads
+
+  __device__ __forceinline__ OsStage(int bm, int bn, int nt) {
+    const int t = threadIdx.x, nt8 = nt & ~7, nq = bn >> 2;
+    rs = nt8 >> 3;
+    row = t < nt8 ? t >> 3 : bm;  // threads past nt8 stage no a
+    c = (t & 7) * 4;
+    k = t / nq;
+    cq = (t - k * nq) * 4;
+    ks = nt / nq;
+  }
+
+  // round r of the chunk at k offset k0 (kc deep) into registers
+  __device__ __forceinline__ void load(const T* __restrict__ a,
+                                       const T* __restrict__ b, int64_t K,
+                                       int64_t N, int64_t r0, int64_t c0,
+                                       int64_t k0, int kc, int bm, int ra,
+                                       int r) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (r < ra) {
+        const int m = row + (4 * r + p) * rs;
+        if (m < bm && c < kc) {
+          const T* src = a + (r0 + m) * K + k0 + c;
+          q[p] = kVec ? load_quad(src) : load_quad_scalar(src, kc - c);
+        }
+      } else {
+        const int kk = k + (4 * (r - ra) + p) * ks;
+        if (kk < kc) q[p] = load_quad(b + (k0 + kk) * N + c0 + cq);
+      }
+    }
+  }
+
+  // round r from the registers into the buffers sA / sB
+  __device__ __forceinline__ void store(float* sA, int lda, float* sB,
+                                        int bn, int kc, int bm, int ra,
+                                        int r) const {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (r < ra) {
+        const int m = row + (4 * r + p) * rs;
+        if (m < bm && c < kc) {
+          const float4 f = quad_float(q[p], Tag<T>{});
+          float* d = sA + c * lda + m;
+          d[0] = f.x;
+          if (c + 1 < kc) d[lda] = f.y;
+          if (c + 2 < kc) d[2 * lda] = f.z;
+          if (c + 3 < kc) d[3 * lda] = f.w;
+        }
+      } else {
+        const int kk = k + (4 * (r - ra) + p) * ks;
+        if (kk < kc)
+          *reinterpret_cast<float4*>(sB + kk * bn + cq) =
+              quad_float(q[p], Tag<T>{});
+      }
+    }
+  }
+};
+
+// four float32 values to out[0..4), in the output type
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  __half2 lo = __floats2half2_rn(v.x, v.y), hi = __floats2half2_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+template <typename O, int kF>
+__device__ __forceinline__ void os_flush(O* __restrict__ out, int64_t N,
+                                         int64_t r0, int64_t c0,
+                                         const OsLanes<kF>& l,
+                                         const float (&acc)[kF][kF]) {
+#pragma unroll
+  for (int i = 0; i < kF; ++i) {
+    O* row = out + (r0 + l.a[i / 4] + (i & 3)) * N + c0;
+#pragma unroll
+    for (int h = 0; h < kF / 4; ++h)
+      store4(row + l.b[h], make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                       acc[i][4 * h + 2], acc[i][4 * h + 3]));
+  }
+}
+
+// The (bm x bn) output tile (blockIdx.y, blockIdx.x) over k in [z klen,
+// (z + 1) klen), z = blockIdx.z, written at element z M N of out in the
+// type out_type (0 float32, 1 bfloat16, 2 float16): os_gemm has one z and
+// klen = K; split-K shard z writes its float32 slab. The k range is
+// walked in 32-deep chunks, double-buffered: chunk c + 1 is staged in
+// rounds (2 at 128 x 128, up to 4 at kF = 4, up to 5 otherwise), round s
+// loaded at k = kGap s of chunk c and stored into the other buffer kGap
+// k-steps later (the last round after the chunk), so the loads overlap
+// the products and one __syncthreads per chunk suffices. kFull:
+// bm = bn = 128, compile-time pitches and thread count. The register cap
+// (128 at kF = 8: two blocks of 256 threads per SM; 64 at kF = 4) keeps
+// the compiler from spending registers on loads hoisted further ahead,
+// which would halve the blocks an SM holds.
+template <typename T, int kF, bool kVec, bool kFull>
+__global__ void __launch_bounds__(kThreads, kF == 8 ? 2 : 4)
+    os_simt_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   void* __restrict__ out, int out_type, int64_t M,
+                   int64_t K, int64_t N, int bm_rt, int bn_rt,
+                   int64_t klen) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int bm = kFull ? kMaxTile : bm_rt, bn = kFull ? kMaxTile : bn_rt;
+  const int nt = kFull ? kThreads : bm * bn / (kF * kF);
+  const int lda = bm + kPitchPad;
+  const int buf = kChunk * (lda + bn);  // one buffer: sA, then sB
+  const int64_t r0 = (int64_t)blockIdx.y * bm, c0 = (int64_t)blockIdx.x * bn;
+  const int64_t k0 = (int64_t)blockIdx.z * klen;
+  const int64_t chunks = (klen + kChunk - 1) / kChunk;
+  // k-steps between staging slots: as many as the tile's rounds allow
+  // (2 at 128 x 128, at most 4 at kF = 4, at most 5 otherwise)
+  constexpr int kGap = kFull ? 16 : kF == 4 ? 8 : 4;
+
+  OsStage<T, kVec> st(bm, bn, nt);
+  const int quads_a = (bm + st.rs - 1) / st.rs;       // a thread's, at most
+  const int quads_b = (kChunk + st.ks - 1) / st.ks;
+  const int ra = (quads_a + 3) / 4, rounds = ra + (quads_b + 3) / 4;
+  {
+    const int kc = klen < kChunk ? (int)klen : kChunk;
+    for (int r = 0; r < rounds; ++r) {
+      st.load(a, b, K, N, r0, c0, k0, kc, bm, ra, r);
+      st.store(smem, lda, smem + kChunk * lda, bn, kc, bm, ra, r);
+    }
+  }
+  __syncthreads();
+
+  const OsLanes<kF> l(bm, bn);
+  float acc[kF][kF];
+#pragma unroll
+  for (int i = 0; i < kF; ++i)
+#pragma unroll
+    for (int j = 0; j < kF; ++j) acc[i][j] = 0.f;
+  for (int64_t c = 0; c < chunks; ++c) {
+    const float* sA = smem + (c & 1) * buf;
+    const float* sB = sA + kChunk * lda;
+    float* nA = smem + ((c + 1) & 1) * buf;
+    float* nB = nA + kChunk * lda;
+    const bool more = c + 1 < chunks;
+    const int64_t kn0 = k0 + (c + 1) * kChunk;
+    const int64_t left = klen - c * kChunk;  // k still to multiply
+    const int kc = left < kChunk ? (int)left : kChunk;
+    const int kcn = !more ? 0 : left - kChunk < kChunk ? (int)(left - kChunk)
+                                                       : kChunk;
+    if (kc == kChunk) {
+      OsOperands<kF> cur = os_load_k(sA, sB, l);
+      // slot s: round s - 1 out, round s in, then kGap k-steps. At a
+      // runtime tile the slot loop stays rolled, so no round's addresses
+      // are hoisted into registers across the chunks; at 128 x 128 its two
+      // slots unroll with compile-time offsets.
+#pragma unroll(kFull ? 2 : 1)
+      for (int s = 0; s < kChunk / kGap; ++s) {
+        if (more) {
+          if (s >= 1 && s - 1 < rounds)
+            st.store(nA, lda, nB, bn, kcn, bm, ra, s - 1);
+          if (s < rounds) st.load(a, b, K, N, r0, c0, kn0, kcn, bm, ra, s);
+        }
+        const float* pA = sA + s * kGap * lda;
+        const float* pB = sB + s * kGap * bn;
+#pragma unroll
+        for (int k = 0; k < kGap; ++k) {
+          OsOperands<kF> nxt = cur;
+          if (k + 1 < kGap || s + 1 < kChunk / kGap)
+            nxt = os_load_k(pA + (k + 1) * lda, pB + (k + 1) * bn, l);
+          os_fma_k(cur, acc);
+          cur = nxt;
+        }
+      }
+      if (more && rounds * kGap >= kChunk)
+        st.store(nA, lda, nB, bn, kcn, bm, ra, rounds - 1);
+    } else {  // a shorter chunk is the last one: nothing to stage
+      for (int k = 0; k < kc; ++k)
+        os_fma_k(os_load_k(sA + k * lda, sB + k * bn, l), acc);
+    }
+    __syncthreads();
+  }
+  const int64_t at = (int64_t)blockIdx.z * M * N;
+  if (out_type == 0)
+    os_flush(reinterpret_cast<float*>(out) + at, N, r0, c0, l, acc);
+  else if (out_type == 1)
+    os_flush(reinterpret_cast<__nv_bfloat16*>(out) + at, N, r0, c0, l, acc);
+  else
+    os_flush(reinterpret_cast<__half*>(out) + at, N, r0, c0, l, acc);
+}
+
+// ---------------------------------------------------------------------------
+// OS / OS split-K, "wgmma" path: both operands through a TMA ring, the
+// accumulator in registers across all k-chunks
+// ---------------------------------------------------------------------------
+
+constexpr int kOsMaxStages = 8;          // 2 * 8 mbarriers fill kBarBytes
+constexpr int kOsRingBytes = 96 * 1024; // see os_wgmma_stages
+
+// two float32 values to out[0..2), in the output type
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+
+// A warpgroup's (64 x N) accumulator tile, at out (row length N_ld), from
+// the m64nNk16 fragment: thread (warp w, lane l) holds rows 16 w + l / 4
+// and + 8, columns 8 j + 2 (l % 4) + {0, 1}.
+template <typename O, int R>
+__device__ __forceinline__ void wg_flush(O* __restrict__ out, int64_t ld,
+                                         const float (&d)[R]) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  O* p = out + (int64_t)(warp * 16 + lane / 4) * ld + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    store2(p + 8 * j, d[4 * j], d[4 * j + 1]);
+    store2(p + 8 * ld + 8 * j, d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+// The (bm x kN) output tile (blockIdx.y, blockIdx.x) over `chunks`
+// k-chunks of kKC from k = z chunks kKC, z = blockIdx.z, written at
+// element z M N of out in the type out_type (as os_simt_kernel). Stage s
+// of the ring holds chunk c's a tile (bm rows x kKC * 2 B, K-major) and
+// b tile (kN / 64 column atoms of kKC rows x 128 B); the producer warp
+// refills a stage once every consumer has released it. Each consumer
+// warpgroup issues chunk c's kKC / 16 products, then waits until only
+// that group is pending (wait_group 1), so chunk c - 1's stage is free
+// and is released while chunk c runs.
+template <typename T, int kN, int kKC>
+__global__ void __launch_bounds__(2 * kWgThreads + 32)
+    os_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    void* __restrict__ out, int out_type, int M, int N,
+                    int bm, int chunks, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kRow = kKC * 2;  // bytes of one a row in a chunk
+  constexpr uint32_t kModeA = kKC == 64 ? 1 : 3;
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int consumers = bm / 64 * kWgThreads;
+  const int a_bytes = bm * kRow;
+  const int stage_bytes = a_bytes + kN * kRow;
+  const int r0 = blockIdx.y * bm, c0 = blockIdx.x * kN;
+  const int kbeg = blockIdx.z * chunks * kKC;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + stages * stage_bytes);
+  uint64_t* empty = full + kOsMaxStages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= consumers) {  // the producer warp; one thread issues
+    if (threadIdx.x != consumers) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(&empty[s], phase ^ 1);
+      mbar_expect_tx(&full[s], stage_bytes);
+      uint8_t* dst = base + s * stage_bytes;
+      const int k = kbeg + c * kKC;
+      tma_load(dst, &map_a, &full[s], k, r0);
+      for (int j = 0; j < kN / 64; ++j)
+        tma_load(dst + a_bytes + j * kKC * 128, &map_b, &full[s],
+                 c0 + 64 * j, k);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = threadIdx.x / kWgThreads;
+  float d[kN / 2];
+  int s = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < chunks; ++c) {
+    mbar_wait(&full[s], phase);
+    const uint8_t* ta = base + s * stage_bytes + wg * 64 * kRow;
+    const uint8_t* tb = base + s * stage_bytes + a_bytes;
+    fence_acc(d);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKC / 16; ++k) {
+      const uint64_t da = smem_desc(ta + k * 32, 16, 8 * kRow, kModeA);
+      const uint64_t db = smem_desc(tb + k * 16 * 128, kKC * 128, 1024, 1);
+      wgmma_64xN(d, da, db, c > 0 || k > 0, Tag<T>{});
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk c - 1's products are done
+    fence_acc(d);
+    if (c > 0) mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  const int64_t at = (int64_t)blockIdx.z * M * N +
+                     (int64_t)(r0 + wg * 64) * N + c0;
+  if (out_type == 0)
+    wg_flush(reinterpret_cast<float*>(out) + at, N, d);
+  else if (out_type == 1)
+    wg_flush(reinterpret_cast<__nv_bfloat16*>(out) + at, N, d);
+  else
+    wg_flush(reinterpret_cast<__half*>(out) + at, N, d);
+}
+
 template <typename F> bool with_type(int code, F&& f) {
   switch (code) {
     case 0: f(Tag<float>{}); return true;
@@ -882,22 +1175,32 @@ template <typename F> bool with_type(int code, F&& f) {
   }
 }
 
+// The simt path's shared memory for an OS tile: two buffers of a 32-deep
+// chunk of both operands, whatever bk. It is the footprint that decides
+// the accepted OS tiles (every bm, bn, any bk); the wgmma ring
+// (os_wgmma_smem) is as independent of bk. Mirrored by ops.smem_bytes.
 size_t os_smem(int bm, int bn) {
-  return sizeof(float) * kChunk * (bm + 1 + bn);
+  return sizeof(float) * 2 * kChunk * ((size_t)bm + kPitchPad + bn);
 }
+
+// The register block side of the OS simt kernel: 4 while (bm / 4)(bn / 4)
+// threads are at most 256, else 8 ((bm / 8)(bn / 8) threads, 80 to 256).
+// Either way no lane idles, and a thread does at least 8 FFMA per LDS.128.
+int os_frag(int bm, int bn) { return bm * bn <= 16 * kThreads ? 4 : 8; }
 
 // The simt path's shared memory for a WS (ws) or IS tile; it is also the
 // footprint that decides which tiles are accepted, on both paths. Mirrored
 // by ops.smem_bytes.
 size_t spill_smem(bool ws, int bm, int bk, int bn) {
   const size_t lda = (size_t)bm + kPitchPad;
-  return sizeof(float) * (ws ? (size_t)bk * bn + 2 * kSpillKc * lda
-                             : (size_t)bk * lda + 2 * kSpillKc * (size_t)bn);
+  return sizeof(float) * (ws ? (size_t)bk * bn + 2 * kChunk * lda
+                             : (size_t)bk * lda + 2 * kChunk * (size_t)bn);
 }
 
-// The path of a WS/IS call: 1 ("wgmma") for 16-bit operands at bm, bn in
-// {64, 128} and bk % 16 == 0, else 0 ("simt"). Mirrored by ops.spill_path.
-int spill_path_of(int in_type, int bm, int bk, int bn) {
+// The path of a call at any of the four sites: 1 ("wgmma") for 16-bit
+// operands at bm, bn in {64, 128} and bk % 16 == 0, else 0 ("simt").
+// Mirrored by ops.kernel_path.
+int path_of(int in_type, int bm, int bk, int bn) {
   return in_type != 0 && (bm == 64 || bm == 128) && (bn == 64 || bn == 128) &&
          bk % 16 == 0;
 }
@@ -913,7 +1216,7 @@ int64_t wgmma_stage(bool ws, int bm, int bk, int bn) {
 }
 
 // Ring stages that fit beside the resident block inside spill_smem: 2 to 4
-// for every tile spill_path_of routes to wgmma.
+// for every tile path_of routes to wgmma.
 int wgmma_stages(bool ws, int bm, int bk, int bn) {
   const int64_t spare = (int64_t)spill_smem(ws, bm, bk, bn) - kAlignSlack -
                         kBarBytes - wgmma_resident(ws, bm, bk, bn);
@@ -924,6 +1227,26 @@ int wgmma_stages(bool ws, int bm, int bk, int bn) {
 size_t wgmma_smem(bool ws, int bm, int bk, int bn, int stages) {
   return (size_t)(kAlignSlack + kBarBytes + wgmma_resident(ws, bm, bk, bn) +
                   stages * wgmma_stage(ws, bm, bk, bn));
+}
+
+int os_wgmma_stage(int bm, int bk, int bn) {
+  return 2 * wgmma_kc(bk) * (bm + bn);
+}
+
+// OS ring stages: as many as 96 KB hold, up to 8. At 128 x 128, KC = 64
+// that is 3 stages of 32 KB, so a block takes 99,456 B and two blocks fit
+// on one SM (228 KB): the grid is not persistent, and the second block
+// is what overlaps one tile's epilogue with another tile's loads. Small
+// stages (KC = 16, or 64 x 64) get more of them, up to the 8 whose
+// barriers kBarBytes holds.
+int os_wgmma_stages(int bm, int bk, int bn) {
+  const int n = kOsRingBytes / os_wgmma_stage(bm, bk, bn);
+  return n < kOsMaxStages ? n : kOsMaxStages;
+}
+
+size_t os_wgmma_smem(int bm, int bk, int bn) {
+  return (size_t)(kAlignSlack + kBarBytes +
+                  os_wgmma_stages(bm, bk, bn) * os_wgmma_stage(bm, bk, bn));
 }
 
 int g_smem_limit = 0;  // set by systolic_gemm_init
@@ -982,21 +1305,58 @@ template <typename T, bool kWS> void allow_simt(int bytes) {
   allow_smem(spill_simt_kernel<T, kWS, true, true>, bytes);
 }
 
-template <typename T, bool kWS> void allow_wgmma(int bytes) {
-  allow_smem(spill_wgmma_kernel<T, kWS, 64, 16>, bytes);
-  allow_smem(spill_wgmma_kernel<T, kWS, 64, 64>, bytes);
-  allow_smem(spill_wgmma_kernel<T, kWS, 128, 16>, bytes);
-  allow_smem(spill_wgmma_kernel<T, kWS, 128, 64>, bytes);
+// f(N, KC) with N = bn and KC = kc as std::integral_constant, for the
+// (bn, kc) pairs the wgmma kernels are compiled for: bn in {64, 128}, kc
+// in {16, 64}.
+template <typename F> void with_n_kc(int bn, int kc, F&& f) {
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  using I16 = std::integral_constant<int, 16>;
+  if (bn == 64 && kc == 64)
+    f(I64{}, I64{});
+  else if (bn == 64)
+    f(I64{}, I16{});
+  else if (kc == 64)
+    f(I128{}, I64{});
+  else
+    f(I128{}, I16{});
 }
 
-template <typename T, bool kWS, int kN, int kKC>
-void launch_wgmma_kernel(const CUtensorMap& ma, const CUtensorMap& mb,
-                         float* slabs, int64_t M, int64_t N, int bm, int bk,
-                         int stages, dim3 grid, size_t smem,
-                         cudaStream_t stream) {
-  spill_wgmma_kernel<T, kWS, kN, kKC>
-      <<<grid, bm / 64 * kWgThreads + 32, smem, stream>>>(
-          ma, mb, slabs, (int)M, (int)N, bm, bk, stages);
+template <typename T> void allow_wgmma(int bytes) {
+  for (int bn : {64, 128})
+    for (int kc : {16, 64})
+      with_n_kc(bn, kc, [&](auto n, auto k) {
+        constexpr int kN = decltype(n)::value, kKC = decltype(k)::value;
+        allow_smem(spill_wgmma_kernel<T, true, kN, kKC>, bytes);
+        allow_smem(spill_wgmma_kernel<T, false, kN, kKC>, bytes);
+        allow_smem(os_wgmma_kernel<T, kN, kKC>, bytes);
+      });
+}
+
+template <typename T> void allow_os(int bytes) {
+  allow_smem(os_simt_kernel<T, 4, false, false>, bytes);
+  allow_smem(os_simt_kernel<T, 4, true, false>, bytes);
+  allow_smem(os_simt_kernel<T, 8, false, false>, bytes);
+  allow_smem(os_simt_kernel<T, 8, true, false>, bytes);
+  allow_smem(os_simt_kernel<T, 8, false, true>, bytes);
+  allow_smem(os_simt_kernel<T, 8, true, true>, bytes);
+}
+
+// The tensor maps of both wgmma kernels: a (M x K) in (bm x kc) boxes
+// (128-B swizzle at kc = 64, else 32-B) and b (K x N) in (kc x 64)
+// column atoms (128-B swizzle). False for operands TMA cannot take.
+template <typename T>
+bool operand_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a,
+                  const void* b, int64_t M, int64_t K, int64_t N, int bm,
+                  int kc) {
+  if (g_encode == nullptr || M > INT32_MAX || K > INT32_MAX ||
+      N > INT32_MAX || ((uintptr_t)a | (uintptr_t)b) % 16)
+    return false;
+  return make_map(ma, tma_type(Tag<T>{}), a, M, K, bm, kc,
+                  kc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(mb, tma_type(Tag<T>{}), b, K, N, kc, 64,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The wgmma path of WS (kWS) / IS for 16-bit T.
@@ -1005,42 +1365,28 @@ int spill_wgmma(const void* a, const void* b, float* slabs, int64_t M,
                 int64_t K, int64_t N, int bm, int bk, int bn,
                 cudaStream_t stream) {
   const int kc = wgmma_kc(bk), stages = wgmma_stages(kWS, bm, bk, bn);
-  if (g_encode == nullptr || stages < 2 || M > INT32_MAX || K > INT32_MAX ||
-      N > INT32_MAX || ((uintptr_t)a | (uintptr_t)b) % 16)
-    return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
-  if (!make_map(&ma, tma_type(Tag<T>{}), a, M, K, bm, kc,
-                kc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_32B) ||
-      !make_map(&mb, tma_type(Tag<T>{}), b, K, N, kc, 64,
-                CU_TENSOR_MAP_SWIZZLE_128B))
+  if (stages < 2 || !operand_maps<T>(&ma, &mb, a, b, M, K, N, bm, kc))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(kWS ? N / bn : M / bm), (unsigned)(K / bk));
   const size_t smem = wgmma_smem(kWS, bm, bk, bn, stages);
-  if (bn == 64 && kc == 64)
-    launch_wgmma_kernel<T, kWS, 64, 64>(ma, mb, slabs, M, N, bm, bk, stages,
-                                        grid, smem, stream);
-  else if (bn == 64)
-    launch_wgmma_kernel<T, kWS, 64, 16>(ma, mb, slabs, M, N, bm, bk, stages,
-                                        grid, smem, stream);
-  else if (kc == 64)
-    launch_wgmma_kernel<T, kWS, 128, 64>(ma, mb, slabs, M, N, bm, bk, stages,
-                                         grid, smem, stream);
-  else
-    launch_wgmma_kernel<T, kWS, 128, 16>(ma, mb, slabs, M, N, bm, bk, stages,
-                                         grid, smem, stream);
+  with_n_kc(bn, kc, [&](auto n, auto k) {
+    spill_wgmma_kernel<T, kWS, decltype(n)::value, decltype(k)::value>
+        <<<grid, bm / 64 * kWgThreads + 32, smem, stream>>>(
+            ma, mb, slabs, (int)M, (int)N, bm, bk, stages);
+  });
   return (int)cudaGetLastError();
 }
 
-// WS (kWS) / IS on the path the caller names; a path that spill_path_of
-// does not give for this dtype and tile is refused.
+// WS (kWS) / IS on the path the caller names; a path that path_of does
+// not give for this dtype and tile is refused.
 template <bool kWS>
 int spill_launch(const void* a, const void* b, void* slabs, int64_t M,
                  int64_t K, int64_t N, int bm, int bk, int bn, int in_type,
                  int path, void* stream) {
   const size_t smem = spill_smem(kWS, bm, bk, bn);
   if (!args_ok(M, K, N, bm, bk, bn, smem) || K / bk > 65535 ||
-      in_type < 0 || in_type > 2 || path != spill_path_of(in_type, bm, bk, bn))
+      in_type < 0 || in_type > 2 || path != path_of(in_type, bm, bk, bn))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (path == 1) {
@@ -1064,6 +1410,73 @@ int spill_launch(const void* a, const void* b, void* slabs, int64_t M,
   return (int)cudaGetLastError();
 }
 
+// The wgmma path of OS / split-K for 16-bit T: `splits` shards of nk
+// k-blocks each.
+template <typename T>
+int os_wgmma(const void* a, const void* b, void* out, int out_type,
+             int64_t M, int64_t K, int64_t N, int splits, int64_t nk, int bm,
+             int bk, int bn, cudaStream_t stream) {
+  const int kc = wgmma_kc(bk);
+  CUtensorMap ma, mb;
+  if (!operand_maps<T>(&ma, &mb, a, b, M, K, N, bm, kc))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(N / bn), (unsigned)(M / bm), (unsigned)splits);
+  const int chunks = (int)(nk * bk / kc), stages = os_wgmma_stages(bm, bk, bn);
+  const size_t smem = os_wgmma_smem(bm, bk, bn);
+  with_n_kc(bn, kc, [&](auto n, auto k) {
+    os_wgmma_kernel<T, decltype(n)::value, decltype(k)::value>
+        <<<grid, bm / 64 * kWgThreads + 32, smem, stream>>>(
+            ma, mb, out, out_type, (int)M, (int)N, bm, chunks, stages);
+  });
+  return (int)cudaGetLastError();
+}
+
+// The simt path of OS / split-K.
+template <typename T>
+void os_simt(const void* a, const void* b, void* out, int out_type,
+             int64_t M, int64_t K, int64_t N, int splits, int64_t nk, int bm,
+             int bk, int bn, cudaStream_t stream) {
+  const int f = os_frag(bm, bn);
+  const bool full = bm == kMaxTile && bn == kMaxTile, vec = bk % 4 == 0;
+  auto kern = f == 4 ? (vec ? os_simt_kernel<T, 4, true, false>
+                            : os_simt_kernel<T, 4, false, false>)
+              : full ? (vec ? os_simt_kernel<T, 8, true, true>
+                            : os_simt_kernel<T, 8, false, true>)
+                     : (vec ? os_simt_kernel<T, 8, true, false>
+                            : os_simt_kernel<T, 8, false, false>);
+  const dim3 grid((unsigned)(N / bn), (unsigned)(M / bm), (unsigned)splits);
+  kern<<<grid, bm * bn / (f * f), os_smem(bm, bn), stream>>>(
+      (const T*)a, (const T*)b, out, out_type, M, K, N, bm, bn, nk * bk);
+}
+
+// OS (splits = 1, out_type as asked) and split-K (float32 slabs) on the
+// path the caller names; a path that path_of does not give for this
+// dtype and tile is refused.
+int os_launch(const void* a, const void* b, void* out, int64_t M, int64_t K,
+              int64_t N, int splits, int bm, int bk, int bn, int in_type,
+              int out_type, int path, void* stream) {
+  if (in_type < 0 || in_type > 2 || out_type < 0 || out_type > 2 ||
+      path != path_of(in_type, bm, bk, bn))  // path 1: bm, bn in {64, 128}
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = path == 1 ? os_wgmma_smem(bm, bk, bn) : os_smem(bm, bn);
+  if (!args_ok(M, K, N, bm, bk, bn, smem) || M / bm > 65535 || splits < 1 ||
+      splits > 65535 || K % ((int64_t)splits * bk))
+    return (int)cudaErrorInvalidValue;
+  const int64_t nk = K / bk / splits;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (path == 1)
+    return in_type == 1 ? os_wgmma<__nv_bfloat16>(a, b, out, out_type, M, K,
+                                                  N, splits, nk, bm, bk, bn,
+                                                  st)
+                        : os_wgmma<__half>(a, b, out, out_type, M, K, N,
+                                           splits, nk, bm, bk, bn, st);
+  with_type(in_type, [&](auto in) {
+    using T = typename decltype(in)::type;
+    os_simt<T>(a, b, out, out_type, M, K, N, splits, nk, bm, bk, bn, st);
+  });
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Raise every kernel's dynamic shared memory limit to the device's opt-in
@@ -1077,18 +1490,13 @@ extern "C" int systolic_gemm_init() {
   for (int code = 0; code < 3; ++code) {
     with_type(code, [&](auto in) {
       using T = typename decltype(in)::type;
-      allow_smem(os_kernel<T, float>, g_smem_limit);
-      allow_smem(os_kernel<T, __nv_bfloat16>, g_smem_limit);
-      allow_smem(os_kernel<T, __half>, g_smem_limit);
-      allow_smem(os_splitk_kernel<T>, g_smem_limit);
+      allow_os<T>(g_smem_limit);
       allow_simt<T, true>(g_smem_limit);
       allow_simt<T, false>(g_smem_limit);
     });
   }
-  allow_wgmma<__nv_bfloat16, true>(g_smem_limit);
-  allow_wgmma<__nv_bfloat16, false>(g_smem_limit);
-  allow_wgmma<__half, true>(g_smem_limit);
-  allow_wgmma<__half, false>(g_smem_limit);
+  allow_wgmma<__nv_bfloat16>(g_smem_limit);
+  allow_wgmma<__half>(g_smem_limit);
   void* fn = nullptr;
   cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -1103,47 +1511,24 @@ extern "C" int systolic_gemm_init() {
   return (int)cudaGetLastError();
 }
 
+// path: 0 "simt", 1 "wgmma" (ops.kernel_path), at all four sites
 extern "C" int os_gemm_launch(const void* a, const void* b, void* out,
                               int64_t M, int64_t K, int64_t N, int bm, int bk,
-                              int bn, int in_type, int out_type,
+                              int bn, int in_type, int out_type, int path,
                               void* stream) {
-  const size_t smem = os_smem(bm, bn);
-  if (!args_ok(M, K, N, bm, bk, bn, smem) || M / bm > 65535 ||
-      out_type < 0 || out_type > 2)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(N / bn), (unsigned)(M / bm));
-  const bool ok = with_type(in_type, [&](auto in) {
-    using T = typename decltype(in)::type;
-    with_type(out_type, [&](auto o) {
-      using O = typename decltype(o)::type;
-      os_kernel<T, O><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-          (const T*)a, (const T*)b, (O*)out, K, N, bm, bk, bn);
-    });
-  });
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return os_launch(a, b, out, M, K, N, 1, bm, bk, bn, in_type, out_type, path,
+                   stream);
 }
 
 extern "C" int os_gemm_splitk_launch(const void* a, const void* b,
                                      void* slabs, int64_t M, int64_t K,
                                      int64_t N, int splits, int bm, int bk,
-                                     int bn, int in_type, void* stream) {
-  const size_t smem = os_smem(bm, bn);
-  if (!args_ok(M, K, N, bm, bk, bn, smem) || M / bm > 65535 ||
-      splits < 1 || splits > 65535 || K % ((int64_t)splits * bk))
-    return (int)cudaErrorInvalidValue;
-  const int64_t nk = K / bk / splits;
-  const dim3 grid((unsigned)(N / bn), (unsigned)(M / bm), (unsigned)splits);
-  const bool ok = with_type(in_type, [&](auto in) {
-    using T = typename decltype(in)::type;
-    os_splitk_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const T*)a, (const T*)b, (float*)slabs, M, K, N, bm, bk, bn, nk);
-  });
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+                                     int bn, int in_type, int path,
+                                     void* stream) {
+  return os_launch(a, b, slabs, M, K, N, splits, bm, bk, bn, in_type, 0, path,
+                   stream);
 }
 
-// path: 0 "simt", 1 "wgmma" (ops.spill_path)
 extern "C" int ws_gemm_partials_launch(const void* a, const void* b,
                                        void* slabs, int64_t M, int64_t K,
                                        int64_t N, int bm, int bk, int bn,

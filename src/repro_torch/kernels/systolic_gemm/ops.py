@@ -14,19 +14,35 @@ each runs its plain torch version (:mod:`repro_torch.kernels.
 systolic_gemm.ref`). There is no other switch, and a failed build or
 launch raises.
 
-Kernels. OS and split-K run an FFMA kernel (an 8 x 8 register block a
-thread, operands staged through shared memory in float32). WS and IS
-take one of two kernels, by :func:`spill_path`, a function of the dtype
-and the tile alone: ``"wgmma"`` for bfloat16 / float16 at ``bm``, ``bn``
-in {64, 128} and ``bk % 16 == 0`` (TMA loads into a ring of shared
-memory, tensor-core ``wgmma`` products into float32 accumulators), else
-``"simt"`` (a double-buffered FFMA kernel in float32, with 16-byte loads
-and shared reads). Both write the same float32 slabs, and both are held
-against the plain version on the card.
+Kernels. Each of the four sites takes one of two kernels, by
+:func:`kernel_path`, a function of the dtype and the tile alone (the C
+launcher is told the path and refuses a mismatch); each site counts its
+launches per path in ``.path_launches``:
+
+* ``"wgmma"``, for bfloat16 / float16 at ``bm``, ``bn`` in {64, 128} and
+  ``bk % 16 == 0``: TMA loads into a ring of shared memory, tensor-core
+  ``wgmma`` products into float32 accumulators in registers. For OS and
+  split-K (replacing ``_os_kernel`` / ``_os_splitk_kernel``) the tensor
+  cores bound it (0.030 ms at WL2 in 16-bit); both operands stream
+  through one ring, the accumulator lives across all k-blocks, and the
+  ring is sized so that two blocks share an SM, which hides one tile's
+  epilogue behind another's products. For WS and IS (``_spill_kernel``)
+  the float32 slab writes bound it; the resident block is loaded once
+  and the slab tiles leave while the ring holds the next step.
+* ``"simt"``, everything else: a double-buffered FFMA kernel in float32
+  (no TF32), with 16-byte loads and four (OS at small tiles: two)
+  16-byte shared reads per k, loaded a k ahead, bound by FFMA issue. For
+  OS and split-K the thread block follows the tile: a 4 x 4 register
+  block a thread while that takes at most 256 threads, else 8 x 8, so no
+  lane idles at tiles under 128.
+
+All paths of a site write the same outputs, and each is held against the
+plain version on the card.
 
 Tiles. ``bm`` and ``bn`` are multiples of 16 up to 128. ``bk`` is any
 size whose shared memory (:func:`smem_bytes`) fits the 232,448 B a Hopper
-block may use; WS and IS keep a whole ``bk``-deep block of their
+block may use: for OS and split-K that is every ``bk`` (the footprint has
+no ``bk`` term); WS and IS keep a whole ``bk``-deep block of their
 stationary operand resident, so at ``bm = bn = 128`` WS takes ``bk`` up
 to 388 and IS up to 378. The accepted set is the same on every device
 and for every dtype; other tiles raise ``ValueError``.
@@ -54,17 +70,18 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "systolic_gemm.cu"
 DATAFLOWS = ("OS", "WS", "IS")
 # operand dtypes the kernels take, by their type code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-SIDE, MAX_SIDE, CHUNK = 16, 128, 32        # as in the kernel source
-SPILL_CHUNK, PITCH_PAD = 32, 4   # WS/IS simt path: kSpillKc, kPitchPad
-SPILL_PATHS = ("simt", "wgmma")  # by the launchers' path code
-SMEM_LIMIT = 232448           # shared memory one Hopper block may opt into
+SIDE, MAX_SIDE = 16, 128       # as in the kernel source
+CHUNK, PITCH_PAD = 32, 4       # simt path: kChunk, kPitchPad
+PATHS = ("simt", "wgmma")      # by the launchers' path code
+SMEM_LIMIT = 232448            # shared memory one Hopper block may opt into
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.os_gemm_launch.argtypes = [p, p, p, i64, i64, i64, i, i, i, i, i, p]
+    lib.os_gemm_launch.argtypes = [p, p, p, i64, i64, i64, i, i, i, i, i, i,
+                                   p]
     lib.os_gemm_splitk_launch.argtypes = [p, p, p, i64, i64, i64, i, i, i,
-                                          i, i, p]
+                                          i, i, i, p]
     for name in ("ws_gemm_partials_launch", "is_gemm_partials_launch"):
         getattr(lib, name).argtypes = [p, p, p, i64, i64, i64, i, i, i, i, i,
                                        p]
@@ -92,32 +109,34 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for fn in (ws_gemm_partials, is_gemm_partials):
-        fn.path_launches = dict.fromkeys(SPILL_PATHS, 0)
+        fn.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def smem_bytes(dataflow: str, bm: int, bk: int, bn: int) -> int:
-    """Shared memory one block of the ``dataflow`` kernel takes; for WS and
-    IS that of the simt path, which decides the accepted tiles on both
-    paths (the wgmma path sizes its ring to fit inside it). The same
-    formulas as ``os_smem`` and ``spill_smem`` in ``csrc/systolic_gemm.cu``.
-    """
+    """Shared memory one block of the ``dataflow`` kernel takes on the
+    simt path, which decides the accepted tiles on both paths (the WS/IS
+    wgmma ring is sized to fit inside it; the OS one, like this, has no
+    ``bk`` term). The same formulas as ``os_smem`` and ``spill_smem`` in
+    ``csrc/systolic_gemm.cu``."""
     if dataflow == "WS":
-        return 4 * (bk * bn + 2 * SPILL_CHUNK * (bm + PITCH_PAD))
+        return 4 * (bk * bn + 2 * CHUNK * (bm + PITCH_PAD))
     if dataflow == "IS":
-        return 4 * (bk * (bm + PITCH_PAD) + 2 * SPILL_CHUNK * bn)
-    return 4 * CHUNK * (bm + 1 + bn)
+        return 4 * (bk * (bm + PITCH_PAD) + 2 * CHUNK * bn)
+    return 4 * 2 * CHUNK * (bm + PITCH_PAD + bn)
 
 
-def spill_path(dtype, bm: int, bk: int, bn: int) -> str:
-    """The kernel a WS/IS call runs on the card: ``"wgmma"`` for bfloat16
-    and float16 operands at ``bm``, ``bn`` in {64, 128} and ``bk % 16 ==
-    0``, else ``"simt"``. The same rule as ``spill_path_of`` in
+def kernel_path(dtype, bm: int, bk: int, bn: int) -> str:
+    """The kernel a call of any site runs on the card: ``"wgmma"`` for
+    bfloat16 and float16 operands at ``bm``, ``bn`` in {64, 128} and
+    ``bk % 16 == 0``, else ``"simt"``. The same rule as ``path_of`` in
     ``csrc/systolic_gemm.cu``, which refuses a launch told another path."""
     if dtype in (torch.bfloat16, torch.float16) and bm in (64, 128) \
             and bn in (64, 128) and bk % 16 == 0:
         return "wgmma"
     return "simt"
+
+
+spill_path = kernel_path   # the name the WS/IS tests know the rule by
 
 
 def check_tile(dataflow: str, bm: int, bk: int, bn: int) -> None:
@@ -168,17 +187,25 @@ def _check_blocks(a, b, dataflow, bm, bk, bn, k_mult=None, out_dtype=None):
     return m, k, n
 
 
-def _launch(fn, device, *args) -> None:
-    """Launch the kernel of site ``fn`` on the current stream and count
-    it."""
+def _launch(fn, a, b, out, head, tail) -> None:
+    """Launch the kernel of site ``fn`` on the path :func:`kernel_path`
+    names, on the current stream, and count it. The kernels read 16-B
+    aligned operands (vector and TMA loads): a base that is not is
+    copied."""
+    bm, bk, bn = head[-3:]
+    path = kernel_path(a.dtype, bm, bk, bn)
+    a, b = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
     lib = build()
-    with torch.cuda.device(device):
+    with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{fn.__name__}_launch")(*args, stream)
+        err = getattr(lib, f"{fn.__name__}_launch")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), *head,
+            DTYPES[a.dtype], *tail, PATHS.index(path), stream)
     if err != 0:
         raise RuntimeError(f"systolic_gemm: {fn.__name__} kernel launch "
                            f"failed: CUDA error {err}")
     fn.launches += 1
+    fn.path_launches[path] += 1
 
 
 def os_gemm(a, b, *, bm, bk, bn, out_dtype):
@@ -187,8 +214,7 @@ def os_gemm(a, b, *, bm, bk, bn, out_dtype):
     if a.device.type == "cpu":
         return os_gemm_plain(a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    _launch(os_gemm, a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            m, k, n, bm, bk, bn, DTYPES[a.dtype], DTYPES[out_dtype])
+    _launch(os_gemm, a, b, out, (m, k, n, bm, bk, bn), (DTYPES[out_dtype],))
     return out
 
 
@@ -201,8 +227,7 @@ def os_gemm_splitk(a, b, *, splits, bm, bk, bn):
     if a.device.type == "cpu":
         return os_gemm_splitk_plain(a, b, splits=splits, bm=bm, bk=bk, bn=bn)
     slabs = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-    _launch(os_gemm_splitk, a.device, a.data_ptr(), b.data_ptr(),
-            slabs.data_ptr(), m, k, n, splits, bm, bk, bn, DTYPES[a.dtype])
+    _launch(os_gemm_splitk, a, b, slabs, (m, k, n, splits, bm, bk, bn), ())
     return slabs
 
 
@@ -210,14 +235,9 @@ def _spill(fn, plain, dataflow, a, b, bm, bk, bn):
     m, k, n = _check_blocks(a, b, dataflow, bm, bk, bn)
     if a.device.type == "cpu":
         return plain(a, b, bm=bm, bk=bk, bn=bn)
-    path = spill_path(a.dtype, bm, bk, bn)
-    if path == "wgmma":   # TMA reads from 16-B aligned bases
-        a, b = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
     slabs = torch.empty((k // bk, m, n), dtype=torch.float32,
                         device=a.device)
-    _launch(fn, a.device, a.data_ptr(), b.data_ptr(), slabs.data_ptr(), m, k,
-            n, bm, bk, bn, DTYPES[a.dtype], SPILL_PATHS.index(path))
-    fn.path_launches[path] += 1
+    _launch(fn, a, b, slabs, (m, k, n, bm, bk, bn), ())
     return slabs
 
 

@@ -42,6 +42,7 @@ from repro_torch.kernels.systolic_gemm import (
 )
 from repro_torch.kernels.systolic_gemm.ops import (
     check_tile,
+    kernel_path,
     smem_bytes,
     spill_path,
 )
@@ -446,3 +447,115 @@ def test_cuda_spill_paths_match_plain_on_card(site, shape, tile, dt):
     _close(got.cpu(), want.cpu().double().numpy(),
            slab_magnitudes(a, b, len(got)), TOL["float32"],
            f"{site} {path}")
+
+
+_PATH_CASES = [
+    ("bfloat16", (128, 128, 128), "wgmma"), ("float16", (128, 128, 128),
+                                             "wgmma"),
+    ("bfloat16", (64, 64, 64), "wgmma"), ("float16", (128, 64, 64), "wgmma"),
+    ("bfloat16", (64, 48, 128), "wgmma"), ("bfloat16", (128, 16, 64),
+                                           "wgmma"),
+    ("float16", (64, 4096, 128), "wgmma"),
+    ("float32", (128, 128, 128), "simt"), ("float32", (64, 64, 64), "simt"),
+    ("bfloat16", (128, 64, 96), "simt"), ("float16", (32, 32, 32), "simt"),
+    ("bfloat16", (96, 128, 128), "simt"), ("bfloat16", (128, 40, 128),
+                                           "simt"),
+    ("float16", (64, 7, 64), "simt"), ("bfloat16", (16, 16, 16), "simt")]
+
+
+@pytest.mark.parametrize("dt,tile,want", _PATH_CASES)
+def test_os_path(dt, tile, want):
+    """OS and split-K follow the WS/IS rule: wgmma for 16-bit operands at
+    bm, bn in {64, 128} and bk % 16 == 0 (at any bk, as OS accepts every
+    bk), the float32 FFMA kernel otherwise. One rule for the four sites."""
+    assert kernel_path(DTYPES[dt], *tile) == want
+    assert spill_path(DTYPES[dt], *tile) == want
+
+
+_SIDES = list(range(16, 129, 16))
+
+
+@pytest.mark.parametrize("bm", _SIDES)
+def test_os_accepts_every_tile_at_any_bk(bm):
+    """OS and split-K take every bm, bn (multiples of 16 up to 128) at any
+    bk: the footprint has no bk term."""
+    for bn in _SIDES:
+        for bk in (1, 7, 16, 48, 128, 1000, 4096, 100000):
+            check_tile("OS", bm, bk, bn)
+            assert smem_bytes("OS", bm, bk, bn) == smem_bytes("OS", bm, 1, bn)
+    for bn in (8, 24, 144, 256):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            check_tile("OS", bm, 128, bn)
+
+
+def test_os_smem_is_the_c_formula():
+    """``smem_bytes("OS", ...)`` mirrors ``os_smem`` in the source: two
+    32-deep float32 buffers of sA (pitch bm + 4) and sB (pitch bn)."""
+    assert smem_bytes("OS", 128, 128, 128) == 4 * 2 * 32 * (128 + 4 + 128)
+    assert smem_bytes("OS", 128, 128, 128) == 66560
+    assert smem_bytes("OS", 16, 16, 16) == 9216
+    check_tile("OS", 128, 4096, 128)
+
+
+# (M, N, tile) of the OS kernels on the card, each run over K = 7 bk per
+# shard, so the wgmma ring (3-8 stages) wraps several times: every
+# compiled N (64, 128) at bm = 64 and 128, k-chunks of 64 and of 16 (bk
+# 48); then tiles that take the simt path: 32^3, 16^3 (4 x 4 register
+# blocks), (128, 64, 96) (8 x 8 at a runtime tile), 128^3 and a bk that is
+# not a multiple of 4.
+_OS_CASES = [
+    (256, 256, (128, 128, 128)), (128, 128, (64, 64, 64)),
+    (256, 128, (128, 64, 64)), (128, 256, (64, 64, 128)),
+    (256, 256, (128, 48, 128)), (128, 128, (64, 48, 64)),
+    (96, 96, (32, 32, 32)), (48, 48, (16, 16, 16)),
+    (256, 192, (128, 64, 96)), (64, 64, (32, 7, 32))]
+_OS_IDS = ["x".join(map(str, c[2])) for c in _OS_CASES]
+
+
+def _os_on_card(m, n, tile, dt, splits):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bm, bk, bn = tile
+    shape = (m, 7 * splits * bk, n)
+    a, b = (x.cuda() for x in _tensors(shape, dt))
+    return a, b, kernel_path(a.dtype, bm, bk, bn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dt", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("m,n,tile", _OS_CASES, ids=_OS_IDS)
+def test_cuda_os_gemm_paths_match_plain_on_card(m, n, tile, dt, out):
+    """``os_gemm`` on the path ``kernel_path`` names, within 1e-5 x Mag
+    (float32 output) or 2^-7 x Mag (16-bit output) of the plain version."""
+    a, b, path = _os_on_card(m, n, tile, dt, 1)
+    bm, bk, bn = tile
+    before = dict(os_gemm.path_launches)
+    got = os_gemm(a, b, bm=bm, bk=bk, bn=bn, out_dtype=DTYPES[out])
+    torch.cuda.synchronize()
+    assert os_gemm.path_launches[path] == before[path] + 1
+    assert got.dtype == DTYPES[out] and got.shape == (m, n)
+    want = os_gemm_plain(a, b, bm=bm, bk=bk, bn=bn, out_dtype=torch.float32)
+    _close(got.cpu(), want.cpu().double().numpy(), slab_magnitudes(a, b, 1),
+           TOL[out], f"os_gemm {path}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("dt", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("m,n,tile", _OS_CASES, ids=_OS_IDS)
+def test_cuda_os_splitk_paths_match_plain_on_card(m, n, tile, dt, splits):
+    """``os_gemm_splitk`` on the path ``kernel_path`` names, slab by slab
+    within 1e-5 x each slab's Mag of the plain ``bmm``."""
+    a, b, path = _os_on_card(m, n, tile, dt, splits)
+    bm, bk, bn = tile
+    before = dict(os_gemm_splitk.path_launches)
+    got = os_gemm_splitk(a, b, splits=splits, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert os_gemm_splitk.path_launches[path] == before[path] + 1
+    assert got.shape == (splits, m, n) and got.dtype == torch.float32
+    want = os_gemm_splitk_plain(a, b, splits=splits, bm=bm, bk=bk, bn=bn)
+    _close(got.cpu(), want.cpu().double().numpy(),
+           slab_magnitudes(a, b, splits), TOL["float32"],
+           f"os_gemm_splitk {path}")
