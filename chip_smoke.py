@@ -12,6 +12,10 @@ one JSON line that carries the card's name and power limit:
    sources in the checkout (``nvcc``, sm_90a, one process per source,
    all started together): ``prefix_select.cu``, ``prefix_segment.cu``,
    ``wkv6.cu``, ``rglru.cu`` and ``systolic_gemm.cu``.
+   Then ``launch_floor`` — ``graph_ms`` of an in-place add on a
+   one-element tensor: the least time one kernel launch takes in the
+   harness that times every kernel. Each kernel phase's record carries
+   ``over_floor``, its ``ms`` less this floor.
 2. ``kernel``   — ``prefix_select`` on the card against its plain torch
    version on the card, bitwise (``torch.equal``), on the real int64
    tables of workload 1 (single layout) and workloads 1+6 (stacked
@@ -29,10 +33,14 @@ one JSON line that carries the card's name and power limit:
    that run; the best design is re-evaluated on the card and on the CPU.
 6. ``profile``  — device busy share of a short search window.
 7. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
-   version on the card, at the serve phase's shapes: prefill (G = 160,
-   T = 512, zero start), decode (G = 160, T = 1, nonzero start) and an
-   edge case (G = 1, T = 37); max errors of ``y`` and ``S_T``, kernel and
-   plain times (in a CUDA graph and eager) and the bound.
+   version on the card, within 1e-6 x M, at the serve phase's shapes:
+   prefill (G = 160, T = 512, zero start) as (G, T, D) rows and in the
+   model's (B, T, H, D) = (4, 512, 40, 64) layout (y equal to the rows'
+   to the bit), decode (G = 160, T = 1, nonzero start; the in-place
+   update equal to the bit to the out-of-place one) and an edge case
+   (G = 1, T = 37); max errors of ``y`` and ``S_T``, kernel and plain
+   times (in a CUDA graph and eager), the bound, the launch geometry and,
+   on the first case, the ``ptxas`` registers and spills.
 8. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
    layers) on cuda against the same weights on the CPU: prefill and
    eight teacher-forced greedy steps (the CPU's tokens fed to both).
@@ -164,6 +172,27 @@ def graph_ms(fn, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
     return cuda_ms(g.replay, iters=5, warmup=2) / iters
+
+
+FLOOR = {}                     # phase_launch_floor's result
+
+
+def phase_launch_floor(card: str) -> dict:
+    """The least time one kernel launch takes in the harness that times
+    every kernel: ``graph_ms`` of an in-place add on a one-element
+    tensor. Each kernel record's ``over_floor`` is its ``ms`` less this."""
+    x = torch.zeros(1, device=DEV)
+    rec = dict(phase="launch_floor", floor_ms=graph_ms(lambda: x.add_(1)),
+               eager_ms=cuda_ms(lambda: x.add_(1)), card=card)
+    FLOOR["ms"] = rec["floor_ms"]
+    emit(rec)
+    return rec
+
+
+def with_floor(rec: dict) -> dict:
+    """``rec`` with ``over_floor``: its ``ms`` above the launch floor."""
+    rec["over_floor"] = rec["ms"] - FLOOR["ms"]
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -331,7 +360,7 @@ def phase_kernel(card: str) -> dict:
                        ms=graph_ms(launch), plain_ms=graph_ms(plain),
                        eager_ms=cuda_ms(launch), plain_eager_ms=cuda_ms(plain),
                        **kernel_bound(args), card=card)
-            emit(rec)
+            emit(with_floor(rec))
             if layout == "single" and P == 512:
                 main = rec
     main = dict(main, max_abs_err=worst)
@@ -563,8 +592,10 @@ def wkv6_bound(r, u, s0) -> dict:
     once, y and S_T written once, over HBM bandwidth; against the least
     operations the function needs per (g, t), over the fp32
     non-tensor-core rate: y_v = sum_k r_k S[k, v] + v_v sum_k r_k u_k k_k
-    (2 D^2 + 5 D) and S <- w * S + k v^T (3 D^2)."""
-    G, T, D = r.shape
+    (2 D^2 + 5 D) and S <- w * S + k v^T (3 D^2). ``r`` is (G, T, D) or
+    (B, T, H, D)."""
+    T, D = r.shape[1], r.shape[-1]
+    G = r.numel() // (T * D)
     nbytes = 4 * (5 * G * T * D + u.numel() + G * D * D
                   + (G * D * D if s0 is not None else 0))
     ops = G * T * (5 * D * D + 5 * D)
@@ -575,17 +606,45 @@ def wkv6_bound(r, u, s0) -> dict:
                 bytes=nbytes, ops=ops)
 
 
+def _ptxas_regs(lines) -> list:
+    """Registers and spill bytes of each kernel in ``ptxas_report`` lines
+    (a function's spill line comes before its register line)."""
+    import re
+
+    out, spill = [], {}
+    for ln in lines:
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = dict(spill_stores=int(m.group(1)),
+                         spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(dict(registers=int(m.group(1)), **spill))
+            spill = {}
+    return out
+
+
 def phase_wkv6(card: str) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels.wkv6 import ops as wops
     from repro_torch.kernels.wkv6 import wkv6_plain
 
     lib = wops.build()
+    ptxas = _build.ptxas_report(wops.SOURCE)
     recs = {}
     worst = 0.0
     for shape, G, T, heads, with_state in (
-            ("prefill", 160, 512, 40, False), ("decode", 160, 1, 40, True),
-            ("edge", 1, 37, 1, False)):
+            ("prefill", 160, 512, 40, False),
+            ("prefill_bthd", 160, 512, 40, False),
+            ("decode", 160, 1, 40, True), ("edge", 1, 37, 1, False)):
         r, k, v, w, u, s0 = wkv6_inputs(G, T, heads, with_state, seed=T)
+        B, H = G, 1
+        if shape == "prefill_bthd":       # the model's (B, T, H, D) layout
+            B, H = G // heads, heads
+            y_rows = wops.wkv6(r, k, v, w, u)[0]
+            r, k, v, w = (x.reshape(B, H, T, 64).transpose(1, 2).contiguous()
+                          for x in (r, k, v, w))
         y_k, s_k = wops.wkv6(r, k, v, w, u, s0)
         y_p, s_p = wkv6_plain(r, k, v, w, u, s0)
         # M: the largest sum of absolute terms an output accumulates
@@ -599,6 +658,19 @@ def phase_wkv6(card: str) -> dict:
             raise AssertionError(
                 f"wkv6 != plain ({shape}): max abs err y {err_y} (M {m_y}),"
                 f" S {err_s} (M {m_s}), tolerance {WKV_TOL} x M")
+        checks = {}
+        if shape == "prefill_bthd":       # the same rows, read in place
+            checks["rows_equal"] = torch.equal(
+                y_k.transpose(1, 2).reshape(G, T, 64), y_rows)
+        if s0 is not None:                # the decode cache's update
+            state = s0.clone()
+            y_i, s_i = wops.wkv6(r, k, v, w, u, state, s_out=state)
+            torch.cuda.synchronize()
+            checks["in_place_equal"] = (s_i.data_ptr() == state.data_ptr()
+                                        and torch.equal(state, s_k)
+                                        and torch.equal(y_i, y_k))
+        if not all(checks.values()):
+            raise AssertionError(f"wkv6 ({shape}): {checks}")
         worst = max(worst, err_y, err_s)
         y = torch.empty_like(r)
         s_out = torch.empty((G, 64, 64), device=DEV)
@@ -608,15 +680,16 @@ def phase_wkv6(card: str) -> dict:
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.wkv6_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  w.data_ptr(), u.data_ptr(), u.shape[0],
-                                 s0_ptr, y.data_ptr(), s_out.data_ptr(), G,
-                                 T, 64, stream)
+                                 s0_ptr, y.data_ptr(), s_out.data_ptr(), B,
+                                 T, H, 64, stream)
             if rc:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
 
         plain = lambda: wkv6_plain(r, k, v, w, u, s0)  # noqa: E731
         p_iters = 3 if T > 64 else 20
         rec = dict(phase="wkv6_kernel", kernel="wkv6", shape=shape, G=G, T=T,
-                   D=64, s0=with_state, max_abs_err_y=err_y,
+                   B=B, H=H, D=64, s0=with_state, **checks,
+                   geometry=wops.geometry(G), max_abs_err_y=err_y,
                    max_abs_err_s=err_s,
                    rel_err_y=err_y / float(y_p.abs().max()),
                    rel_err_s=err_s / float(s_p.abs().max()),
@@ -625,9 +698,12 @@ def phase_wkv6(card: str) -> dict:
                    plain_ms=graph_ms(plain, iters=p_iters),
                    plain_eager_ms=cuda_ms(plain, iters=p_iters, warmup=1),
                    **wkv6_bound(r, u, s0), card=card)
-        emit(rec)
+        if shape == "prefill":
+            rec.update(ptxas=ptxas, ptxas_regs=_ptxas_regs(ptxas))
+        emit(with_floor(rec))
         recs[shape] = rec
-    return dict(recs["prefill"], max_abs_err=worst, decode=recs["decode"])
+    return dict(recs["prefill_bthd"], max_abs_err=worst,
+                decode=recs["decode"])
 
 
 def _decode_parity(cfg, prompt_len: int, seed: int, steps: int = 8,
@@ -859,7 +935,7 @@ def phase_rglru(card: str) -> dict:
                    plain_ms=graph_ms(plain, iters=p_iters),
                    plain_eager_ms=cuda_ms(plain, iters=p_iters, warmup=1),
                    **rglru_bound(a, h0), card=card)
-        emit(rec)
+        emit(with_floor(rec))
         recs[shape] = rec
     return dict(recs["prefill"], decode=recs["decode"])
 
@@ -1104,6 +1180,7 @@ def phase_gemm(card: str) -> dict:
         rec["tflops"] = rec["ops"] / rec["ms"] / 1e9
         rec["over_bound"] = rec["ms"] / rec["bound_ms"]
         rec["over_library"] = rec["ms"] / rec["library_ms"]
+        with_floor(rec)
         if spill:
             rec["bmm_ms"] = graph_ms(lambda: torch.bmm(a3, b3))
             rec["over_bmm"] = rec["ms"] / rec["bmm_ms"]
@@ -1215,7 +1292,7 @@ def phase_prefix_segment(card: str) -> dict:
                    eager_ms=cuda_ms(launch), plain_ms=graph_ms(plain),
                    plain_eager_ms=cuda_ms(plain),
                    **segment_bound(pref, rows, start, end), card=card)
-        emit(rec)
+        emit(with_floor(rec))
         if name == "wl1-int64-P512":
             main = rec
     return dict(main, launches=launches)
@@ -1247,6 +1324,7 @@ def main() -> int:
               ptxas={name: _build.ptxas_report(src)
                      for name, (src, _) in sources.items()},
               card=card))
+    phase_launch_floor(card)
     kmain = phase_kernel(card)
     phase_evaluate(card)
     phase_golden(card)

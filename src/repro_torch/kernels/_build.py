@@ -86,7 +86,8 @@ def load(source: Path, configure: Callable[[ctypes.CDLL], None]
 
 
 def ptxas_report(source: Path) -> List[str]:
-    """The ``ptxas info`` lines of the build log of ``source``."""
+    """The ``ptxas info`` lines of the build log of ``source``, with the
+    stack and spill line that follows each function's properties."""
     log = library_path(source).with_suffix(".log")
     return [ln.strip() for ln in log.read_text().splitlines()
-            if "ptxas info" in ln]
+            if "ptxas info" in ln or "bytes spill" in ln]

@@ -7,12 +7,14 @@ on a CPU tensor it runs the plain torch version
 (:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`). There is no other
 switch, and a failed build or launch raises.
 
-Layout. Rows are g = b*H + h. ``u`` is read as row ``g % H_u``: the
-model passes its per-head ``u`` of shape (H, D) as it is, a row stride
-of 0 over the batch, and nothing is expanded. The state ``(G, D, D)`` is
-indexed [g, k, v], which is the decode cache's ``(B, H, Dk, Dv)`` slab
-as it lies in memory; ``s_out`` may be that same slab, and the update is
-then in place.
+Layouts. ``r, k, v, w`` are either (G, T, D) rows, or the model's
+(B, T, H, D) with rows g = b*H + h, which the kernel reads and writes as
+they lie (y comes back in the inputs' layout). ``u`` is read as row
+``g % H_u``: the model passes its per-head ``u`` of shape (H, D) as it
+is, a row stride of 0 over the batch, and nothing is expanded. The state
+is indexed [g, k, v]: (G, D, D) beside 3-D inputs, (B, H, D, D) beside
+4-D ones, which is the decode cache's slab as it lies in memory;
+``s_out`` may be that same slab, and the update is then in place.
 
 The kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, under ``build/kernels/``) at first use and loaded with
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,14 +38,28 @@ SUPPORTED_D = (64,)          # the model's HEAD_DIM; the kernel is built for it
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.wkv6_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.wkv6_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.wkv6_geometry.restype = None
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     return _build.load(SOURCE, _configure)
+
+
+def geometry(G: int) -> Dict[str, int]:
+    """The kernel's launch geometry for G rows, as the built library
+    reports it: grid ``blocks``, ``threads`` a block, value columns per
+    block ``VB``, lanes sharing a column group ``P``, steps per chunk
+    ``CT``, ring ``stages`` and static shared ``smem_bytes`` a block."""
+    out = (ctypes.c_int * 6)()
+    build().wkv6_geometry(out)
+    vb, p, ct, stages, threads, smem = out
+    return dict(blocks=G * SUPPORTED_D[0] // vb, threads=threads, VB=vb,
+                P=p, CT=ct, stages=stages, smem_bytes=smem)
 
 
 def launch_count() -> int:
@@ -56,6 +72,8 @@ def reset_launch_count() -> None:
 
 
 def _check(r, k, v, w, u, s0, s_out):
+    """Validate the arguments; return (B, T, H, D), with B = G and H = 1
+    for (G, T, D) inputs, and the state's shape."""
     dev = r.device
     ts = [x for x in (r, k, v, w, u, s0, s_out) if x is not None]
     if any(x.device != dev for x in ts):
@@ -63,25 +81,34 @@ def _check(r, k, v, w, u, s0, s_out):
     if any(x.dtype != torch.float32 for x in ts):
         raise TypeError("wkv6: every tensor must be float32, got "
                         f"{[str(x.dtype) for x in ts]}")
-    if r.dim() != 3 or any(x.shape != r.shape for x in (k, v, w)):
-        raise ValueError("wkv6: r, k, v, w must be one (G, T, D) shape; got "
+    if r.dim() not in (3, 4) or any(x.shape != r.shape for x in (k, v, w)):
+        raise ValueError("wkv6: r, k, v, w must be one (G, T, D) or "
+                         "(B, T, H, D) shape; got "
                          f"{[tuple(x.shape) for x in (r, k, v, w)]}")
-    g, t, d = r.shape
+    if r.dim() == 3:
+        b, t, d = r.shape
+        h = 1
+        heads, state = b, (b, d, d)
+    else:
+        b, t, h, d = r.shape
+        heads, state = h, (b, h, d, d)
     if d not in SUPPORTED_D:
         raise ValueError(f"wkv6: D = {d} is not supported (D in "
                          f"{SUPPORTED_D})")
-    if g < 1 or t < 1:
-        raise ValueError(f"wkv6: need G >= 1 and T >= 1, got G={g}, T={t}")
+    if b < 1 or h < 1 or t < 1:
+        raise ValueError(f"wkv6: need rows and T >= 1, got {tuple(r.shape)}")
     if u.dim() != 2 or u.shape[1] != d or u.shape[0] < 1 or \
-            g % u.shape[0]:
-        raise ValueError(f"wkv6: u must be (H_u, {d}) with G={g} a multiple "
-                         f"of H_u; got {tuple(u.shape)}")
+            heads % u.shape[0]:
+        what = "G" if r.dim() == 3 else "H"
+        raise ValueError(f"wkv6: u must be (H_u, {d}) with {what}={heads} a "
+                         f"multiple of H_u; got {tuple(u.shape)}")
     for name, s in (("s0", s0), ("s_out", s_out)):
-        if s is not None and s.shape != (g, d, d):
-            raise ValueError(f"wkv6: {name} must be ({g}, {d}, {d}), got "
+        if s is not None and s.shape != state:
+            raise ValueError(f"wkv6: {name} must be {state}, got "
                              f"{tuple(s.shape)}")
     if not all(x.is_contiguous() for x in ts):
         raise ValueError("wkv6: tensors must be contiguous")
+    return (b, t, h, d), state
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,11 +116,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          s0: Optional[torch.Tensor] = None, *,
          s_out: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(y (G, T, D), S_T (G, D, D))`` float32 — see the module docstring
-    and :func:`~repro_torch.kernels.wkv6.ref.wkv6_plain` for the
-    arguments. The final state is written into ``s_out`` when it is
-    given (it may be ``s0`` itself) and returned."""
-    _check(r, k, v, w, u, s0, s_out)
+    """``(y, S_T)`` float32: y in the layout of ``r`` and the state as
+    the module docstring lays it out — see
+    :func:`~repro_torch.kernels.wkv6.ref.wkv6_plain` for the arguments.
+    The final state is written into ``s_out`` when it is given (it may
+    be ``s0`` itself) and returned."""
+    (b, t, h, d), state = _check(r, k, v, w, u, s0, s_out)
     if r.device.type == "cpu":
         y, s = wkv6_plain(r, k, v, w, u, s0)
         if s_out is not None:
@@ -101,18 +129,21 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return y, s
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
+    if any(x is not None and x.data_ptr() % 16
+           for x in (r, k, v, w, u, s0, s_out)):
+        raise ValueError("wkv6: r, k, v, w, u and the state must start on "
+                         "16 bytes (the kernel moves them in 16-byte pieces)")
     lib = build()
-    g, t, d = r.shape
     y = torch.empty_like(r)
     s = s_out if s_out is not None else torch.empty(
-        (g, d, d), dtype=torch.float32, device=r.device)
+        state, dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), u.shape[0],
             None if s0 is None else s0.data_ptr(), y.data_ptr(),
-            s.data_ptr(), g, t, d, stream)
+            s.data_ptr(), b, t, h, d, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1

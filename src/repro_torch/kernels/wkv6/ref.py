@@ -29,7 +29,21 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H_u, row g reading ``u[g % H_u]`` (so a per-head ``u`` of shape
     (H, D) serves rows g = b*H + h); ``s0``: (G, D, D) indexed
     [g, k, v], or None for zeros. Returns ``(y (G, T, D), S_T (G, D, D))``
-    in float32."""
+    in float32.
+
+    The model's layout is taken too: ``r, k, v, w`` (B, T, H, D) with
+    rows g = b*H + h and ``s0`` (B, H, D, D) give ``y (B, T, H, D)`` and
+    ``S_T (B, H, D, D)``, by the same steps on the rows."""
+    if r.dim() == 4:
+        b, t, h, d = r.shape
+
+        def rows(x):
+            return x.permute(0, 2, 1, 3).reshape(b * h, t, d)
+
+        y, s = wkv6_plain(rows(r), rows(k), rows(v), rows(w), u,
+                          None if s0 is None else s0.reshape(b * h, d, d))
+        return (y.reshape(b, h, t, d).permute(0, 2, 1, 3).contiguous(),
+                s.reshape(b, h, d, d))
     g, t, d = r.shape
     uu = u.float().repeat(g // u.shape[0], 1)[:, :, None]       # (G, Dk, 1)
     if s0 is None:

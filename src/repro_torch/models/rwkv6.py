@@ -123,21 +123,12 @@ def wkv_scan(r, k, v, w, u, s0=None):
     """The recurrence over (B, S, H, Dh) tensors; returns (y, final S).
 
     S has shape (B, H, Dh_k, Dh_v); the u-bonus adds u[k]*k_t[k]*v_t[v]
-    for the current token only. The inputs are laid out as rows
-    g = b*H + h of (G, S, Dh) for the kernel. When ``s0`` is given (the
-    decode cache's slab) the final state overwrites it in place and is
-    returned."""
-    b, s, h, dh = r.shape
-
-    def rows(x):
-        # reshape alone may return a strided view (at b == 1)
-        return x.float().transpose(1, 2).reshape(b * h, s, dh).contiguous()
-
-    s_in = None if s0 is None else s0.reshape(b * h, dh, dh)
-    y, final = wkv6_ops.wkv6(rows(r), rows(k), rows(v), rows(w), u.float(),
-                             s_in, s_out=s_in)
-    return (y.reshape(b, h, s, dh).transpose(1, 2),
-            final.reshape(b, h, dh, dh))
+    for the current token only. The kernel reads r, k, v, w and writes y
+    in this layout as it lies, rows g = b*H + h. When ``s0`` is given
+    (the decode cache's slab) the final state overwrites it in place and
+    is returned."""
+    return wkv6_ops.wkv6(r.float(), k.float(), v.float(), w.float(),
+                         u.float(), s0, s_out=s0)
 
 
 def time_mix_forward(p, x: torch.Tensor, cfg: ModelConfig,

@@ -3,8 +3,10 @@ against the reference's jnp oracle (``wkv6_ref_vmapped``) and its Pallas
 kernel in interpret mode (``ops.wkv6``), both from a zero state with
 ``u`` per row, and against the model's ``wkv_scan`` with a per-head ``u``
 from a zero and from a nonzero start state, for both ``y`` and the final
-state; the wrapper's input checks; and the CUDA kernel against the plain
-version on the card.
+state, in the (G, T, D) rows and in the model's (B, T, H, D) layout; the
+wrapper's input checks; and the CUDA kernel against the plain version on
+the card, at shapes that cross its partition (row, column block, chunk),
+in both layouts, in place, and in a small-decay regime.
 
 Inputs are float32 with decays from the model's regime,
 ``w = exp(-exp(-6 + noise))`` (about 0.9975), where the state grows with
@@ -161,8 +163,8 @@ def test_model_wkv_scan_matches_reference(ref, g, t):
 
 
 def test_wkv_scan_batch_of_one_lays_out_heads_as_rows():
-    """At B = 1 the (1, S, H, Dh) -> (H, S, Dh) reshape is a strided view;
-    ``wkv_scan`` still hands the kernel contiguous rows g = h."""
+    """At B = 1 the rows g = h of the (1, S, H, Dh) layout are strided;
+    ``wkv_scan`` passes the layout as it lies and rows g = h come out."""
     c = _case(8, 37, seed=4)
     r, k, v, w = (torch.as_tensor(c[n][None]).permute(0, 2, 1, 3)
                   .contiguous() for n in "rkvw")            # (1, T, 8, D)
@@ -193,6 +195,57 @@ def test_s_out_aliasing_s0_updates_in_place():
     assert torch.equal(y, y_ref) and torch.equal(state, s_ref)
 
 
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("start", ["zero", "nonzero"])
+@pytest.mark.parametrize("g,t", CASES)
+def test_wkv6_model_layout_matches_rows_and_wkv_scan(ref, g, t, start,
+                                                     impl):
+    """(B, T, H, D) inputs and a (B, H, D, D) state give y in that layout
+    and the state in that shape: equal to the (G, T, D) rows' results,
+    and within tolerance of the reference's ``wkv_scan``."""
+    c = _case(g, t, seed=CASES.index((g, t)))
+    b, h = _bh(g)
+    tag = "scan" if start == "nonzero" else "scan0"
+    s0 = (torch.as_tensor(c["s0"]) if start == "nonzero" else None)
+    r, k, v, w = (torch.as_tensor(_bshd(c[n], g)) for n in "rkvw")
+    uh = torch.as_tensor(c["uh"])
+    y, s = IMPLS[impl](r, k, v, w, uh, s0)
+    assert y.shape == (b, t, h, D) and s.shape == (b, h, D, D)
+    assert y.is_contiguous()
+    y3, s3 = IMPLS[impl](*_t(c, "r", "k", "v", "w", "uh"),
+                         None if s0 is None else s0.reshape(g, D, D))
+    assert torch.equal(y.permute(0, 2, 1, 3).reshape(g, t, D), y3)
+    assert torch.equal(s.reshape(g, D, D), s3)
+    m_y, m_s = magnitude(*(c[n] for n in ("r", "k", "v", "w", "uh")),
+                         None if s0 is None else s0.reshape(g, D, D))
+    _close(y, ref[f"{_name(g, t)}_{tag}_y"], m_y, "y")
+    _close(s, ref[f"{_name(g, t)}_{tag}_s"], m_s, "S_T")
+
+
+def test_wkv_scan_hands_the_kernel_its_tensors_without_copies(monkeypatch):
+    """The model's float32 (B, S, H, Dh) tensors and its state slab reach
+    the kernel wrapper as they are: no layout copy before or after."""
+    from repro_torch.models import rwkv6 as rwkv_mod
+
+    c = _case(8, 37, seed=5)
+    r, k, v, w = (torch.as_tensor(_bshd(c[n], 8)) for n in "rkvw")
+    s0 = torch.as_tensor(c["s0"]).clone()
+    seen = {}
+    real = rwkv_mod.wkv6_ops.wkv6
+
+    def spy(*args, **kw):
+        seen["args"], seen["kw"] = args, kw
+        seen["out"] = real(*args, **kw)
+        return seen["out"]
+
+    monkeypatch.setattr(rwkv_mod.wkv6_ops, "wkv6", spy)
+    y, s = wkv_scan(r, k, v, w, torch.as_tensor(c["uh"]), s0)
+    assert [x.data_ptr() for x in seen["args"][:4]] == \
+        [x.data_ptr() for x in (r, k, v, w)]
+    assert seen["args"][5] is s0 and seen["kw"]["s_out"] is s0
+    assert y is seen["out"][0] and s is s0
+
+
 def _bad(kind):
     c = _case(8, 5, seed=3)
     a = dict(zip("rkvwu", _t(c, "r", "k", "v", "w", "uh")))
@@ -214,6 +267,17 @@ def _bad(kind):
         kw["s0"] = torch.zeros((8, D, D - 1))
     elif kind == "s_out_dtype":
         kw["s_out"] = torch.zeros((8, D, D), dtype=torch.float64)
+    elif kind.endswith("_4d"):                    # the (B, T, H, D) layout
+        a = {n: (x.reshape(2, 4, 5, D).transpose(1, 2).contiguous()
+                 if n != "u" else x) for n, x in a.items()}
+        if kind == "u_heads_4d":          # 8 rows divide G = 8, not H = 4
+            a["u"] = torch.zeros((8, D))
+        elif kind == "strided_4d":
+            a["w"] = a["w"].transpose(1, 2).contiguous().transpose(1, 2)
+        elif kind == "s0_rows_4d":        # the state must be (B, H, D, D)
+            kw["s0"] = torch.zeros((8, D, D))
+        elif kind == "mixed_4d":
+            a["k"] = a["k"].reshape(2, 5, 4 * D)
     return list(a.values()), kw
 
 
@@ -221,7 +285,9 @@ def _bad(kind):
     ("float64", TypeError), ("shape", ValueError),
     ("unsupported_D", ValueError), ("u_rows", ValueError),
     ("empty_T", ValueError), ("strided", ValueError),
-    ("s0_shape", ValueError), ("s_out_dtype", TypeError)])
+    ("s0_shape", ValueError), ("s_out_dtype", TypeError),
+    ("u_heads_4d", ValueError), ("strided_4d", ValueError),
+    ("s0_rows_4d", ValueError), ("mixed_4d", ValueError)])
 def test_wrapper_rejects_bad_input(kind, exc):
     args, kw = _bad(kind)
     with pytest.raises(exc):
@@ -260,3 +326,85 @@ def test_cuda_kernel_matches_plain_on_card(g, t, start):
         wkv6(r, k, v, w, u, state, s_out=state)
         torch.cuda.synchronize()
         assert torch.equal(state, s)
+
+
+def _card_case(g, t, decay, seed):
+    """Inputs on the card for one partition-crossing case: (B, H) with
+    B * H = G, r, k, v standard normal, decays in the model's regime
+    (about 0.9975) or small (``exp(-exp(noise))``, median 0.37), a
+    per-head u and a start state."""
+    b, h = {1: (1, 1), 3: (1, 3), 160: (4, 40)}[g]
+    rng = np.random.default_rng([g, t, seed])
+
+    def n(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32, device="cuda")
+
+    r, k, v = n(b, t, h, D), n(b, t, h, D), n(b, t, h, D)
+    shift = -6.0 if decay == "model" else 0.0
+    w = torch.exp(-torch.exp(shift + n(b, t, h, D)))
+    return r, k, v, w, n(h, D) / 2, n(b, h, D, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["model", "small"])
+@pytest.mark.parametrize("start", ["zero", "nonzero"])
+@pytest.mark.parametrize("layout", ["rows", "bthd"])
+@pytest.mark.parametrize("t", [1, 31, 37, 300, 512])
+@pytest.mark.parametrize("g", [1, 3, 160])
+def test_cuda_kernel_partition_shapes_match_plain(g, t, layout, start,
+                                                  decay):
+    """One row and several, T under, across and at chunk multiples, the
+    (G, T, D) rows and the (B, T, H, D) layout: y and S_T within 1e-6 x M
+    of the plain version on the card; both layouts equal to the bit; the
+    in-place update (``s_out`` aliasing ``s0``) equal to the bit to the
+    out-of-place one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    r, k, v, w, u, s_in = _card_case(g, t, decay, seed=7)
+    s0 = s_in if start == "nonzero" else None
+    b, h = r.shape[0], r.shape[2]
+
+    def rows(x):
+        return x.permute(0, 2, 1, 3).reshape(g, t, D).contiguous()
+
+    args4 = (r, k, v, w, u, s0)
+    args3 = (*(rows(x) for x in (r, k, v, w)), u,
+             None if s0 is None else s0.reshape(g, D, D))
+    args = args4 if layout == "bthd" else args3
+    before = launch_count()
+    y, s = wkv6(*args)
+    torch.cuda.synchronize()
+    assert launch_count() == before + 1
+    y_p, s_p = wkv6_plain(*args)
+    m_y, m_s = magnitude(*args)
+    assert float((y - y_p).abs().max()) <= RTOL * m_y
+    assert float((s - s_p).abs().max()) <= RTOL * m_s
+    other = args3 if layout == "bthd" else args4
+    y_o, s_o = wkv6(*other)
+    if layout == "bthd":
+        y_o, s_o = y_o.reshape(b, h, t, D).permute(0, 2, 1, 3), \
+            s_o.reshape(b, h, D, D)
+    else:
+        y_o, s_o = rows(y_o), s_o.reshape(g, D, D)
+    assert torch.equal(y, y_o) and torch.equal(s, s_o)
+    if s0 is not None:
+        state = args[5].clone()
+        y_i, s_i = wkv6(*args[:5], state, s_out=state)
+        torch.cuda.synchronize()
+        assert s_i.data_ptr() == state.data_ptr()
+        assert torch.equal(state, s) and torch.equal(y_i, y)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_misaligned_inputs():
+    """The kernel copies r, k, v, w in 16-byte pieces; a view that starts
+    off that grid is refused, not read wrongly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    r, k, v, w, u, _ = _card_case(3, 37, "model", seed=8)
+    flat = torch.zeros(r.numel() + 1, device="cuda")
+    shifted = flat[1:].view(r.shape)
+    shifted.copy_(r)
+    with pytest.raises(ValueError):
+        wkv6(shifted, k, v, w, u)
