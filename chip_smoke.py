@@ -19,9 +19,10 @@ one JSON line that carries the card's name and power limit:
 2. ``kernel``   — ``prefix_select`` on the card against its plain torch
    version on the card, bitwise (``torch.equal``), on the real int64
    tables of workload 1 (single layout) and workloads 1+6 (stacked
-   layout), at P = 256, 512, 1024 and 4096 sampled systems plus edge
-   rows; kernel and plain times by CUDA events (per call, in a CUDA
-   graph and eager), and the bound.
+   layout), at P = 256, 300, 512, 1024 and 4096 sampled systems plus
+   edge rows; kernel and plain times by CUDA events (per call, in a CUDA
+   graph and eager), the bound, the launch geometry and the ``ptxas``
+   registers and spills.
 3. ``evaluate`` — ``DeviceEvaluator(workload(1))`` on 4096 systems on
    cuda against the same calls on the CPU: tile assignment and reduction
    destinations equal, float outputs within 1e-6 relative.
@@ -52,9 +53,12 @@ one JSON line that carries the card's name and power limit:
 10. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
     version on the card, bitwise (``torch.equal``), at the serve_hybrid
     phase's shapes: prefill (B = 4, T = 3072, C = 4096, zero start),
-    decode (T = 1, nonzero start, ``h_out`` aliasing ``h0``) and an edge
-    case (1, 37, 200); kernel and plain times (in a CUDA graph and
-    eager) and the bound.
+    decode (T = 1, nonzero start, ``h_out`` aliasing ``h0``), an edge
+    case (1, 37, 200) and a ``stage_edge`` case (2, 333, 1000; a start
+    state aliased by ``h_out``; a partial ring stage and a partial
+    channel block); kernel and plain times (in a CUDA graph and eager),
+    the bound, the launch geometry and the ``ptxas`` registers and
+    spills.
 11. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
     of 64, 1 KV head, RG-LRU width 256, 5 layers: one group and the
     2-layer tail, window 32) on cuda against the same weights on the
@@ -128,6 +132,14 @@ GEMM_SETTINGS = (("OS", 1), ("OS", 2), ("OS", 4), ("WS", 1), ("IS", 1))
 GEMM_TILES = ((64, 64, 64), (32, 64, 32), (32, 32, 32), (64, 128, 32),
               (128, 64, 96))
 DEV = "cuda"                   # the card the phases run on
+# phase kernel: systems P of prefix_select, in both layouts
+KERNEL_PS = (256, 300, 512, 1024, 4096)
+# phase rglru_kernel: (shape, (B, T, C), a start state, which the kernel
+# updates in place)
+RGLRU_SHAPES = (("prefill", (4, 3072, 4096), False),
+                ("decode", (4, 1, 4096), True),
+                ("edge", (1, 37, 200), False),
+                ("stage_edge", (2, 333, 1000), True))
 
 
 def card_line() -> str:
@@ -313,14 +325,16 @@ def kernel_bound(args) -> dict:
 
 
 def phase_kernel(card: str) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels.prefix_gather import ops as kops
     from repro_torch.kernels.prefix_gather import prefix_select_plain
 
     lib = kops.build()
+    regs = _ptxas_regs(_build.ptxas_report(kops.SOURCE))
     main = None
     worst = 0
     for layout in ("single", "stacked"):
-        for P in (256, 512, 1024, 4096):
+        for P in KERNEL_PS:
             args = kernel_inputs(layout, P, seed=P, dev=DEV)
             sel_k, tot_k = kops.prefix_select(*args)
             sel_p, tot_p = prefix_select_plain(*args)
@@ -359,7 +373,8 @@ def phase_kernel(card: str) -> dict:
                        P=P, equal=equal, max_abs_err=err,
                        ms=graph_ms(launch), plain_ms=graph_ms(plain),
                        eager_ms=cuda_ms(launch), plain_eager_ms=cuda_ms(plain),
-                       **kernel_bound(args), card=card)
+                       **kernel_bound(args), geometry=kops.geometry(Pn, C, F),
+                       ptxas_regs=regs, card=card)
             emit(with_floor(rec))
             if layout == "single" and P == 512:
                 main = rec
@@ -891,14 +906,14 @@ def rglru_bound(a, h0) -> dict:
 
 
 def phase_rglru(card: str) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels.rglru import ops as rops
     from repro_torch.kernels.rglru import rglru_plain
 
     lib = rops.build()
+    regs = _ptxas_regs(_build.ptxas_report(rops.SOURCE))
     recs = {}
-    for shape, (B, T, C), with_state in (
-            ("prefill", (4, 3072, 4096), False),
-            ("decode", (4, 1, 4096), True), ("edge", (1, 37, 200), False)):
+    for shape, (B, T, C), with_state in RGLRU_SHAPES:
         a, b, h0 = rglru_inputs(B, T, C, with_state, seed=T)
         aliased = None
         if with_state:                  # the decode cache's in-place update
@@ -934,7 +949,9 @@ def phase_rglru(card: str) -> dict:
                    eager_ms=cuda_ms(launch),
                    plain_ms=graph_ms(plain, iters=p_iters),
                    plain_eager_ms=cuda_ms(plain, iters=p_iters, warmup=1),
-                   **rglru_bound(a, h0), card=card)
+                   **rglru_bound(a, h0),
+                   geometry=rops.geometry(a, b, h0, h, h_out),
+                   ptxas_regs=regs, card=card)
         emit(with_floor(rec))
         recs[shape] = rec
     return dict(recs["prefill"], decode=recs["decode"])

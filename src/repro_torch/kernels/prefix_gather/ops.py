@@ -3,8 +3,10 @@
 :func:`prefix_select` is the tempering evaluator's whole prefix-table
 stage: both split-K gathers for all sim metrics, the per-row clip to the
 true tile totals, the split select and the per-slot segment reduction.
-On a CUDA tensor it launches the hand-written Hopper kernel in
-``csrc/prefix_select.cu``; on a CPU tensor it runs the plain torch
+On a CUDA tensor it launches a hand-written Hopper kernel in
+``csrc/prefix_select.cu`` (its launcher takes the one-output-a-thread
+kernel for 1 <= C*F <= 128, the looping kernel otherwise;
+:func:`geometry` says which); on a CPU tensor it runs the plain torch
 version (:func:`~repro_torch.kernels.prefix_gather.ref.
 prefix_select_plain`). There is no other switch, and a failed build or
 launch raises.
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Dict
 
 import torch
 
@@ -45,6 +48,9 @@ def _configure(lib: ctypes.CDLL) -> None:
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    geo = lib.prefix_select_geometry
+    geo.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    geo.restype = None
 
 
 def _configure_segment(lib: ctypes.CDLL) -> None:
@@ -63,6 +69,18 @@ def build() -> ctypes.CDLL:
 def build_segment() -> ctypes.CDLL:
     """Compile and load the ``prefix_segment`` kernel library."""
     return _build.load(SEGMENT_SOURCE, _configure_segment)
+
+
+def geometry(P: int, C: int, F: int) -> Dict[str, object]:
+    """The ``prefix_select`` launch of the built library for P systems
+    of C slots and F metrics: ``kernel`` ("one", one output a thread, or
+    "loop"), ``blocks``, ``block`` dimensions, ``systems`` a block and
+    dynamic ``smem_bytes`` a block."""
+    out = (ctypes.c_int * 7)()
+    build().prefix_select_geometry(P, C, F, out)
+    kernel, blocks, bx, by, bz, systems, smem = out
+    return dict(kernel="loop" if kernel else "one", blocks=blocks,
+                block=[bx, by, bz], systems=systems, smem_bytes=smem)
 
 
 def launch_count() -> int:

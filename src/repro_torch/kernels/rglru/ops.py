@@ -2,8 +2,10 @@
 
 :func:`rglru` runs the RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t``
 over (B, T, C) (see :mod:`repro_torch.kernels.rglru.ref` for the
-function). On a CUDA tensor it launches the hand-written Hopper kernel
-in ``csrc/rglru.cu``; on a CPU tensor it runs the plain torch version
+function). On a CUDA tensor it launches a hand-written Hopper kernel
+in ``csrc/rglru.cu`` (its launcher takes the ring kernel for T >= 2, the
+step kernel for one step; :func:`geometry` says which); on a CPU tensor
+it runs the plain torch version
 (:func:`~repro_torch.kernels.rglru.ref.rglru_plain`). There is no other
 switch, and a failed build or launch raises.
 
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,11 +36,35 @@ def _configure(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    geo = lib.rglru_geometry
+    geo.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
+    geo.restype = None
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     return _build.load(SOURCE, _configure)
+
+
+def geometry(a: torch.Tensor, b: torch.Tensor,
+             h0: Optional[torch.Tensor] = None,
+             h: Optional[torch.Tensor] = None,
+             h_out: Optional[torch.Tensor] = None) -> Dict[str, object]:
+    """The launch the built library makes for these tensors (``h``
+    None: a fresh, aligned output): ``kernel`` ("ring" or "step"),
+    ``access_bytes`` a thread's load (16 or 4: the ring's cp.async width,
+    the step kernel's float4 or scalar), grid, ``threads`` and static
+    ``smem_bytes`` a block, ring ``steps_per_stage`` and ``stages``."""
+    out = (ctypes.c_int * 8)()
+    bsz, t, c = a.shape
+    build().rglru_geometry(*(None if x is None else x.data_ptr()
+                             for x in (a, b, h0, h, h_out)), bsz, t, c, out)
+    kernel, vec, gx, gy, threads, smem, tc, stages = out
+    return dict(kernel="step" if kernel else "ring",
+                access_bytes=16 if vec else 4, grid=[gx, gy],
+                blocks=gx * gy, threads=threads, smem_bytes=smem,
+                steps_per_stage=tc, stages=stages)
 
 
 def launch_count() -> int:

@@ -17,7 +17,15 @@ from repro_torch.kernels.prefix_gather import (
     prefix_select_plain,
 )
 
-F, C, P = 5, 6, 48
+# (P systems, C slots, F metrics) by seed; any other seed is (48, 6, 5).
+# P = 49 is no multiple of the CUDA kernel's 4 systems a block; the card
+# cases add one system, a last partial block at P = 513, one slot a
+# system, C * F above a block's 128 threads (40 x 5, 6 x 11: one system
+# a block, its threads looping over the outputs), no slot (zero totals)
+# and one output a system (64 systems a block).
+SIZES = {4: (49, 6, 5), 5: (49, 6, 5), 6: (1, 6, 5), 7: (1, 6, 5),
+         8: (513, 6, 5), 9: (513, 6, 5), 10: (49, 1, 5), 11: (513, 1, 5),
+         12: (49, 40, 5), 13: (49, 6, 11), 14: (49, 0, 5), 15: (130, 1, 1)}
 
 
 def _case(name, seed):
@@ -26,6 +34,7 @@ def _case(name, seed):
     a shared bucket and concatenated along rows, with per-row row offsets
     and per-row true tile totals. Ranges include out-of-range ends,
     empty segments and both split values."""
+    P, C, F = SIZES.get(seed, (48, 6, 5))
     rng = np.random.default_rng(seed)
 
     def table(R, T, pad):
@@ -55,7 +64,12 @@ def _case(name, seed):
                 t0=t0, t1=t1)
 
 
-CASES = [("single", 0), ("single", 1), ("stacked", 2), ("stacked", 3)]
+CASES = [("single", 0), ("single", 1), ("stacked", 2), ("stacked", 3),
+         ("single", 4), ("stacked", 5)]
+CARD_CASES = CASES + [("single", 6), ("stacked", 7), ("single", 8),
+                      ("stacked", 9), ("single", 10), ("stacked", 11),
+                      ("single", 12), ("stacked", 13), ("single", 14),
+                      ("stacked", 15)]
 ORDER = ("p0", "p1", "rows", "start", "end", "split", "t0", "t1")
 
 REF = """
@@ -93,6 +107,7 @@ def test_prefix_select_bitwise(ref, name, seed, oracle, impl):
     sel, tot = fn(*_tensors(_case(name, seed)))
     assert launch_count() == before        # the CPU never launches
     assert sel.dtype == tot.dtype == torch.int64
+    P, C, F = SIZES.get(seed, (48, 6, 5))
     assert sel.shape == (P, C, F) and tot.shape == (P, F)
     np.testing.assert_array_equal(sel.numpy(), ref[f"{name}{seed}_{oracle}_sel"])
     np.testing.assert_array_equal(tot.numpy(), ref[f"{name}{seed}_{oracle}_tot"])
@@ -113,7 +128,8 @@ def _bad(kind):
     elif kind == "shape":
         a[3] = a[3][:, :-1].contiguous()
     elif kind == "strided":
-        a[4] = torch.as_strided(a[4].repeat(1, 2), a[4].shape, (2 * C, 1))
+        a[4] = torch.as_strided(a[4].repeat(1, 2), a[4].shape,
+                                (2 * a[4].shape[1], 1))
     return a
 
 
@@ -128,7 +144,7 @@ def test_wrapper_rejects_bad_input(kind, exc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,seed", CASES)
+@pytest.mark.parametrize("name,seed", CARD_CASES)
 def test_cuda_kernel_matches_plain_on_card(name, seed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")

@@ -1,8 +1,8 @@
 """The RG-LRU recurrence: the port's plain torch version and its wrapper
 against the reference's oracles (the sequential ``rglru_ref``, the
 associative ``rglru_assoc_ref`` and the Pallas kernel ``ops.rglru`` in
-interpret mode) from a zero state, at ``tests/test_kernels.py``'s shapes,
-and against the model's ``_assoc_scan`` from a nonzero start state; the
+interpret mode) from a zero state, at ``tests/test_kernels.py``'s shapes
+and three on the CUDA kernels' boundaries, and against the model's ``_assoc_scan`` from a nonzero start state; the
 identity decay; the wrapper's input checks; and the CUDA kernel against
 the plain version on the card, bit for bit.
 
@@ -26,7 +26,12 @@ from test_torch_support import run_reference
 from repro_torch.kernels.rglru import launch_count, rglru, rglru_plain
 
 RTOL = 1e-6                # of the magnitude scale M (module docstring)
-SHAPES = [(2, 64, 128), (1, 80, 200), (3, 33, 64)]          # (B, T, C)
+# (B, T, C); the last three land on the CUDA kernels' boundaries: one
+# decode step at a C that is no multiple of the blocks, T past three
+# 32-step ring stages and a tail at C % 4 == 0 but no multiple of 32, and
+# a C that is no multiple of 4 (4-byte copies)
+SHAPES = [(2, 64, 128), (1, 80, 200), (3, 33, 64), (2, 1, 132),
+          (1, 97, 260), (2, 33, 130)]
 IMPLS = {"plain": rglru_plain, "wrapper": rglru}
 
 
@@ -173,16 +178,38 @@ def test_wrapper_rejects_bad_input(kind, exc):
         rglru(*args, **kw)
 
 
+# On the card: the existing shapes, then every T that lands on or next to
+# a ring boundary (one step, a partial stage, one stage, one past it,
+# three stages and a tail, the serving prefill) at C not a multiple of 4,
+# C past a partial block and the serving width, from zeros and from a
+# start state; then tensors that start 4 bytes past a 16-byte boundary
+# (the 4-byte copy and scalar step variants).
+CARD_CASES = ([((4, 3072, 4096), "zero", 0), ((4, 1, 4096), "nonzero", 0),
+               ((1, 37, 200), "zero", 0), ((3, 33, 64), "nonzero", 0)]
+              + [((2, t, c), start, 0) for t in (1, 31, 32, 33, 97, 3072)
+                 for c in (130, 200, 4096) for start in ("zero", "nonzero")]
+              + [((2, t, c), "nonzero", 1) for t in (1, 33, 97)
+                 for c in (200, 4096)])
+
+
+def _offset(x, floats):
+    """``x`` copied into a contiguous tensor that starts ``floats``
+    elements past the start of its storage."""
+    if not floats:
+        return x
+    buf = torch.empty(x.numel() + floats, dtype=x.dtype, device=x.device)
+    out = buf[floats:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,start", [((4, 3072, 4096), "zero"),
-                                         ((4, 1, 4096), "nonzero"),
-                                         ((1, 37, 200), "zero"),
-                                         ((3, 33, 64), "nonzero")])
-def test_cuda_kernel_equals_plain_on_card(shape, start):
+@pytest.mark.parametrize("shape,start,offset", CARD_CASES)
+def test_cuda_kernel_equals_plain_on_card(shape, start, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     c = _case(shape, seed=sum(shape))
-    a, b, h0 = (t.cuda() for t in _t(c, "a", "b", "h0"))
+    a, b, h0 = (_offset(t.cuda(), offset) for t in _t(c, "a", "b", "h0"))
     h0 = h0 if start == "nonzero" else None
     before = launch_count()
     h, h_t = rglru(a, b, h0)
@@ -191,7 +218,8 @@ def test_cuda_kernel_equals_plain_on_card(shape, start):
     h_p, t_p = rglru_plain(a, b, h0)
     assert torch.equal(h, h_p) and torch.equal(h_t, t_p)
     if h0 is not None:                          # in place on the card too
-        state = h0.clone()
-        rglru(a, b, state, h_out=state)
+        state = _offset(h0.clone(), offset)
+        h_i, t_i = rglru(a, b, state, h_out=state)
         torch.cuda.synchronize()
-        assert torch.equal(state, t_p)
+        assert t_i.data_ptr() == state.data_ptr()
+        assert torch.equal(state, t_p) and torch.equal(h_i, h_p)
