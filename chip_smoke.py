@@ -93,11 +93,15 @@ one JSON line that carries the card's name and power limit:
     the five settings in float32 and under OS, OS split-K 2, WS and IS in
     bfloat16; float16 OS and WS at WL2.
 14. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
-    (the launch count of that run), bitwise against its plain version
+    (the launch count of that run, by kernel: the unrolled and the
+    grouped kernel must both have run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
     at P = 512 and 4096 (C = 6), a synthetic int32 table (64 x 1025,
-    P = 4096) and one system of one slot on one row; kernel and plain
-    times (in a CUDA graph and eager) and the bound.
+    P = 4096), a float64 table of non-integer values (P = 4096), a
+    float32 one at C = 9 (P = 512) and one system of one slot on one row;
+    kernel and plain times (in a CUDA graph and eager), the eager time of
+    the whole public call, the bound, the launch geometry and the
+    ``ptxas`` registers and spills (a spill fails the phase).
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line and,
 last, ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -1242,8 +1246,10 @@ def segment_bound(pref, rows, start, end) -> dict:
 
 def segment_cases() -> list:
     """(name, pref, rows, start, end): the workload-1 int64 plane and its
-    float64 copy at P = 512 and 4096; a synthetic int32 table; and an
-    edge case of one system, one slot, one row."""
+    float64 copy at P = 512 and 4096; a synthetic int32 table; a float64
+    table of non-integer values, so the slot order of the sums shows; a
+    float32 one at C = 9, past the unrolled kernel's 8 slots; and an edge
+    case of one system, one slot, one row."""
     cases = []
     for dtype in (torch.int64, torch.float64):
         for P in (512, 4096):
@@ -1251,32 +1257,47 @@ def segment_cases() -> list:
             cases.append((name, *segment_inputs(P, seed=P, dev=DEV,
                                                 dtype=dtype)))
     rng = np.random.default_rng(5)
-    R, T1, P, C = 64, 1025, 4096, 6
-    pref = np.cumsum(rng.integers(0, 1000, (R, T1)), axis=1)
-    start = rng.integers(0, T1, (P, C))
-    end = np.minimum(start + rng.integers(0, T1, (P, C)), T1 - 1)
 
     def t(x, dt=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=DEV)
 
-    cases.append(("synthetic-int32-P4096", t(pref), t(rng.integers(
-        0, R, (P, C))), t(start), t(end)))
+    def indices(R, T1, P, C):
+        start = rng.integers(0, T1, (P, C))
+        end = np.minimum(start + rng.integers(0, T1, (P, C)), T1 - 1)
+        return t(rng.integers(0, R, (P, C))), t(start), t(end)
+
+    R, T1, P, C = 64, 1025, 4096, 6
+    pref = np.cumsum(rng.integers(0, 1000, (R, T1)), axis=1)
+    cases.append(("synthetic-int32-P4096", t(pref), *indices(R, T1, P, C)))
+    frac = np.cumsum(rng.random((R, T1)), axis=1)
+    cases.append(("frac-float64-P4096", t(frac, torch.float64),
+                  *indices(R, T1, P, C)))
+    cases.append(("frac-float32-C9-P512", t(frac, torch.float32),
+                  *indices(R, T1, 512, 9)))
     cases.append(("edge-P1-C1-R1", t(np.arange(5)[None] * 7, torch.int64),
                   t([[0]]), t([[1]]), t([[4]])))
     return cases
 
 
 def phase_prefix_segment(card: str) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels.prefix_gather import ops as kops
     from repro_torch.kernels.prefix_gather import prefix_segment_plain
 
     lib = kops.build_segment()
+    regs = _ptxas_regs(_build.ptxas_report(kops.SEGMENT_SOURCE))
+    if any(r.get("spill_stores") or r.get("spill_loads") for r in regs):
+        raise AssertionError(f"prefix_segment: ptxas spilled: {regs}")
     cases = segment_cases()
     # the main path: every case once through the public entry point
-    kops.prefix_segment_gather.launches = 0
+    kops.reset_launch_count()
     outs = [kops.prefix_segment_gather(*args) for _, *args in cases]
     torch.cuda.synchronize()
     launches = kops.prefix_segment_gather.launches
+    paths = dict(kops.prefix_segment_gather.path_launches)
+    if launches != len(cases) or not all(paths.values()):
+        raise AssertionError(f"prefix_segment: {launches} launches for "
+                             f"{len(cases)} cases, by path {paths}")
     main = None
     for (name, pref, rows, start, end), (diff, total) in zip(cases, outs):
         d_p, t_p = prefix_segment_plain(pref, rows, start, end)
@@ -1289,6 +1310,7 @@ def phase_prefix_segment(card: str) -> dict:
         P, C = rows.shape
         d_out, t_out = torch.empty_like(diff), torch.empty_like(total)
         code = kops.SEGMENT_DTYPES[pref.dtype]
+        geo = kops.segment_geometry(P, C)
 
         def launch():
             rc = lib.prefix_segment_launch(
@@ -1302,17 +1324,24 @@ def phase_prefix_segment(card: str) -> dict:
         def plain():
             return prefix_segment_plain(pref, rows, start, end)
 
+        def call():
+            return kops.prefix_segment_gather(pref, rows, start, end)
+
+        # call_ms: the whole public call, eager, as a caller pays it (the
+        # index range check with its host sync, the int32 casts, the
+        # allocations and the launch)
         rec = dict(phase="prefix_segment_kernel", kernel="prefix_segment",
                    case=name, dtype=str(pref.dtype).replace("torch.", ""),
                    R=pref.shape[0], T1=pref.shape[1], P=P, C=C, equal=equal,
                    max_abs_err=0, ms=graph_ms(launch),
-                   eager_ms=cuda_ms(launch), plain_ms=graph_ms(plain),
-                   plain_eager_ms=cuda_ms(plain),
-                   **segment_bound(pref, rows, start, end), card=card)
+                   eager_ms=cuda_ms(launch), call_ms=cuda_ms(call),
+                   plain_ms=graph_ms(plain), plain_eager_ms=cuda_ms(plain),
+                   **segment_bound(pref, rows, start, end), geometry=geo,
+                   ptxas_regs=regs, card=card)
         emit(with_floor(rec))
         if name == "wl1-int64-P512":
             main = rec
-    return dict(main, launches=launches)
+    return dict(main, launches=launches, path_launches=paths)
 
 
 def main() -> int:

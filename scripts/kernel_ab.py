@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""``prefix_select`` and ``rglru`` of another checkout against this one's,
-on one card, in one process.
+"""``prefix_select``, ``rglru`` and ``prefix_segment`` of another checkout
+against this one's, on one card, in one process.
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
@@ -8,16 +8,20 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
 BASE is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive HEAD | tar -x -C build/parent``).
-The script builds ``prefix_select.cu`` and ``rglru.cu`` from BASE and
-from this checkout (``nvcc``, sm_90a, into ``build/kernels/``) and, at
-every shape of ``chip_smoke.py``'s phases ``kernel`` (both layouts, P in
-``KERNEL_PS``) and ``rglru_kernel`` (``RGLRU_SHAPES``), on the same
-inputs, holds each library's output bitwise against the plain torch
-version and times it as ``chip_smoke.graph_ms`` does (50 launches in one
-CUDA graph), in the order base, change, change, base. Both libraries
-are called through the launch signatures they share. Prints the card's
-line and one JSON line per timing (``tree`` "base" or "change",
-``turn`` 0-3); exits non-zero if an output differs or without CUDA.
+The script builds ``prefix_select.cu``, ``rglru.cu`` and
+``prefix_segment.cu`` from BASE and from this checkout (``nvcc``,
+sm_90a, into ``build/kernels/``) and, at every shape of
+``chip_smoke.py``'s phases ``kernel`` (both layouts, P in
+``KERNEL_PS``), ``rglru_kernel`` (``RGLRU_SHAPES``) and
+``prefix_segment_kernel`` (``segment_cases``, and the workload-1 int64
+case at P = 512 again with index tensors 4 bytes past an 8-byte
+boundary), on the same inputs, holds each library's output bitwise
+against the plain torch version and times it as ``chip_smoke.graph_ms``
+does (50 launches in one CUDA graph), in the order base, change, change,
+base. Both libraries are called through the launch signatures they
+share. Prints the card's line and one JSON line per timing (``tree``
+"base" or "change", ``turn`` 0-3); exits non-zero if an output differs
+or without CUDA.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = {"prefix_select": "src/repro_torch/kernels/prefix_gather/csrc/"
                             "prefix_select.cu",
-           "rglru": "src/repro_torch/kernels/rglru/csrc/rglru.cu"}
+           "rglru": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+           "prefix_segment": "src/repro_torch/kernels/prefix_gather/csrc/"
+                             "prefix_segment.cu"}
 ORDER = ("base", "change", "change", "base")
 
 
@@ -49,6 +55,12 @@ def _libs(base: Path, build):
                 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                 + [ctypes.c_void_p] * 3)
             lib.prefix_select_launch.restype = ctypes.c_int
+        elif key[0] == "prefix_segment":
+            lib.prefix_segment_launch.argtypes = (
+                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                + [ctypes.c_int, ctypes.c_void_p])
+            lib.prefix_segment_launch.restype = ctypes.c_int
         else:
             lib.rglru_launch.argtypes = ([ctypes.c_void_p] * 5
                                          + [ctypes.c_int] * 3
@@ -73,6 +85,15 @@ def _compare(cs, name, case, launchers, outs, want, card):
                      ms=cs.graph_ms(launch), card=card))
 
 
+def _offset(x, elems: int = 1):
+    """``x`` copied into a contiguous view ``elems`` int32 past the start
+    of a fresh buffer: the base is 4-byte but not 8-byte aligned."""
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    view = buf[elems:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("base", type=Path)
@@ -83,7 +104,11 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke as cs
     from repro_torch.kernels import _build
-    from repro_torch.kernels.prefix_gather import prefix_select_plain
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.prefix_gather import (
+        prefix_segment_plain,
+        prefix_select_plain,
+    )
     from repro_torch.kernels.rglru import rglru_plain
 
     card = cs.card_line()
@@ -137,6 +162,32 @@ def main() -> int:
                  {t: launcher(libs["rglru", t]) for t in ("base", "change")},
                  (h, h_out), (h_p, t_p), card)
         del a, b, h0, h_p, t_p, h, h_out
+
+    cases = cs.segment_cases()
+    name, pref, rows, start, end = cases[0]          # wl1-int64-P512
+    cases.append((f"{name}-offset4", pref,
+                  *(_offset(x) for x in (rows, start, end))))
+    for name, pref, rows, start, end in cases:
+        P, C = rows.shape
+        diff = torch.empty((P, C), dtype=pref.dtype, device=cs.DEV)
+        total = torch.empty((P,), dtype=pref.dtype, device=cs.DEV)
+        code = kops.SEGMENT_DTYPES[pref.dtype]
+
+        def launcher(lib):
+            def launch():
+                rc = lib.prefix_segment_launch(
+                    pref.data_ptr(), pref.shape[1], rows.data_ptr(),
+                    start.data_ptr(), end.data_ptr(), P, C,
+                    diff.data_ptr(), total.data_ptr(), code, stream())
+                if rc:
+                    raise RuntimeError(f"launch failed: CUDA error {rc}")
+            return launch
+
+        _compare(cs, "prefix_segment", dict(case=name, P=P, C=C),
+                 {t: launcher(libs["prefix_segment", t])
+                  for t in ("base", "change")},
+                 (diff, total), prefix_segment_plain(pref, rows, start, end),
+                 card)
     print(card)
     return 0
 

@@ -44,12 +44,13 @@ def library_path(source: Path) -> Path:
 
 def compile_sources(sources: Iterable[Path]) -> List[Path]:
     """Compile every source whose library is missing, one ``nvcc`` each,
-    all started together; return the library paths in source order."""
+    all started together; return the library paths in source order.
+    Sources of equal contents share one library and one build."""
     sources = [Path(s) for s in sources]
     libs = [library_path(s) for s in sources]
     running = []
     for src, so in zip(sources, libs):
-        if so.exists():
+        if so.exists() or any(so == r[1] for r in running):
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")

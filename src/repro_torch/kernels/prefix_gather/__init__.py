@@ -5,6 +5,7 @@ from repro_torch.kernels.prefix_gather.ops import (
     prefix_segment_gather,
     prefix_select,
     reset_launch_count,
+    segment_geometry,
     segment_launch_count,
 )
 from repro_torch.kernels.prefix_gather.ref import (
@@ -14,4 +15,5 @@ from repro_torch.kernels.prefix_gather.ref import (
 
 __all__ = ["build", "build_segment", "launch_count", "prefix_segment_gather",
            "prefix_segment_plain", "prefix_select", "prefix_select_plain",
-           "reset_launch_count", "segment_launch_count"]
+           "reset_launch_count", "segment_geometry",
+           "segment_launch_count"]

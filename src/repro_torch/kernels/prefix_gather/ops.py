@@ -13,9 +13,13 @@ launch raises.
 
 :func:`prefix_segment_gather` is the single-table form: per-slot
 differences of one ``[R, T+1]`` table and their per-system totals, with
-no clipping. It launches ``csrc/prefix_segment.cu`` on a CUDA tensor and
-runs :func:`~repro_torch.kernels.prefix_gather.ref.prefix_segment_plain`
-on a CPU tensor, the same way.
+no clipping. It launches ``csrc/prefix_segment.cu`` on a CUDA tensor
+(a thread per slot; its launcher takes the kernel with C at compile
+time for 1 <= C <= 8, the grouped kernel otherwise;
+:func:`segment_geometry` says which) and runs
+:func:`~repro_torch.kernels.prefix_gather.ref.prefix_segment_plain` on a
+CPU tensor, the same way. It counts its launches by kernel in
+``prefix_segment_gather.path_launches``.
 
 Each kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, under ``build/kernels/``) at first use and loaded with
@@ -40,6 +44,7 @@ SEGMENT_SOURCE = Path(__file__).resolve().parent / "csrc" / "prefix_segment.cu"
 # the table dtypes prefix_segment_gather takes, by the kernel's type code
 SEGMENT_DTYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2,
                   torch.int32: 3}
+SEGMENT_PATHS = ("unrolled", "grouped")
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -59,6 +64,9 @@ def _configure_segment(lib: ctypes.CDLL) -> None:
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    geo = lib.prefix_segment_geometry
+    geo.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    geo.restype = None
 
 
 def build() -> ctypes.CDLL:
@@ -83,6 +91,18 @@ def geometry(P: int, C: int, F: int) -> Dict[str, object]:
                 block=[bx, by, bz], systems=systems, smem_bytes=smem)
 
 
+def segment_geometry(P: int, C: int) -> Dict[str, object]:
+    """The ``prefix_segment`` launch of the built library for P systems
+    of C slots: ``kernel`` ("unrolled", C at compile time, or "grouped"),
+    ``blocks``, ``threads`` a block and ``systems`` a warp (a thread per
+    slot)."""
+    out = (ctypes.c_int * 4)()
+    build_segment().prefix_segment_geometry(P, C, out)
+    kernel, blocks, threads, systems = out
+    return dict(kernel=SEGMENT_PATHS[kernel], blocks=blocks, threads=threads,
+                systems=systems)
+
+
 def launch_count() -> int:
     """``prefix_select`` launches since the last
     :func:`reset_launch_count`."""
@@ -98,6 +118,7 @@ def segment_launch_count() -> int:
 def reset_launch_count() -> None:
     prefix_select.launches = 0
     prefix_segment_gather.launches = 0
+    prefix_segment_gather.path_launches = dict.fromkeys(SEGMENT_PATHS, 0)
 
 
 def _check(pref0, pref1, rows, start, end, split, t0, t1):
@@ -169,9 +190,6 @@ def prefix_select(pref0: torch.Tensor, pref1: torch.Tensor,
     return sel, total
 
 
-prefix_select.launches = 0
-
-
 def _check_segment(pref, rows, start, end):
     """The indices as int32 and contiguous, after checking every index
     against the table (the TPU kernel reads them unchecked)."""
@@ -236,7 +254,10 @@ def prefix_segment_gather(pref: torch.Tensor, rows: torch.Tensor,
         raise RuntimeError(f"prefix_segment kernel launch failed: CUDA "
                            f"error {err}")
     prefix_segment_gather.launches += 1
+    # the launcher dispatches on the plan that the geometry reports
+    path = segment_geometry(P, C)["kernel"]
+    prefix_segment_gather.path_launches[path] += 1
     return diff, total
 
 
-prefix_segment_gather.launches = 0
+reset_launch_count()

@@ -7,11 +7,25 @@ plane that ``chip_smoke.segment_inputs`` builds, and with empty
 (``start == end``) slots; the wrapper's refusals; and the CUDA kernel
 against the plain version on the card.
 
-Every comparison is bitwise (``torch.equal``). Integer tables are exact.
-The float64 tables hold integers below 2^53 and the float32 ones
-integers below 2^24, so every difference and every total is exact too,
-whatever order a sum takes (the reference's jnp oracle sums in an order
-of its own; the kernel and the plain version both sum in slot order).
+The comparisons of those cases are bitwise (``torch.equal``). Integer
+tables are exact. Those float64 tables hold integers below 2^53 and the
+float32 ones integers below 2^24, so every difference and every total is
+exact too, whatever order a sum takes.
+
+The fractional cases (float64 and float32 tables of non-integer values,
+the running sums of uniform draws) are where the order of a sum shows.
+The reference's Pallas kernel sums the slots in order from slot 0's
+difference, as the plain version and the CUDA kernel do, so those are
+held bitwise; its jnp oracle sums in an order of its own, so its totals
+are held within C * eps * sum_c |diff[p, c]| (a bound on how far two
+orders of a C-term sum can round apart) and its differences bitwise.
+
+The card tests run every C from 1 to 9, 16 and 33 (the unrolled kernel
+and the grouped one, whose slots at C = 33 span two groups of a warp),
+P that is no multiple of a warp's systems or of a block, index tensors
+that are views with only 4- or 8-byte-aligned bases, and fractional
+tables, bitwise against the plain version, with the launch geometry the
+case should take.
 """
 import importlib.util
 import os
@@ -22,6 +36,7 @@ import torch
 
 from test_torch_support import REPO, run_reference
 
+from repro_torch.kernels.prefix_gather import ops
 from repro_torch.kernels.prefix_gather import (
     prefix_segment_gather,
     prefix_segment_plain,
@@ -71,9 +86,26 @@ CASES = ([(f"{dt}-{'x'.join(map(str, s))}", s, dt) for s in SHAPES
             for dt in ("int64", "float64")])
 
 
+def _fractional(shape, dt, seed):
+    """A table of running sums of uniform draws in [0, 1), so no entry and
+    no difference is an integer; in-range ranges, a third of them empty."""
+    case = _synthetic(shape, "int64", seed)
+    R, T1 = shape[:2]
+    rng = np.random.default_rng(seed + 1)
+    case["pref"] = np.cumsum(rng.random((R, T1)), axis=1).astype(dt)
+    return case
+
+
+FRAC_CASES = [(f"frac-{dt}-{'x'.join(map(str, s))}", s, dt)
+              for s in SHAPES + [(64, 1025, 512, 6)]
+              for dt in ("float64", "float32")]
+
+
 def _case(name, spec, dt):
     if name.startswith("wl1"):
         return _workload1(spec, dt)
+    if name.startswith("frac"):
+        return _fractional(spec, dt, seed=sum(spec))
     return _synthetic(spec, dt, seed=sum(spec) + len(dt))
 
 
@@ -93,8 +125,8 @@ with jax.enable_x64(True):
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    inputs = {"names": np.array([c[0] for c in CASES])}
-    for name, spec, dt in CASES:
+    inputs = {"names": np.array([c[0] for c in CASES + FRAC_CASES])}
+    for name, spec, dt in CASES + FRAC_CASES:
         for k, a in _case(name, spec, dt).items():
             inputs[f"{name}_{k}"] = a
     return run_reference(REF, inputs, tmp_path_factory.mktemp("ref_segment"))
@@ -119,6 +151,25 @@ def test_prefix_segment_bitwise(ref, name, spec, dt, oracle, impl):
     assert str(ref[f"{name}_{oracle}_diff"].dtype) == dt
     assert torch.equal(diff, torch.from_numpy(ref[f"{name}_{oracle}_diff"]))
     assert torch.equal(total, torch.from_numpy(ref[f"{name}_{oracle}_tot"]))
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("name,spec,dt", FRAC_CASES,
+                         ids=[c[0] for c in FRAC_CASES])
+def test_prefix_segment_fractional_sums_in_slot_order(ref, name, spec, dt,
+                                                      impl):
+    case = _case(name, spec, dt)
+    diff, total = IMPLS[impl](*_tensors(case))
+    pl_diff = torch.from_numpy(ref[f"{name}_pl_diff"])
+    pl_tot = torch.from_numpy(ref[f"{name}_pl_tot"])
+    assert diff.dtype == total.dtype == pl_diff.dtype == DTYPES[dt]
+    assert (diff != diff.round()).any()          # not integers
+    assert torch.equal(diff, pl_diff) and torch.equal(total, pl_tot)
+    assert torch.equal(diff, torch.from_numpy(ref[f"{name}_ref_diff"]))
+    ref_tot = torch.from_numpy(ref[f"{name}_ref_tot"])
+    C = diff.shape[1]
+    bound = C * torch.finfo(diff.dtype).eps * diff.abs().sum(dim=1)
+    assert ((total - ref_tot).abs() <= bound).all()
 
 
 def test_workload1_ranges_are_real():
@@ -177,12 +228,16 @@ def test_wrapper_rejects_bad_input(kind, exc):
         prefix_segment_gather(*_bad(kind))
 
 
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES + [(1, 1, 1, 1), (64, 1025, 4096, 6)])
 def test_cuda_kernel_equals_plain_on_card(shape, dt):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _need_card()
     t = _tensors(_synthetic(shape, dt, seed=1), device="cuda")
     before = segment_launch_count()
     diff, total = prefix_segment_gather(*t)
@@ -190,3 +245,71 @@ def test_cuda_kernel_equals_plain_on_card(shape, dt):
     assert segment_launch_count() == before + 1
     d_p, t_p = prefix_segment_plain(*t)
     assert torch.equal(diff, d_p) and torch.equal(total, t_p)
+
+
+def _at_offset(x, elems):
+    """``x`` as a contiguous view ``elems`` elements into a fresh buffer
+    (a fresh buffer starts on at least 16 bytes)."""
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    view = buf[elems:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _card_check(case, dt, offsets=(0, 0, 0)):
+    pref, *idx = _tensors(case, device="cuda")
+    rows, start, end = (_at_offset(x, o) for x, o in zip(idx, offsets))
+    P, C = rows.shape
+    kernel = "unrolled" if C <= 8 else "grouped"   # C at compile time
+    geo = ops.segment_geometry(P, C)
+    systems = 32 // min(C, 32)                  # a thread per slot
+    assert geo["kernel"] == kernel and geo["systems"] == systems
+    assert geo["blocks"] == -(-32 * -(-P // systems) // geo["threads"])
+    before = dict(ops.prefix_segment_gather.path_launches)
+    diff, total = prefix_segment_gather(pref, rows, start, end)
+    torch.cuda.synchronize()
+    after = ops.prefix_segment_gather.path_launches
+    assert after[kernel] == before[kernel] + 1
+    d_p, t_p = prefix_segment_plain(pref, rows, start, end)
+    assert diff.dtype == DTYPES[dt]
+    assert torch.equal(diff, d_p) and torch.equal(total, t_p)
+
+
+CARD_CS = list(range(1, 10)) + [16, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("P", [1, 33, 300])
+@pytest.mark.parametrize("C", CARD_CS)
+def test_cuda_every_slot_count_equals_plain_on_card(C, P, dt):
+    """Both kernels, every unrolled C, P off the block; float tables hold
+    non-integer values."""
+    _need_card()
+    shape = (7, 19, P, C)
+    case = (_fractional(shape, dt, seed=C * 1000 + P) if "float" in dt
+            else _synthetic(shape, dt, seed=C * 1000 + P))
+    _card_check(case, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float64", "int32"])
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (2, 2, 2), (0, 0, 1),
+                                     (0, 2, 0), (3, 1, 2)])
+@pytest.mark.parametrize("C", [2, 3, 4, 6, 8, 9])
+def test_cuda_unaligned_index_views_equal_plain_on_card(C, offsets, dt):
+    """Index tensors that start 4 or 8 bytes past a 16-byte boundary, as
+    the wrapper's int32 casts may be."""
+    _need_card()
+    shape = (11, 33, 300, C)
+    case = (_fractional(shape, dt, seed=C) if "float" in dt
+            else _synthetic(shape, dt, seed=C))
+    _card_check(case, dt, offsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,spec,dt", FRAC_CASES,
+                         ids=[c[0] for c in FRAC_CASES])
+def test_cuda_fractional_tables_equal_plain_on_card(name, spec, dt):
+    _need_card()
+    _card_check(_case(name, spec, dt), dt)
