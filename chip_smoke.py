@@ -33,24 +33,42 @@ one JSON line that carries the card's name and power limit:
    the default normalizer fit, timed, with the kernel launch counts of
    that run; the best design is re-evaluated on the card and on the CPU.
 6. ``profile``  — device busy share of a short search window.
-7. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
-   version on the card, within 1e-6 x M, at the serve phase's shapes:
-   prefill (G = 160, T = 512, zero start) as (G, T, D) rows and in the
-   model's (B, T, H, D) = (4, 512, 40, 64) layout (y equal to the rows'
-   to the bit), decode (G = 160, T = 1, nonzero start; the in-place
-   update equal to the bit to the out-of-place one) and an edge case
-   (G = 1, T = 37); max errors of ``y`` and ``S_T``, kernel and plain
-   times (in a CUDA graph and eager), the bound, the launch geometry and,
-   on the first case, the ``ptxas`` registers and spills.
-8. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
-   layers) on cuda against the same weights on the CPU: prefill and
-   eight teacher-forced greedy steps (the CPU's tokens fed to both).
-9. ``serve``    — the language-model path: ``rwkv6-3b`` at full width in
-   float32 through ``repro_torch.launch.serve`` (batch 4, prompt 512,
-   32 generated tokens, seeded weights and prompts), timed, with the
-   ``wkv6`` launch count of that run (32 + 31 * 32 = 1024) and every
-   logit checked finite.
-10. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
+7. ``sa_golden`` — replays ``tests/goldens/sa_wl6_t1.json`` through the
+   port (``Pathfinder(workload(6), "T1")``, scalar normalizer fit,
+   ``SimulatedAnnealing``; rtol 1e-9, evaluations and best design
+   equal), timed. Annealing is host code by design: ``random.Random``
+   and scalar ``evaluate``.
+8. ``pareto``   — the multi-objective path: ``Pathfinder(workload(1),
+   "T1").pareto_front(key=0)`` on the card (``ScalarizationSweep()``: 16
+   directions x 4 chains, 100 sweeps, per-chain weight rows and the
+   exchange pair mask), timed, with sweeps/s, evaluations/s, frontier
+   size, hypervolume and the ``prefix_select`` launches of that run;
+   the same sweep at 10 sweeps on the card and on the CPU (frontier
+   encodings equal, vectors, history and best cost within 1e-6); the
+   device busy share of a 5-sweep window.
+9. ``strategies`` — ``RandomSearch(batch_size=512)`` at budget 2048 and
+   the full ``GridSweep()`` (4 memories x 12 mappings x 43 package
+   combinations = 2,064 systems) on the card and on the CPU: best and
+   frontier encodings equal, costs within 1e-6; each card run's wall
+   time and ``prefix_select`` launches.
+10. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
+    version on the card, within 1e-6 x M, at the serve phase's shapes:
+    prefill (G = 160, T = 512, zero start) as (G, T, D) rows and in the
+    model's (B, T, H, D) = (4, 512, 40, 64) layout (y equal to the rows'
+    to the bit), decode (G = 160, T = 1, nonzero start; the in-place
+    update equal to the bit to the out-of-place one) and an edge case
+    (G = 1, T = 37); max errors of ``y`` and ``S_T``, kernel and plain
+    times (in a CUDA graph and eager), the bound, the launch geometry and,
+    on the first case, the ``ptxas`` registers and spills.
+11. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
+    layers) on cuda against the same weights on the CPU: prefill and
+    eight teacher-forced greedy steps (the CPU's tokens fed to both).
+12. ``serve``    — the language-model path: ``rwkv6-3b`` at full width in
+    float32 through ``repro_torch.launch.serve`` (batch 4, prompt 512,
+    32 generated tokens, seeded weights and prompts), timed, with the
+    ``wkv6`` launch count of that run (32 + 31 * 32 = 1024) and every
+    logit checked finite.
+13. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
     version on the card, bitwise (``torch.equal``), at the serve_hybrid
     phase's shapes: prefill (B = 4, T = 3072, C = 4096, zero start),
     decode (T = 1, nonzero start, ``h_out`` aliasing ``h0``), an edge
@@ -59,17 +77,17 @@ one JSON line that carries the card's name and power limit:
     channel block); kernel and plain times (in a CUDA graph and eager),
     the bound, the launch geometry and the ``ptxas`` registers and
     spills.
-11. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
+14. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
     of 64, 1 KV head, RG-LRU width 256, 5 layers: one group and the
     2-layer tail, window 32) on cuda against the same weights on the
     CPU: a 48-token prompt (beyond the window, so the ring cache is
     rotated) and eight teacher-forced greedy steps.
-12. ``serve_hybrid`` — ``recurrentgemma-9b`` at full width in float32
+15. ``serve_hybrid`` — ``recurrentgemma-9b`` at full width in float32
     through ``repro_torch.launch.serve`` (batch 4, prompt 3072, 1.5x the
     2048 window, 32 generated tokens, seeded weights and prompts), timed,
     with the ``rglru`` launch count of that run (26 RG-LRU layers x 32 =
     832) and every logit checked finite.
-13. ``gemm_kernel`` — the systolic GEMM path: first every case once
+16. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
     sites, and of each site's path ("simt", "wgmma"), over that run;
@@ -92,7 +110,7 @@ one JSON line that carries the card's name and power limit:
     key product at the serve cell's prefill (2048 x 2560 x 8960) under
     the five settings in float32 and under OS, OS split-K 2, WS and IS in
     bfloat16; float16 OS and WS at WL2.
-14. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
+17. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run, by kernel: the unrolled and the
     grouped kernel must both have run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -103,8 +121,9 @@ one JSON line that carries the card's name and power limit:
     the whole public call, the bound, the launch geometry and the
     ``ptxas`` registers and spills (a spill fails the phase).
 
-Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line and,
-last, ``{"ok": true, "device": {...}}``. Any failure raises and the
+Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line (the
+``prefix_select`` launches are those of the search, pareto and strategies
+runs) and, last, ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero without that last line. Without CUDA, or outside a
 checkout of the repository, it exits non-zero at once.
 """
@@ -547,23 +566,18 @@ def phase_search(card: str) -> dict:
     return rec
 
 
-def phase_profile(card: str) -> dict:
-    """Device busy share of a short steady search window, from
-    torch.profiler (``null`` when the tracer reports no device time)."""
+def _profiled(fn) -> dict:
+    """Wall time and device busy share of one call of ``fn`` (warmed
+    first), from torch.profiler (``null`` shares when the tracer reports
+    no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import workload
-    from repro_torch.pathfinding import ParallelTempering, Pathfinder
-
-    pf = Pathfinder(workload(1), "T1", torch_device=DEV)
-    pf.norm
-    strat = ParallelTempering(n_chains=512, sweeps=5, frontier_size=0)
-    pf.search(strat, key=1)                    # warm
+    fn()                                       # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pf.search(strat, key=1)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # device-side events only (their self time is the kernel's run)
@@ -573,13 +587,181 @@ def phase_profile(card: str) -> dict:
                  for e in kern)
     top = sorted(kern, key=lambda e: -float(
         getattr(e, "self_device_time_total", 0) or 0))[:8]
-    rec = dict(phase="profile", n_chains=512, sweeps=5, wall_s=wall,
-               device_busy_s=dev_us / 1e6 if dev_us else None,
-               idle_share=(1 - dev_us / 1e6 / wall) if dev_us else None,
-               device_kernels=sum(e.count for e in kern),
-               top=[(e.key[:80], e.count,
-                     float(getattr(e, "self_device_time_total", 0) or 0))
-                    for e in top], card=card)
+    return dict(wall_s=wall,
+                device_busy_s=dev_us / 1e6 if dev_us else None,
+                idle_share=(1 - dev_us / 1e6 / wall) if dev_us else None,
+                device_kernels=sum(e.count for e in kern),
+                top=[(e.key[:80], e.count,
+                      float(getattr(e, "self_device_time_total", 0) or 0))
+                     for e in top])
+
+
+def phase_profile(card: str) -> dict:
+    """Device busy share of a short steady search window."""
+    from repro_torch.core import workload
+    from repro_torch.pathfinding import ParallelTempering, Pathfinder
+
+    pf = Pathfinder(workload(1), "T1", torch_device=DEV)
+    pf.norm
+    strat = ParallelTempering(n_chains=512, sweeps=5, frontier_size=0)
+    rec = dict(phase="profile", n_chains=512, sweeps=5,
+               **_profiled(lambda: pf.search(strat, key=1)), card=card)
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# sa_golden / pareto / strategies phases: the rest of the search strategies
+# ---------------------------------------------------------------------------
+
+
+def phase_sa_golden(card: str) -> dict:
+    """``tests/goldens/sa_wl6_t1.json`` through the port, driven as
+    ``tests/test_goldens.py`` drives the reference. Simulated annealing
+    is host code by design (``random.Random`` and scalar ``evaluate``
+    through the SimCache): the card runs nothing here."""
+    from repro_torch.core import TEMPLATES, SAConfig, workload
+    from repro_torch.pathfinding import Pathfinder, SimulatedAnnealing
+
+    with open(os.path.join(REPO, "tests", "goldens", "sa_wl6_t1.json")) as f:
+        golden = json.load(f)
+    pf = Pathfinder(workload(6), TEMPLATES["T1"], torch_device=DEV)
+    t = time.perf_counter()
+    pf.fit_normalizer(samples=200, seed=1, method="scalar")
+    fit_s = time.perf_counter() - t
+    cfg = SAConfig(t_initial=50.0, t_final=0.05, cooling=0.85,
+                   moves_per_temp=15, seed=2)
+    t = time.perf_counter()
+    res = pf.search(SimulatedAnnealing(cfg))
+    wall = time.perf_counter() - t
+    if res.evaluations != golden["evaluations"]:
+        raise AssertionError(f"sa golden evaluations {res.evaluations} != "
+                             f"{golden['evaluations']}")
+    if res.best.describe() != golden["best"]:
+        raise AssertionError(f"sa golden best {res.best.describe()!r}")
+    worst = max(_allclose("sa_golden.history", res.history,
+                          golden["history"], rtol=1e-9),
+                _allclose("sa_golden.best_cost", res.best_cost,
+                          golden["best_cost"], rtol=1e-9))
+    rec = dict(phase="sa_golden", path="host", max_rel_dev=worst,
+               evaluations=res.evaluations, fit_s=fit_s, wall_s=wall,
+               evals_per_s=res.evaluations / wall, card=card)
+    emit(rec)
+    return rec
+
+
+def _same_result(name: str, got, ref, space) -> float:
+    """Two runs of one strategy agree: best design and frontier
+    encodings equal, costs and frontier vectors within TOL."""
+    if not np.array_equal(space.encode(got.best), space.encode(ref.best)):
+        raise AssertionError(f"{name}: best designs differ cuda/cpu")
+    if got.evaluations != ref.evaluations:
+        raise AssertionError(f"{name}: evaluations differ cuda/cpu")
+    if not np.array_equal(got.frontier.encoded, ref.frontier.encoded):
+        raise AssertionError(f"{name}: frontier encodings differ cuda/cpu")
+    return max(_allclose(f"{name}.best_cost", got.best_cost, ref.best_cost),
+               _allclose(f"{name}.history", got.history, ref.history),
+               _allclose(f"{name}.frontier", got.frontier.vectors,
+                         ref.frontier.vectors))
+
+
+def phase_pareto(card: str) -> dict:
+    """The slice's main path: ``Pathfinder(workload(1), "T1")
+    .pareto_front()`` on the card (``ScalarizationSweep()``: 16
+    directions x 4 chains, 100 sweeps), with the ``prefix_select``
+    launches of that run; then the same sweep at 10 sweeps on the card
+    and on the CPU, and a profiled 5-sweep window."""
+    from repro_torch.core import workload
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.pathfinding import Pathfinder, ScalarizationSweep
+
+    pf = Pathfinder(workload(1), "T1", torch_device=DEV)
+    t = time.perf_counter()
+    norm = pf.norm                       # default fit: 2000 samples
+    fit_s = time.perf_counter() - t
+    strat = ScalarizationSweep()
+    chains = strat.directions * strat.n_chains
+    evals = chains * (strat.sweeps + 1)
+    kops.reset_launch_count()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    front = pf.pareto_front(key=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"prefix_select": kops.launch_count()}
+    if launches["prefix_select"] < 1:
+        raise AssertionError("pareto did not launch prefix_select")
+    vec = front.vectors
+    if len(front) < 1 or not np.all(np.isfinite(vec)):
+        raise AssertionError(f"pareto frontier malformed: {front!r}")
+    hv = front.hypervolume()
+    if not (math.isfinite(hv) and hv > 0):
+        raise AssertionError(f"pareto hypervolume {hv}")
+
+    short = ScalarizationSweep(sweeps=10)
+    res = {}
+    for dev in (DEV, "cpu"):
+        pfd = Pathfinder(pf.wl, pf.template, norm=norm, space=pf.space,
+                         torch_device=dev)
+        t = time.perf_counter()
+        res[dev] = pfd.search(short, key=0)
+        res[dev + "_s"] = time.perf_counter() - t
+    worst = _same_result("pareto", res[DEV], res["cpu"], pf.space)
+    prof = _profiled(lambda: pf.search(ScalarizationSweep(sweeps=5), key=1))
+    rec = dict(phase="pareto", directions=strat.directions,
+               n_chains=strat.n_chains, sweeps=strat.sweeps,
+               evaluations=evals, fit_s=fit_s, wall_s=wall,
+               sweeps_per_s=strat.sweeps / wall, evals_per_s=evals / wall,
+               frontier=len(front), hypervolume=hv, launches=launches,
+               parity_sweeps=short.sweeps, parity_max_rel_dev=worst,
+               parity_frontier=len(res[DEV].frontier),
+               parity_cuda_s=res[DEV + "_s"], parity_cpu_s=res["cpu_s"],
+               profile=dict(sweeps=5, **prof), card=card)
+    emit(rec)
+    return rec
+
+
+def phase_strategies(card: str) -> dict:
+    """``RandomSearch(batch_size=512)`` at budget 2048 and the full
+    default ``GridSweep()`` (4 memories x 12 mappings x 43 package
+    combinations) on the card and on the CPU: best design and frontier
+    encodings equal, costs within TOL; the card's wall time and
+    ``prefix_select`` launches of each run."""
+    from repro_torch.core import workload
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.pathfinding import GridSweep, Pathfinder, RandomSearch
+
+    pf = Pathfinder(workload(1), "T1", torch_device=DEV)
+    norm = pf.norm
+    pfc = Pathfinder(pf.wl, pf.template, norm=norm, space=pf.space,
+                     torch_device="cpu")
+    rec = dict(phase="strategies", card=card)
+    total = 0
+    for name, strat, budget, want in (
+            ("random", RandomSearch(batch_size=512), 2048, 2048),
+            ("grid", GridSweep(), None, 4 * 12 * 43)):
+        pf.search(strat, budget=budget, key=0)            # warm
+        kops.reset_launch_count()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = pf.search(strat, budget=budget, key=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kops.launch_count()
+        if launches < 1:
+            raise AssertionError(f"{name} did not launch prefix_select")
+        if got.evaluations != want:
+            raise AssertionError(f"{name}: {got.evaluations} evaluations")
+        t = time.perf_counter()
+        ref = pfc.search(strat, budget=budget, key=0)
+        cpu_s = time.perf_counter() - t
+        rec[name] = dict(evaluations=got.evaluations, wall_s=wall,
+                         evals_per_s=got.evaluations / wall, cpu_s=cpu_s,
+                         best_cost=got.best_cost, frontier=len(got.frontier),
+                         max_rel_dev=_same_result(name, got, ref, pf.space),
+                         launches={"prefix_select": launches})
+        total += launches
+    rec["launches"] = {"prefix_select": total}
     emit(rec)
     return rec
 
@@ -1376,6 +1558,9 @@ def main() -> int:
     phase_golden(card)
     search = phase_search(card)
     phase_profile(card)
+    phase_sa_golden(card)
+    pareto = phase_pareto(card)
+    strategies = phase_strategies(card)
     wmain = phase_wkv6(card)
     phase_lm_parity(card)
     serve = phase_serve(card)
@@ -1395,7 +1580,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/prefix_gather/csrc/"
                   "prefix_select.cu",
         "replaces": "src/repro/kernels/prefix_gather/kernel.py:79",
-        "launches": search["launches"]["prefix_select"],
+        "launches": sum(p["launches"]["prefix_select"]
+                        for p in (search, pareto, strategies)),
         "max_abs_err": kmain["max_abs_err"], "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"], "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"], "library_ms": None}, {

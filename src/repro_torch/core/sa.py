@@ -5,9 +5,9 @@ Components: (1) the solution space = valid :class:`HISystem` vectors,
 (chip-architecture / chiplet / package) perturbations with validity repair,
 (3) the Eq. 17 cost on min/median-normalized metrics.
 
-The annealing loop (the reference's ``SimulatedAnnealing`` strategy and
-its ``anneal`` shim) is not part of this package yet; the tempering
-search seeds its chains from :func:`random_system` here.
+The annealing loop lives in
+:class:`repro_torch.pathfinding.SimulatedAnnealing`; ``anneal`` below is
+a thin deprecation shim over it with the seed call signature.
 ``fit_normalizer`` remains the scalar reference loop — prefer
 :func:`repro_torch.pathfinding.fit_normalizer_batched` for large
 populations.
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import random
+import warnings
 from typing import Callable, List, Optional, Tuple
 
 from repro_torch.core import comm as comm_mod
@@ -36,7 +37,7 @@ from repro_torch.core.techdb import (
     PKG_PROTOCOLS_3D,
     TechDB,
 )
-from repro_torch.core.templates import Normalizer
+from repro_torch.core.templates import Normalizer, Template
 from repro_torch.core.workload import GEMMWorkload, Mapping
 
 
@@ -382,3 +383,51 @@ def fit_normalizer(
         s = random_system(rng, db, max_chiplets)
         pop.append(evaluate_fn(s, wl, db, cache=cache))
     return Normalizer.fit(pop)
+
+
+def anneal(
+    wl: GEMMWorkload,
+    template: Template,
+    db: TechDB = DEFAULT_DB,
+    config: Optional[SAConfig] = None,
+    norm: Optional[Normalizer] = None,
+    cache: Optional[SimCache] = None,
+    evaluate_fn: Callable[..., Metrics] = evaluate,
+    initial: Optional[HISystem] = None,
+    torch_device=None,
+) -> SAResult:
+    """Deprecation shim over the Pathfinder API.
+
+    The annealing engine lives in
+    :class:`repro_torch.pathfinding.SimulatedAnnealing`; this wrapper
+    keeps the seed call signature and, for a given normalizer, produces
+    the same trajectory (same RNG stream, same moves, same evaluations).
+    With ``norm=None`` the normalizer is fitted by :func:`fit_normalizer`
+    on ``min(config.norm_samples, 2000)`` systems. ``torch_device`` is
+    the :class:`~repro_torch.pathfinding.Pathfinder`'s (``None`` = cuda);
+    the annealing itself is scalar host code. Migrate to::
+
+        Pathfinder(wl, template, db=db, norm=norm).search(
+            strategy=SimulatedAnnealing(config))
+    """
+    warnings.warn(
+        "repro_torch.core.sa.anneal is deprecated; use repro_torch."
+        "pathfinding.Pathfinder with the SimulatedAnnealing strategy",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.pathfinding import Pathfinder, SimulatedAnnealing
+
+    cfg = config or SAConfig()
+    cache = cache if cache is not None else SimCache()
+    if norm is None:
+        norm = fit_normalizer(wl, db, min(cfg.norm_samples, 2000),
+                              cfg.seed + 1, cache, evaluate_fn,
+                              cfg.max_chiplets)
+    pf = Pathfinder(wl, template, db=db, objective=evaluate_fn, norm=norm,
+                    cache=cache, max_chiplets=cfg.max_chiplets,
+                    torch_device=torch_device)
+    # SAResult has no frontier field, so collecting one here would be
+    # pure per-move overhead
+    res = pf.search(strategy=SimulatedAnnealing(cfg, initial=initial,
+                                                frontier_size=0))
+    return SAResult(res.best, res.best_metrics, res.best_cost, res.history,
+                    res.evaluations, cache)

@@ -993,14 +993,18 @@ def _propose(key, v, tb, cfg: _Cfg):
     return torch.where(ok[:, None], cand, v)
 
 
-def _exchange(v, costs, inv_t, us):
+def _exchange(v, costs, inv_t, us, pair_ok=None):
     """Sequential adjacent-pair replica exchange, in place on the device
     tensors ``v``/``costs``. ``d >= 0`` short-circuits in the host
-    reference, so only exp of non-positive ``d`` is compared."""
+    reference, so only exp of non-positive ``d`` is compared;
+    ``pair_ok[j]`` gates the pair (j, j+1) (independent ladders). With
+    no mask every pair may swap, and the loop adds no gating op."""
     for j in range(costs.shape[0] - 1):
         c_i, c_j = costs[j].clone(), costs[j + 1].clone()
         d = (inv_t[j] - inv_t[j + 1]) * (c_i - c_j)
         sw = (d >= 0) | (us[j] < torch.exp(torch.clamp(d, max=0.0)))
+        if pair_ok is not None:
+            sw = sw & pair_ok[j]
         costs[j] = torch.where(sw, c_j, c_i)
         costs[j + 1] = torch.where(sw, c_i, c_j)
         v_i, v_j = v[j].clone(), v[j + 1].clone()
@@ -1122,10 +1126,28 @@ class DevicePTResult:
     evaluations: int
     final_enc: np.ndarray         # [n_chains, width] final population
     final_costs: np.ndarray
+    # per-sweep host-replay state (``record_trace=True``): proposals,
+    # proposal_costs, u_accept, u_swap, accepted, costs (after the
+    # exchange), best_per_sweep, plus the seed population's initial_costs
+    trace: Optional[Dict[str, np.ndarray]] = None
     # every evaluated design + its OBJECTIVE_AXES vector (seed population
     # first): enc [1 + sweeps, n, width], vec [1 + sweeps, n, 3] — the
     # Pareto archive's input when no archive is passed
     samples: Optional[Dict[str, np.ndarray]] = None
+
+
+# trailing shapes of the trace fields, for the empty (zero-sweep) trace
+_TRACE_TAILS = (
+    lambda n, w: (n, w),             # proposals
+    lambda n, w: (n,),               # proposal_costs
+    lambda n, w: (n,),               # u_accept
+    lambda n, w: (max(n - 1, 1),),   # u_swap
+    lambda n, w: (n,),               # accepted
+    lambda n, w: (n,),               # costs
+    lambda n, w: (),                 # best_per_sweep
+)
+_TRACE_FIELDS = ("proposals", "proposal_costs", "u_accept", "u_swap",
+                 "accepted", "costs", "best_per_sweep")
 
 
 def _db_region_cols(db: TechDB) -> Tuple[np.float64, np.float64,
@@ -1222,6 +1244,9 @@ class DeviceEvaluator:
     def parallel_tempering(self, v0: np.ndarray, temps, sweeps: int,
                            swap_every: int, seed: int, norm: Normalizer,
                            template: Template,
+                           record_trace: bool = False,
+                           weights: Optional[np.ndarray] = None,
+                           pair_mask: Optional[np.ndarray] = None,
                            collect_samples: bool = True,
                            segment: Optional[int] = None,
                            checkpoint=None,
@@ -1230,6 +1255,16 @@ class DeviceEvaluator:
 
         ``v0`` is the encoded seed population (one row per chain, coldest
         chain last); ``temps`` the matching temperature ladder.
+
+        ``weights`` (``[n, 6]``) gives every chain its own Eq. 17
+        scalarization row (default: ``template.weights`` for all) and
+        ``pair_mask`` (``[max(n-1, 1)]`` bool) disables replica exchange
+        across selected adjacent pairs — together they run K independent
+        scalarization ladders in one loop (the
+        :class:`~repro_torch.pathfinding.pareto.ScalarizationSweep`
+        engine). ``record_trace`` returns the per-sweep host-replay state
+        in ``.trace``.
+
         ``collect_samples`` keeps every evaluated design + objective
         vector; with ``archive`` (a :class:`~repro_torch.pathfinding.
         pareto.ParetoArchive`) they feed it at each segment boundary,
@@ -1237,20 +1272,36 @@ class DeviceEvaluator:
         sweeps into chunks of that many (default: one chunk) without
         changing the trajectory. ``checkpoint`` is not supported yet:
         checkpoint/resume is a later slice of the port."""
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint/resume of the torch tempering engine is not "
-                "ported yet (it comes with the resume slice)")
         v0 = np.atleast_2d(np.asarray(v0, dtype=np.int32))
         n, width = v0.shape
         sweeps = int(sweeps)
         if segment is not None and int(segment) < 1:
             raise ValueError(f"segment must be >= 1, got {segment}")
         seg_size = max(1, sweeps) if segment is None else int(segment)
+        if checkpoint is not None and record_trace:
+            raise ValueError(
+                "record_trace records host-replay state for the full "
+                "run and cannot be checkpointed/resumed")
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpoint/resume of the torch tempering engine is not "
+                "ported yet (it comes with the resume slice)")
         tb, cfg, dev = self.tables, self.cfg, self.device
         mins, medians = norm.weights_arrays()
         mins_t, med_t = self._t(mins), self._t(medians)
-        w = self._t(np.asarray(template.weights, np.float64))
+        w = np.asarray(template.weights if weights is None else weights,
+                       np.float64)
+        if weights is not None and w.shape != (n, 6):
+            raise ValueError(f"weights must be [{n}, 6], got {w.shape}")
+        w = self._t(w)
+        pair_t = None
+        if pair_mask is not None:
+            pair_ok = np.asarray(pair_mask, dtype=bool)
+            if pair_ok.shape != (max(n - 1, 1),):
+                raise ValueError(
+                    f"pair_mask must be [{max(n - 1, 1)}], "
+                    f"got {pair_ok.shape}")
+            pair_t = self._t(pair_ok, dtype=torch.bool)
         temps_t = self._t(np.asarray(temps, np.float64))
         inv_t = 1.0 / temps_t
         region = self._region()
@@ -1258,12 +1309,14 @@ class DeviceEvaluator:
 
         v = self._enc(v0)
         _, costs, vec0 = _eval_cost(v, mins_t, med_t, w, *region, tb, cfg)
+        cost0 = costs
         bi = _argmin_first(costs)
         best_v, best_c = v[bi].clone(), costs[bi].clone()
         hist_parts = [costs.min()[None]]
         seed_block = (v.clone(), vec0) if collect_samples else None
         enc_parts: List[torch.Tensor] = []
         vec_parts: List[torch.Tensor] = []
+        trace_parts: List[tuple] = []
 
         def absorb(enc_s, vec_s):
             nonlocal seed_block
@@ -1300,11 +1353,14 @@ class DeviceEvaluator:
                 best_v = torch.where(better, prop[i], best_v)
                 us = trandom.uniform(ksw, (max(n - 1, 1),))
                 if sweep % swap_every == 0:
-                    _exchange(v, costs, inv_t, us)
+                    _exchange(v, costs, inv_t, us, pair_t)
                 hist_parts.append(costs[-1:].clone())
                 if collect_samples:
                     seg_enc.append(prop)
                     seg_vec.append(pvec)
+                if record_trace:
+                    trace_parts.append((prop, pcost, u, us, accept,
+                                        costs.clone(), best_c))
             if collect_samples:
                 absorb(torch.stack(seg_enc), torch.stack(seg_vec))
             done += seg
@@ -1321,13 +1377,24 @@ class DeviceEvaluator:
             samples = dict(
                 enc=torch.cat(blocks_e).to(torch.int32).cpu().numpy(),
                 vec=torch.cat(blocks_v).cpu().numpy())
+        trace = None
+        if record_trace:
+            if trace_parts:
+                cols = [torch.stack(c) for c in zip(*trace_parts)]
+                cols[0] = cols[0].to(torch.int32)
+                cat = [c.cpu().numpy() for c in cols]
+            else:
+                cat = [np.zeros((0,) + tail(n, width))
+                       for tail in _TRACE_TAILS]
+            trace = dict(zip(_TRACE_FIELDS, cat))
+            trace["initial_costs"] = cost0.cpu().numpy()
         return DevicePTResult(
             best_enc=best_v.to(torch.int32).cpu().numpy(),
             best_cost=float(best_c),
             history=torch.cat(hist_parts).cpu().tolist(),
             evaluations=n + n * sweeps,
             final_enc=v.to(torch.int32).cpu().numpy(),
-            final_costs=costs.cpu().numpy(),
+            final_costs=costs.cpu().numpy(), trace=trace,
             samples=samples)
 
 

@@ -15,19 +15,27 @@ The counterpart of the archive half of :mod:`repro.pathfinding.pareto`:
 * :func:`hypervolume` — exact 2-D/3-D dominated hypervolume w.r.t. a
   reference point.
 * :class:`FrontierFeed` — buffered inserts for the host strategies.
+* :class:`ScalarizationSweep` — K scalarization directions (from
+  :func:`simplex_directions`) x N parallel-tempering chains in one run
+  of the torch tempering engine: per-chain Eq. 17 weight rows and a
+  replica-exchange pair mask keep each direction's ladder independent.
+  Every evaluation feeds the archive, so one call maps the frontier.
 
-The scalarization and scenario sweeps of the reference module are later
-slices of the port.
+The scenario sweep of the reference module is a later slice of the
+port.
 """
 from __future__ import annotations
 
+import dataclasses
+import random
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.core.sa import OBJECTIVE_AXES
+from repro_torch.core.sa import OBJECTIVE_AXES, random_system
+from repro_torch.core.templates import Template
 from repro_torch.pathfinding.space import DesignSpace
 
 N_AXES = len(OBJECTIVE_AXES)
@@ -136,6 +144,42 @@ def _hv2(p: np.ndarray, r: np.ndarray) -> float:
             hv += (r[0] - x) * (y_best - y)
             y_best = y
     return float(hv)
+
+
+def simplex_directions(k: int, d: int = N_AXES) -> np.ndarray:
+    """``k`` deterministic weight directions on the ``d``-simplex.
+
+    Simplex-lattice design: the smallest resolution ``H`` whose lattice
+    has >= ``k`` points, thinned to exactly ``k`` by even index spacing
+    (lexicographic order), so every call with the same ``k`` returns the
+    same spread — corners (single-objective directions) always included."""
+    if k < 1:
+        raise ValueError(f"need k >= 1 directions, got {k}")
+    h = 1
+    while _lattice_size(h, d) < k:
+        h += 1
+    grid = np.array([c for c in _lattice(h, d)], dtype=np.float64) / h
+    idx = np.unique(np.round(np.linspace(0, len(grid) - 1, k)).astype(int))
+    # rounding collisions can drop below k: backfill with unused indices
+    if len(idx) < k:
+        unused = np.setdiff1d(np.arange(len(grid)), idx)
+        idx = np.sort(np.concatenate([idx, unused[:k - len(idx)]]))
+    return grid[idx]
+
+
+def _lattice_size(h: int, d: int) -> int:
+    from math import comb
+
+    return comb(h + d - 1, d - 1)
+
+
+def _lattice(h: int, d: int):
+    if d == 1:
+        yield (h,)
+        return
+    for i in range(h + 1):
+        for rest in _lattice(h - i, d - 1):
+            yield (i,) + rest
 
 
 # ---------------------------------------------------------------------------
@@ -342,3 +386,175 @@ class FrontierFeed:
         return self.archive
 
 
+
+
+# ---------------------------------------------------------------------------
+# ScalarizationSweep: K directions x N chains in one tempering run
+# ---------------------------------------------------------------------------
+
+
+def directions_to_weights(w3: np.ndarray) -> np.ndarray:
+    """Map ``[K, 3]`` (latency, cost, CFP) simplex directions to ``[K, 6]``
+    Eq. 17 weight rows (METRIC_FIELDS order): latency -> gamma, dollar ->
+    theta, and the CFP weight applied in full to both zeta (embodied) and
+    eta (operational) — total CFP is their sum; energy/area weights stay
+    0 so the scalarization moves only along the frontier axes."""
+    w3 = np.atleast_2d(np.asarray(w3, dtype=np.float64))
+    w6 = np.zeros((w3.shape[0], 6))
+    w6[:, 2] = w3[:, 0]            # gamma: latency_s
+    w6[:, 3] = w3[:, 1]            # theta: dollar
+    w6[:, 4] = w3[:, 2]            # zeta: emb_cfp_kg
+    w6[:, 5] = w3[:, 2]            # eta:  ope_cfp_kg
+    return w6
+
+
+@dataclasses.dataclass
+class ScalarizationSweep:
+    """K scalarization directions x N tempering chains, one engine run.
+
+    Each direction is an Eq. 17 weight row (from
+    :func:`simplex_directions` over the latency/cost/CFP axes, or
+    ``weights`` for custom rows); each runs its own ``n_chains``-wide
+    geometric temperature ladder. On a device-capable objective all
+    ``K * N`` chains advance together in the torch tempering engine on
+    the objective's ``torch_device`` — per-chain weight rows ride through
+    the fused evaluate+cost, and the replica-exchange pair mask blocks
+    swaps across direction boundaries. Every proposal (plus the seed
+    population) feeds the returned ``SearchResult.frontier`` archive.
+
+    ``budget`` caps total evaluations: sweeps are truncated to whole
+    multiples of ``K * N``. The host fallback runs one
+    :class:`~repro_torch.pathfinding.strategies.ParallelTempering` per
+    direction and merges the frontiers.
+
+    ``frontier_size=0`` is rejected: the frontier archive is this
+    strategy's output (``best`` is re-derived from it).
+    ``checkpoint_dir`` needs the device engine and is not supported yet
+    (checkpoint/resume is a later slice of the port)."""
+
+    directions: int = 16
+    n_chains: int = 4
+    sweeps: int = 100
+    swap_every: int = 5
+    # Eq. 17 costs are O(1) after min/median normalization, so the sweep
+    # ladder defaults to an exploitative range (at a fixed hot ladder
+    # every chain is a random walk and the directions never bite)
+    t_max: float = 5.0
+    t_min: float = 0.005
+    frontier_size: int = 256
+    weights: Optional[np.ndarray] = None   # [K, 6] override
+    segment: Optional[int] = None
+    checkpoint_dir: Optional[str] = None
+
+    def weight_rows(self) -> np.ndarray:
+        if self.weights is not None:
+            w = np.atleast_2d(np.asarray(self.weights, dtype=np.float64))
+            if w.shape[1] != 6:
+                raise ValueError(f"weights must be [K, 6], got {w.shape}")
+            return w
+        return directions_to_weights(simplex_directions(self.directions))
+
+    def ladder(self) -> np.ndarray:
+        """Geometric ``n_chains`` temperature ladder t_max -> t_min."""
+        n = self.n_chains
+        ratio = (self.t_min / self.t_max) ** (1.0 / max(1, n - 1))
+        return np.array([self.t_max * ratio ** i for i in range(n)])
+
+    def chain_temps(self, k: int) -> np.ndarray:
+        """``[k * n_chains]`` temperatures: the ladder repeated per
+        direction."""
+        return np.tile(self.ladder(), k)
+
+    def chain_weights(self, w6: np.ndarray) -> np.ndarray:
+        """``[K * n_chains, 6]`` per-chain Eq. 17 rows from ``[K, 6]``
+        direction rows."""
+        return np.repeat(w6, self.n_chains, axis=0)
+
+    def chain_pair_mask(self, total: int) -> np.ndarray:
+        """Replica-exchange gate: pair (j, j+1) may swap only when both
+        chains share a direction ladder."""
+        if total <= 1:
+            return np.ones(1, dtype=bool)
+        return (np.arange(total - 1) + 1) % self.n_chains != 0
+
+    def search(self, space: DesignSpace, objective, budget=None, key=None):
+        from repro_torch.pathfinding.strategies import (
+            ParallelTempering,
+            _check_budget,
+            _check_checkpointable,
+            _resolve_key,
+            budget_sweeps,
+        )
+
+        _check_budget(budget)
+        _check_checkpointable(self.checkpoint_dir, objective)
+        key = _resolve_key(key)
+        if self.frontier_size < 1:
+            raise ValueError(
+                "ScalarizationSweep requires frontier_size >= 1: the "
+                "frontier archive is the strategy's output (best is "
+                f"re-derived from it), got {self.frontier_size}")
+        w6 = self.weight_rows()
+        k, n = w6.shape[0], self.n_chains
+        total = k * n
+        sweeps = budget_sweeps(
+            self.sweeps, total, budget,
+            detail=f" ({k} directions x {n} chains)")
+
+        if objective.device:
+            return self._search_device(space, objective, w6, sweeps, key)
+
+        # host fallback: one PT run per direction, frontiers merged
+        archive = ParetoArchive(max_size=self.frontier_size)
+        evals = 0
+        history: List[float] = []
+        for i in range(k):
+            obj_i = dataclasses.replace(
+                objective, template=Template(f"dir{i}", *w6[i]))
+            pt = ParallelTempering(
+                n_chains=n, t_max=self.t_max, t_min=self.t_min,
+                sweeps=sweeps, swap_every=self.swap_every,
+                frontier_size=self.frontier_size)
+            res = pt.search(space, obj_i, None, key=key * 7919 + i)
+            evals += res.evaluations
+            history.append(res.best_cost)
+            if res.frontier is not None:
+                archive.merge(res.frontier)
+        return self._finalize(space, objective, archive, history, evals)
+
+    def _search_device(self, space: DesignSpace, objective, w6,
+                       sweeps: int, key):
+        """All ``K * N`` chains in one engine run. The chains are seeded
+        with ``random_system`` alone (no NoC/schedule seeding), as the
+        reference's device path seeds them."""
+        from repro_torch.pathfinding.strategies import _checkpointer
+
+        k = w6.shape[0]
+        total = k * self.n_chains
+        rng = random.Random(key)
+        chains = [random_system(rng, objective.db, space.max_chiplets)
+                  for _ in range(total)]
+        archive = ParetoArchive(max_size=self.frontier_size)
+        res = objective._device_evaluator(space).parallel_tempering(
+            space.encode_many(chains), self.chain_temps(k), sweeps,
+            self.swap_every, seed=key, norm=objective.norm,
+            template=objective.template, weights=self.chain_weights(w6),
+            pair_mask=self.chain_pair_mask(total),
+            segment=self.segment, archive=archive,
+            checkpoint=_checkpointer(self.checkpoint_dir))
+        return self._finalize(space, objective, archive,
+                              res.history, res.evaluations)
+
+    def _finalize(self, space, objective, archive, history, evals):
+        """Best-by-template from the archive (one batched re-evaluation of
+        <= max_size frontier rows, not counted against the budget)."""
+        from repro_torch.pathfinding.strategies import SearchResult
+
+        if len(archive) == 0:
+            raise RuntimeError("scalarization sweep produced no samples")
+        mb, cost = objective.eval_cost_encoded(archive.encoded, space)
+        i = int(np.argmin(cost))
+        best = space.decode(archive.encoded[i])
+        return SearchResult(best, mb.row(i), float(cost[i]),
+                            list(history), evals, objective.cache,
+                            frontier=archive)

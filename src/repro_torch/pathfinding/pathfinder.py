@@ -1,39 +1,57 @@
 """The Pathfinder facade — the public entry point for exploration.
 
-Bundles workload + template + TechDB + normalizer + evaluation device
-and drives a :class:`SearchStrategy`::
+Bundles workload + template + TechDB + objective backend + normalizer +
+evaluation device and drives a :class:`SearchStrategy`::
 
     from repro_torch.core import workload
     from repro_torch.pathfinding import ParallelTempering, Pathfinder
 
     pf = Pathfinder(workload(1), "T1")              # runs on cuda
     result = pf.search(ParallelTempering(n_chains=512, sweeps=100), key=0)
+    front = pf.pareto_front()                       # ScalarizationSweep
 
 ``torch_device`` names the torch device of the batched and fused
-evaluation; ``None`` means ``cuda`` and raises without a GPU. The
-objective backend ``"carbonpath"`` (the full Eqs. 2-17 models) is
-ported; ``"chipletgym"`` is a later slice.
+evaluation; ``None`` means ``cuda`` and raises without a GPU. Objective
+backends by name: ``"carbonpath"`` (the full Eqs. 2-17 models, batched
+and fused evaluation) and ``"chipletgym"`` (the Sec VI-B baseline
+assumptions, scalar host evaluation). A callable with the
+``evaluate(sys, wl, db, cache=...)`` signature is also accepted.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
+import numpy as np
+
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.core.evaluate import evaluate
+from repro_torch.core.chipletgym import evaluate_chipletgym
+from repro_torch.core.evaluate import Metrics, evaluate
 from repro_torch.core.scalesim import SimCache
+from repro_torch.core.system import HISystem
 from repro_torch.core.techdb import DEFAULT_DB, TechDB
-from repro_torch.core.templates import TEMPLATES, Normalizer, Template
+from repro_torch.core.templates import (
+    IDENTITY_NORMALIZER,
+    TEMPLATES,
+    Normalizer,
+    Template,
+)
 from repro_torch.core.workload import GEMMWorkload
-from repro_torch.pathfinding.batch import fit_normalizer_batched
+from repro_torch.pathfinding.batch import (
+    MetricsBatch,
+    evaluate_batch,
+    fit_normalizer_batched,
+)
 from repro_torch.pathfinding.space import DesignSpace
 from repro_torch.pathfinding.strategies import (
     Objective,
     SearchResult,
     SearchStrategy,
+    SimulatedAnnealing,
 )
 
 OBJECTIVES = {
     "carbonpath": evaluate,
+    "chipletgym": evaluate_chipletgym,
 }
 
 
@@ -52,13 +70,10 @@ class Pathfinder:
                  torch_device: DeviceLike = None):
         """``device=True`` (default) routes batched strategies through the
         fused evaluator + tempering engine of
-        :mod:`repro_torch.pathfinding.device`; ``device=False`` keeps the
-        host path. Either way, batched and fused evaluation run on
-        ``torch_device`` (``None`` = cuda)."""
-        if objective == "chipletgym":
-            raise NotImplementedError(
-                "the chipletgym objective is not ported to repro_torch yet "
-                "(it comes with the ChipletGym slice)")
+        :mod:`repro_torch.pathfinding.device`. It only takes effect for
+        the CarbonPATH backend — scalar-only backends (``chipletgym``)
+        always use the host fallback, as does ``device=False``. Batched
+        and fused evaluation run on ``torch_device`` (``None`` = cuda)."""
         self.wl = wl
         self.template = (TEMPLATES[template] if isinstance(template, str)
                          else template)
@@ -107,16 +122,54 @@ class Pathfinder:
             self.fit_normalizer()
         return self._norm
 
-    # -- search -------------------------------------------------------------
+    # -- evaluation ---------------------------------------------------------
+
+    def evaluate(self, sys: HISystem) -> Metrics:
+        """Scalar single-system evaluation under this objective backend."""
+        return self.evaluate_fn(sys, self.wl, self.db, cache=self.cache)
+
+    def evaluate_batch(self, encoded: np.ndarray) -> MetricsBatch:
+        """Batched evaluation of an encoded population. Does not need (or
+        trigger fitting of) a normalizer — metrics are raw."""
+        if self.batched:
+            return evaluate_batch(encoded, self.wl, self.db,
+                                  space=self.space,
+                                  torch_device=self.torch_device)
+        obj = Objective(self.wl, self.template,
+                        self._norm or IDENTITY_NORMALIZER, self.db,
+                        self.evaluate_fn, self.cache, self.batched,
+                        self.device, self.torch_device)
+        return obj.evaluate_encoded(encoded, self.space)
 
     def objective(self) -> Objective:
         return Objective(self.wl, self.template, self.norm, self.db,
                          self.evaluate_fn, self.cache, self.batched,
                          self.device, self.torch_device)
 
-    def search(self, strategy: SearchStrategy,
+    def evaluate_cost_vector(self, encoded: np.ndarray):
+        """Metrics + Eq. 17 cost + ``(latency, dollar, total_cfp)``
+        objective vectors for an encoded population (fused on the device
+        path)."""
+        return self.objective().eval_cost_vector_encoded(encoded,
+                                                         self.space)
+
+    # -- search -------------------------------------------------------------
+
+    def search(self, strategy: Optional[SearchStrategy] = None,
                budget: Optional[int] = None,
                key: Optional[int] = None) -> SearchResult:
-        """Run ``strategy`` (the reference's default, simulated
-        annealing, is a later slice, so the strategy is required)."""
+        """Run ``strategy`` (default: :class:`SimulatedAnnealing`)."""
+        strategy = strategy or SimulatedAnnealing()
         return strategy.search(self.space, self.objective(), budget, key)
+
+    def pareto_front(self, strategy: Optional[SearchStrategy] = None,
+                     budget: Optional[int] = None,
+                     key: Optional[int] = None):
+        """Run a search and return its Pareto archive (see
+        :mod:`repro_torch.pathfinding.pareto`). Defaults to a
+        :class:`~repro_torch.pathfinding.pareto.ScalarizationSweep`."""
+        if strategy is None:
+            from repro_torch.pathfinding.pareto import ScalarizationSweep
+
+            strategy = ScalarizationSweep()
+        return self.search(strategy, budget, key).frontier

@@ -9,11 +9,23 @@ where ``space`` is a :class:`~repro_torch.pathfinding.space.DesignSpace`,
 evaluation device, ``budget`` caps the number of evaluations (None =
 strategy default schedule) and ``key`` seeds the strategy's RNG.
 
-This slice of the port carries :class:`ParallelTempering` — N concurrent
-chains on a geometric temperature ladder with replica exchange — on the
-torch device engine (:mod:`repro_torch.pathfinding.device`) and on the
-host path through the batched evaluator. Simulated annealing, random
-search and the grid sweep of the reference module are later slices.
+Strategies:
+
+* :class:`SimulatedAnnealing` — the paper's hierarchical-move annealer
+  (Sec V): scalar host code, ``random.Random`` and per-move evaluation
+  through the shared SimCache, trajectory-equal to the reference's for
+  equal seeds/config.
+* :class:`ParallelTempering` — N concurrent chains on a geometric
+  temperature ladder with replica exchange, on the torch device engine
+  (:mod:`repro_torch.pathfinding.device`) or on the host path through
+  the batched evaluator.
+* :class:`RandomSearch` — batched uniform sampling of valid systems.
+* :class:`GridSweep` — deterministic sweep of package x protocol x
+  memory x mapping for a fixed chiplet multiset (the Sec V-A 43-combo
+  enumeration).
+
+On a device-capable objective the batched strategies evaluate through
+the fused evaluator on ``Objective.torch_device``.
 """
 from __future__ import annotations
 
@@ -25,12 +37,24 @@ from typing import List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 
 from repro_torch import DeviceLike
+from repro_torch.core.chiplet import Chiplet, different_chiplet_system
 from repro_torch.core.evaluate import Metrics, evaluate
+from repro_torch.core.sa import SAConfig
 from repro_torch.core.scalesim import SimCache
 from repro_torch.core.system import HISystem
-from repro_torch.core.techdb import DEFAULT_DB, TechDB
-from repro_torch.core.templates import METRIC_FIELDS, Normalizer, Template
-from repro_torch.core.workload import GEMMWorkload
+from repro_torch.core.techdb import (
+    DEFAULT_DB,
+    TechDB,
+    valid_pairs_25d,
+    valid_pairs_3d,
+)
+from repro_torch.core.templates import (
+    METRIC_FIELDS,
+    Normalizer,
+    Template,
+    sa_cost,
+)
+from repro_torch.core.workload import ALL_MAPPINGS, GEMMWorkload
 from repro_torch.pathfinding.batch import MetricsBatch, evaluate_batch
 from repro_torch.pathfinding.space import DesignSpace
 
@@ -95,6 +119,17 @@ class Objective:
     def evaluate(self, sys: HISystem) -> Metrics:
         return self.evaluate_fn(sys, self.wl, self.db, cache=self.cache)
 
+    def cost(self, m: Metrics) -> float:
+        return sa_cost(m, self.template, self.norm)
+
+    # -- multi-objective vector (OBJECTIVE_AXES order) ----------------------
+
+    def cost_vector(self, m: Metrics) -> np.ndarray:
+        """Scalar-path ``(latency_s, dollar, total_cfp)`` vector."""
+        from repro_torch.core.sa import cost_vector
+
+        return np.asarray(cost_vector(m), dtype=np.float64)
+
     def cost_vector_batch(self, mb: MetricsBatch) -> np.ndarray:
         """``[P, 3]`` objective vectors for a batch (raw metric units)."""
         return mb.objective_vectors()
@@ -128,6 +163,16 @@ class Objective:
         return MetricsBatch(**{
             f.name: np.array([getattr(m, f.name) for m in ms])
             for f in dataclasses.fields(MetricsBatch)})
+
+    def eval_cost_encoded(self, encoded: np.ndarray, space: DesignSpace
+                          ) -> Tuple[MetricsBatch, np.ndarray]:
+        """Metrics + Eq. 17 cost in one call (one fused evaluation on the
+        device path)."""
+        if self.device:
+            return self._device_evaluator(space).evaluate_cost(
+                encoded, self.norm, self.template)
+        mb = self.evaluate_encoded(encoded, space)
+        return mb, self.cost_batch(mb)
 
     def cost_batch(self, mb: MetricsBatch) -> np.ndarray:
         x = np.stack([mb.fields()[f] for f in METRIC_FIELDS], axis=1)
@@ -163,6 +208,125 @@ def _check_budget(budget: Optional[int]) -> None:
         raise ValueError(f"budget must be >= 1 or None, got {budget}")
 
 
+def budget_sweeps(sweeps: int, population: int,
+                  budget: Optional[int], *, detail: str = "") -> int:
+    """Clamp a sweep count to a *total* evaluation budget.
+
+    One chain population costs ``population`` evaluations to seed and
+    ``population`` more per sweep, so ``budget`` evaluations pay for at
+    most ``(budget - population) // population`` whole sweeps. A budget
+    below one population cannot seed the chains and is rejected
+    (``detail`` extends the message). :class:`ParallelTempering` keeps
+    its own accounting (truncation instead of a reject)."""
+    if budget is None:
+        return sweeps
+    if budget < population:
+        raise ValueError(
+            f"budget {budget} < one chain population {population}{detail}")
+    return min(sweeps, (budget - population) // population)
+
+
+def _checkpointer(checkpoint_dir: Optional[str]):
+    """The search checkpointer for the directory, or ``None`` when
+    checkpointing is off."""
+    if checkpoint_dir is None:
+        return None
+    raise NotImplementedError(
+        "checkpoint_dir: search checkpoint/resume is not ported to "
+        "repro_torch yet (it comes with the resume slice)")
+
+
+def _check_checkpointable(checkpoint_dir: Optional[str],
+                          objective: "Objective") -> None:
+    """Checkpoint/resume lives in the segmented device engines; the host
+    fallbacks have no snapshot-able carry, so asking for both is a
+    configuration error."""
+    if checkpoint_dir is not None and not objective.device:
+        raise ValueError(
+            "checkpoint_dir requires the device engine "
+            "(Pathfinder(device=True) with the carbonpath backend); the "
+            "scalar host fallback cannot checkpoint")
+
+
+# ---------------------------------------------------------------------------
+# Simulated annealing (Sec V)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SimulatedAnnealing:
+    """The paper's SA engine: for a given config/seed it follows the
+    reference's trajectory exactly (same RNG stream, same moves, same
+    scalar evaluations through the shared SimCache). It is host code on
+    every objective.
+
+    Unlike the other strategies, ``key=None`` defers to ``config.seed``
+    rather than :data:`DEFAULT_SEARCH_KEY`."""
+
+    config: Optional[SAConfig] = None
+    initial: Optional[HISystem] = None
+    frontier_size: int = 256
+
+    def search(self, space: DesignSpace, objective: Objective,
+               budget: Optional[int] = None,
+               key: Optional[int] = None) -> SearchResult:
+        from repro_torch.core.sa import (
+            propose,
+            random_system,
+            seed_noc,
+            seed_schedule,
+        )
+        from repro_torch.pathfinding.pareto import FrontierFeed
+
+        _check_budget(budget)
+        cfg = self.config or SAConfig(max_chiplets=space.max_chiplets)
+        db = objective.db
+        rng = random.Random(cfg.seed if key is None else key)
+        feed = FrontierFeed(self.frontier_size)
+        collect = feed.archive is not None
+
+        cur = self.initial or random_system(rng, db, cfg.max_chiplets)
+        if space.noc_live:
+            cur = seed_noc(cur)
+        if space.sched_live:
+            cur = seed_schedule(cur)
+        cur_m = objective.evaluate(cur)
+        cur_c = objective.cost(cur_m)
+        if collect:
+            feed.add(space.encode(cur), objective.cost_vector(cur_m))
+        best, best_m, best_c = cur, cur_m, cur_c
+        history = [cur_c]
+        evals = 1
+
+        t = cfg.t_initial
+        while t > cfg.t_final:
+            for _ in range(cfg.moves_per_temp):
+                if budget is not None and evals >= budget:
+                    break
+                cand = propose(cur, rng, db, cfg.max_chiplets,
+                               noc_moves=space.noc_live,
+                               schedule_moves=space.sched_live)
+                if cand is cur:      # no valid move found: not evaluated
+                    continue
+                m = objective.evaluate(cand)
+                c = objective.cost(m)
+                evals += 1
+                if collect:
+                    feed.add(space.encode(cand), objective.cost_vector(m))
+                delta = c - cur_c
+                if delta <= 0 or rng.random() < math.exp(
+                        -delta / max(t, 1e-12)):
+                    cur, cur_m, cur_c = cand, m, c
+                    if c < best_c:
+                        best, best_m, best_c = cand, m, c
+            history.append(cur_c)
+            t *= cfg.cooling
+            if budget is not None and evals >= budget:
+                break
+        return SearchResult(best, best_m, best_c, history, evals,
+                            objective.cache, frontier=feed.done())
+
+
 # ---------------------------------------------------------------------------
 # Parallel tempering: batched chains + replica exchange
 # ---------------------------------------------------------------------------
@@ -181,8 +345,8 @@ class ParallelTempering:
     (:mod:`repro_torch.pathfinding.device`), advanced in segments of
     ``segment`` sweeps (default: one segment; segmentation never changes
     the trajectory). The host path below is kept as the fallback.
-    ``checkpoint_dir`` is not supported yet: checkpoint/resume is a later
-    slice of the port."""
+    ``checkpoint_dir`` needs the device engine and is not supported yet:
+    checkpoint/resume is a later slice of the port."""
 
     n_chains: int = 8
     t_max: float = 4000.0
@@ -200,10 +364,7 @@ class ParallelTempering:
         from repro_torch.pathfinding.pareto import FrontierFeed
 
         _check_budget(budget)
-        if self.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: search checkpoint/resume is not ported to "
-                "repro_torch yet (it comes with the resume slice)")
+        _check_checkpointable(self.checkpoint_dir, objective)
         key = _resolve_key(key)
         db = objective.db
         rng = random.Random(key)
@@ -287,7 +448,8 @@ class ParallelTempering:
             self.swap_every, seed=key,
             norm=objective.norm, template=objective.template,
             collect_samples=self.frontier_size > 0,
-            segment=self.segment, archive=archive)
+            segment=self.segment, archive=archive,
+            checkpoint=_checkpointer(self.checkpoint_dir))
         best = space.decode(res.best_enc)
         return SearchResult(best, objective.evaluate(best),
                             res.best_cost, res.history, res.evaluations,
@@ -304,3 +466,97 @@ def _replica_exchange(temps: Sequence[float], chains: list, costs: list,
         if d >= 0 or rng.random() < math.exp(d):
             chains[i], chains[i + 1] = chains[i + 1], chains[i]
             costs[i], costs[i + 1] = costs[i + 1], costs[i]
+
+
+# ---------------------------------------------------------------------------
+# Random search + grid sweep (batched baselines)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RandomSearch:
+    """Uniform sampling of valid systems, evaluated in batches."""
+
+    batch_size: int = 512
+    frontier_size: int = 256
+
+    def search(self, space: DesignSpace, objective: Objective,
+               budget: Optional[int] = None,
+               key: Optional[int] = None) -> SearchResult:
+        from repro_torch.pathfinding.pareto import FrontierFeed
+
+        _check_budget(budget)
+        budget = budget if budget is not None else 2048
+        # one Generator across batches: each batch continues the stream
+        rng = np.random.default_rng(_resolve_key(key))
+        feed = FrontierFeed(self.frontier_size)
+        best = best_m = None
+        best_c = math.inf
+        history: List[float] = []
+        evals = 0
+        while evals < budget:
+            k = min(self.batch_size, budget - evals)
+            enc = space.sample(k, key=rng)
+            mb, costs, vec = objective.eval_cost_vector_encoded(enc, space)
+            feed.add(enc, vec)
+            evals += k
+            i = int(np.argmin(costs))
+            if costs[i] < best_c:
+                best, best_m, best_c = (space.decode(enc[i]), mb.row(i),
+                                        float(costs[i]))
+            history.append(best_c)
+        return SearchResult(best, best_m, best_c, history, evals,
+                            objective.cache, frontier=feed.done())
+
+
+@dataclasses.dataclass
+class GridSweep:
+    """Deterministic sweep: every package-protocol combination (the
+    paper's 10 + 3 + 30 = 43, Sec V-A) x memory x mapping for a fixed
+    chiplet multiset, evaluated in one batch. Hybrid combos stack the
+    ``stack`` indices."""
+
+    chiplets: Optional[Tuple[Chiplet, ...]] = None
+    memories: Optional[Sequence[str]] = None
+    mappings: Sequence = ALL_MAPPINGS
+    stack: Tuple[int, ...] = (1, 2)
+    frontier_size: int = 256
+
+    def systems(self, db: TechDB) -> List[HISystem]:
+        chips = tuple(self.chiplets or different_chiplet_system())
+        mems = list(self.memories or db.memories)
+        out = []
+        for mem in mems:
+            for mapping in self.mappings:
+                for pkg, proto in valid_pairs_25d():
+                    out.append(HISystem(chips, "2.5D", mem, mapping,
+                                        pkg_25d=pkg, proto_25d=proto))
+                for pkg, proto in valid_pairs_3d():
+                    out.append(HISystem(chips, "3D", mem, mapping,
+                                        pkg_3d=pkg, proto_3d=proto))
+                for p25, pr25 in valid_pairs_25d():
+                    for p3, pr3 in valid_pairs_3d():
+                        out.append(HISystem(
+                            chips, "2.5D+3D", mem, mapping, pkg_25d=p25,
+                            proto_25d=pr25, pkg_3d=p3, proto_3d=pr3,
+                            stack=self.stack))
+        return out
+
+    def search(self, space: DesignSpace, objective: Objective,
+               budget: Optional[int] = None,
+               key: Optional[int] = None) -> SearchResult:
+        from repro_torch.pathfinding.pareto import FrontierFeed
+
+        _check_budget(budget)
+        systems = self.systems(objective.db)
+        if budget is not None:
+            systems = systems[:budget]
+        enc = space.encode_many(systems)
+        mb, costs, vec = objective.eval_cost_vector_encoded(enc, space)
+        feed = FrontierFeed(self.frontier_size)
+        feed.add(enc, vec)
+        i = int(np.argmin(costs))
+        running = np.minimum.accumulate(costs)
+        return SearchResult(systems[i], mb.row(i), float(costs[i]),
+                            running.tolist(), len(systems), objective.cache,
+                            frontier=feed.done())

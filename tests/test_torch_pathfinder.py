@@ -181,18 +181,13 @@ def test_host_path_matches_reference(ref):
                                atol=0)
 
 
-@pytest.mark.parametrize("what", ["checkpoint", "chipletgym"])
+@pytest.mark.parametrize("what", ["checkpoint"])
 def test_later_slices_raise_not_implemented(what):
-    if what == "checkpoint":
-        pf = Pathfinder(workload(1), norm=normalizer_from_arrays(
-            np.zeros(6), np.ones(6)), torch_device="cpu")
-        with pytest.raises(NotImplementedError, match="resume"):
-            pf.search(ParallelTempering(n_chains=2, sweeps=1,
-                                        checkpoint_dir="x"), key=0)
-    else:
-        with pytest.raises(NotImplementedError, match="ChipletGym"):
-            Pathfinder(workload(1), objective="chipletgym",
-                       torch_device="cpu")
+    pf = Pathfinder(workload(1), norm=normalizer_from_arrays(
+        np.zeros(6), np.ones(6)), torch_device="cpu")
+    with pytest.raises(NotImplementedError, match="resume"):
+        pf.search(ParallelTempering(n_chains=2, sweeps=1,
+                                    checkpoint_dir="x"), key=0)
 
 
 def test_default_device_raises_without_cuda():
