@@ -19,7 +19,7 @@ one JSON line that carries the card's name and power limit:
 2. ``kernel``   — ``prefix_select`` on the card against its plain torch
    version on the card, bitwise (``torch.equal``), on the real int64
    tables of workload 1 (single layout) and workloads 1+6 (stacked
-   layout), at P = 256, 300, 512, 1024 and 4096 sampled systems plus
+   layout), at P = 256, 300, 320, 512, 1024 and 4096 sampled systems plus
    edge rows; kernel and plain times by CUDA events (per call, in a CUDA
    graph and eager), the bound, the launch geometry and the ``ptxas``
    registers and spills.
@@ -51,7 +51,24 @@ one JSON line that carries the card's name and power limit:
    combinations = 2,064 systems) on the card and on the CPU: best and
    frontier encodings equal, costs within 1e-6; each card run's wall
    time and ``prefix_select`` launches.
-10. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
+10. ``scenario`` — the stacked scenario path: ``Pathfinder(workload(1),
+    "T1").run_scenarios(workloads=[workload(1), workload(6)], key=0)``
+    on the card (``ScenarioSweep()``: the five default regions x two
+    workloads = 10 cells of 8 directions x 4 chains, 40 sweeps, one
+    [10 * 32] population a sweep), timed (normalizer fits, the tempering
+    loop and the host's per-cell archive feeds inside it, sweeps/s,
+    evaluations/s), with each cell's frontier size and
+    best cost, the ``prefix_select`` launches of that run (exactly 1 +
+    40 + 1) and peak memory; frontier vectors must be finite and the
+    cells' frontiers must differ. The same strategy on one cell
+    (``world-avg``, workload 1) must launch as many times, and a
+    profiled 5-sweep loop at S = 10 may issue at most 1.02x the device
+    kernels of S = 1. Then a 10-sweep 5 x 2 grid and a 2-region x 2
+    workload grid of ``Region`` specs (price, embodied factor, 24h grid
+    and price profiles) on a mesh-NoC + window space, each on the card
+    and on the CPU: best designs and frontier encodings equal; history,
+    best cost and frontier vectors within 1e-6.
+11. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
     version on the card, within 1e-6 x M, at the serve phase's shapes:
     prefill (G = 160, T = 512, zero start) as (G, T, D) rows and in the
     model's (B, T, H, D) = (4, 512, 40, 64) layout (y equal to the rows'
@@ -60,15 +77,15 @@ one JSON line that carries the card's name and power limit:
     (G = 1, T = 37); max errors of ``y`` and ``S_T``, kernel and plain
     times (in a CUDA graph and eager), the bound, the launch geometry and,
     on the first case, the ``ptxas`` registers and spills.
-11. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
+12. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
     layers) on cuda against the same weights on the CPU: prefill and
     eight teacher-forced greedy steps (the CPU's tokens fed to both).
-12. ``serve``    — the language-model path: ``rwkv6-3b`` at full width in
+13. ``serve``    — the language-model path: ``rwkv6-3b`` at full width in
     float32 through ``repro_torch.launch.serve`` (batch 4, prompt 512,
     32 generated tokens, seeded weights and prompts), timed, with the
     ``wkv6`` launch count of that run (32 + 31 * 32 = 1024) and every
     logit checked finite.
-13. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
+14. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
     version on the card, bitwise (``torch.equal``), at the serve_hybrid
     phase's shapes: prefill (B = 4, T = 3072, C = 4096, zero start),
     decode (T = 1, nonzero start, ``h_out`` aliasing ``h0``), an edge
@@ -77,17 +94,17 @@ one JSON line that carries the card's name and power limit:
     channel block); kernel and plain times (in a CUDA graph and eager),
     the bound, the launch geometry and the ``ptxas`` registers and
     spills.
-14. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
+15. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
     of 64, 1 KV head, RG-LRU width 256, 5 layers: one group and the
     2-layer tail, window 32) on cuda against the same weights on the
     CPU: a 48-token prompt (beyond the window, so the ring cache is
     rotated) and eight teacher-forced greedy steps.
-15. ``serve_hybrid`` — ``recurrentgemma-9b`` at full width in float32
+16. ``serve_hybrid`` — ``recurrentgemma-9b`` at full width in float32
     through ``repro_torch.launch.serve`` (batch 4, prompt 3072, 1.5x the
     2048 window, 32 generated tokens, seeded weights and prompts), timed,
     with the ``rglru`` launch count of that run (26 RG-LRU layers x 32 =
     832) and every logit checked finite.
-16. ``gemm_kernel`` — the systolic GEMM path: first every case once
+17. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
     sites, and of each site's path ("simt", "wgmma"), over that run;
@@ -110,7 +127,7 @@ one JSON line that carries the card's name and power limit:
     key product at the serve cell's prefill (2048 x 2560 x 8960) under
     the five settings in float32 and under OS, OS split-K 2, WS and IS in
     bfloat16; float16 OS and WS at WL2.
-17. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
+18. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run, by kernel: the unrolled and the
     grouped kernel must both have run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -122,8 +139,8 @@ one JSON line that carries the card's name and power limit:
     ``ptxas`` registers and spills (a spill fails the phase).
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line (the
-``prefix_select`` launches are those of the search, pareto and strategies
-runs) and, last, ``{"ok": true, "device": {...}}``. Any failure raises and the
+``prefix_select`` launches are those of the search, pareto, strategies
+and both scenario runs) and, last, ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero without that last line. Without CUDA, or outside a
 checkout of the repository, it exits non-zero at once.
 """
@@ -156,7 +173,7 @@ GEMM_TILES = ((64, 64, 64), (32, 64, 32), (32, 32, 32), (64, 128, 32),
               (128, 64, 96))
 DEV = "cuda"                   # the card the phases run on
 # phase kernel: systems P of prefix_select, in both layouts
-KERNEL_PS = (256, 300, 512, 1024, 4096)
+KERNEL_PS = (256, 300, 320, 512, 1024, 4096)   # 320: scenario, 10 x 32
 # phase rglru_kernel: (shape, (B, T, C), a start state, which the kernel
 # updates in place)
 RGLRU_SHAPES = (("prefill", (4, 3072, 4096), False),
@@ -762,6 +779,195 @@ def phase_strategies(card: str) -> dict:
                          launches={"prefix_select": launches})
         total += launches
     rec["launches"] = {"prefix_select": total}
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# scenario phase: the stacked region x workload grid
+# ---------------------------------------------------------------------------
+
+
+class _Recorder:
+    """Wraps ``owner.name`` for the lifetime of a ``with`` block: every
+    call is timed to a synchronize and its arguments kept, so a phase can
+    split a facade's wall time and replay one of its inner calls."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.calls = []
+
+    def __enter__(self):
+        real = getattr(self.owner, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((args, kwargs, time.perf_counter() - t))
+            return out
+
+        self.real = real
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+    def seconds(self) -> float:
+        return sum(c[2] for c in self.calls)
+
+
+def _scenario_run(pf, workloads, sweep):
+    """One ``run_scenarios`` call on the card: the frontier, the
+    ``prefix_select`` launches of that run, its wall time split into the
+    normalizer fits, the tempering loop and, inside the loop, the host's
+    per-cell archive feeds, and the loop's call (the engine and its
+    arguments) for a replay."""
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.pathfinding import ParetoArchive, ScenarioEngine
+    from repro_torch.pathfinding import batch as batch_mod
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_count()
+    with _Recorder(batch_mod, "fit_region_normalizers") as fits, \
+            _Recorder(ScenarioEngine, "parallel_tempering") as loop, \
+            _Recorder(ParetoArchive, "insert") as feeds:
+        t = time.perf_counter()
+        sf = pf.run_scenarios(sweep, workloads=workloads, key=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return dict(sf=sf, launches=kops.launch_count(), wall_s=wall,
+                fit_s=fits.seconds(), loop_s=loop.seconds(),
+                archive_s=feeds.seconds(), archive_feeds=len(feeds.calls),
+                loop_call=loop.calls[0][:2],
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def _replay_loop(call, sweeps: int):
+    """The recorded tempering call again at ``sweeps`` sweeps, feeding
+    fresh archives as the facade does."""
+    from repro_torch.pathfinding import ParetoArchive
+
+    (engine, v0, temps, _, swap), kw = call[0][:5], dict(call[1])
+    kw["archives"] = [ParetoArchive(max_size=a.max_size)
+                      for a in kw["archives"]]
+    return engine.parallel_tempering(v0, temps, sweeps, swap, **kw)
+
+
+def phase_scenario(card: str) -> dict:
+    """The stacked scenario path: the full-width grid through
+    ``run_scenarios``, the one-cell grid of the same strategy, a profiled
+    5-sweep loop at S = 1 and at S = 10, and two grids on the card
+    against the CPU."""
+    from repro_torch.core import workload
+    from repro_torch.core.regions import Region, diurnal_profile
+    from repro_torch.pathfinding import (
+        DesignSpace,
+        Pathfinder,
+        ScalarizationSweep,
+        ScenarioSweep,
+    )
+
+    wls = [workload(1), workload(6)]
+    pf = Pathfinder(workload(1), "T1", torch_device=DEV)
+    sweep = ScenarioSweep()
+    strat = sweep.strategy
+    chains = strat.directions * strat.n_chains
+    want = 1 + strat.sweeps + 1
+    full = _scenario_run(pf, wls, sweep)
+    sf = full["sf"]
+    S = len(sf.scenarios)
+    if full["launches"] != want:
+        raise AssertionError(f"scenario launched prefix_select "
+                             f"{full['launches']} times, not {want}")
+    cells = {}
+    for s in sf.scenarios:
+        res = sf.results[s.key]
+        vec = res.frontier.vectors
+        if len(vec) < 1 or not np.all(np.isfinite(vec)) \
+                or not math.isfinite(res.best_cost):
+            raise AssertionError(f"scenario cell {s.key} malformed")
+        cells["/".join(s.key)] = dict(frontier=len(vec),
+                                      best_cost=res.best_cost)
+    fronts = [sf.results[s.key].frontier.vectors for s in sf.scenarios]
+    for i in range(S):
+        for j in range(i + 1, S):
+            if np.array_equal(fronts[i], fronts[j]):
+                raise AssertionError(f"scenario cells {i} and {j} have the "
+                                     "same frontier")
+    evals = S * chains * (strat.sweeps + 1)
+
+    one = _scenario_run(pf, [workload(1)], dataclasses.replace(
+        sweep, regions={"world-avg": 0.475}))
+    if one["launches"] != want:
+        raise AssertionError(f"one-cell scenario launched prefix_select "
+                             f"{one['launches']} times, not {want}")
+    prof = {n_cells: _profiled(lambda c=run["loop_call"]: _replay_loop(c, 5))
+            for n_cells, run in ((1, one), (S, full))}
+    k1, k10 = prof[1]["device_kernels"], prof[S]["device_kernels"]
+    if not k1 or k10 > 1.02 * k1:
+        raise AssertionError(f"S = {S} issued {k10} kernels, S = 1 {k1}")
+
+    worst, parity = 0.0, {}
+    region_grid = {
+        "a": Region(0.3, electricity_price=0.12, emb_factor=1.3,
+                    grid_profile=diurnal_profile(0.3, swing=0.4),
+                    price_profile=diurnal_profile(0.12, swing=0.25,
+                                                  peak_hour=18)),
+        "b": Region(0.7, electricity_price=0.05, emb_factor=0.9,
+                    grid_profile=diurnal_profile(0.7, peak_hour=7))}
+    for name, psweep, space in (
+            ("grid", ScenarioSweep(
+                strategy=ScalarizationSweep(directions=2, n_chains=2,
+                                            sweeps=10),
+                norm_samples=100), DesignSpace()),
+            ("regions_mesh_window", ScenarioSweep(
+                strategy=ScalarizationSweep(directions=2, n_chains=2,
+                                            sweeps=5),
+                regions=region_grid, norm_samples=100, comm="mesh_noc",
+                schedule="window"),
+             DesignSpace(comm="mesh_noc", schedule="window"))):
+        got = {}
+        for dev in (DEV, "cpu"):
+            t = time.perf_counter()
+            got[dev] = psweep.run(wls, key=0, torch_device=dev)
+            if dev == DEV:
+                torch.cuda.synchronize()
+            got[dev + "_s"] = time.perf_counter() - t
+        dev_max = 0.0
+        for s in got["cpu"].scenarios:
+            dev_max = max(dev_max, _same_result(
+                f"scenario.{name}.{'/'.join(s.key)}",
+                got[DEV].results[s.key], got["cpu"].results[s.key], space))
+        worst = max(worst, dev_max)
+        parity[name] = dict(cells=len(got["cpu"].scenarios),
+                            sweeps=psweep.strategy.sweeps,
+                            max_rel_dev=dev_max, cuda_s=got[DEV + "_s"],
+                            cpu_s=got["cpu_s"])
+
+    rec = dict(phase="scenario", cells=S, chains_per_cell=chains,
+               rows_per_sweep=S * chains, sweeps=strat.sweeps,
+               norm_samples=sweep.norm_samples, evaluations=evals,
+               wall_s=full["wall_s"], fit_s=full["fit_s"],
+               loop_s=full["loop_s"], archive_s=full["archive_s"],
+               archive_feeds=full["archive_feeds"],
+               sweeps_per_s=strat.sweeps / full["loop_s"],
+               evals_per_s=evals / full["loop_s"],
+               launches={"prefix_select": full["launches"]
+                         + one["launches"]},
+               full_launches=full["launches"],
+               peak_mem_bytes=full["peak_mem_bytes"], cells_out=cells,
+               one_cell=dict(wall_s=one["wall_s"], fit_s=one["fit_s"],
+                             loop_s=one["loop_s"], archive_s=one["archive_s"],
+                             archive_feeds=one["archive_feeds"],
+                             launches=one["launches"]),
+               profile={f"S{k}": dict(sweeps=5, **v)
+                        for k, v in prof.items()},
+               kernel_ratio=k10 / k1, parity=parity,
+               parity_max_rel_dev=worst, card=card)
     emit(rec)
     return rec
 
@@ -1561,6 +1767,7 @@ def main() -> int:
     phase_sa_golden(card)
     pareto = phase_pareto(card)
     strategies = phase_strategies(card)
+    scenario = phase_scenario(card)
     wmain = phase_wkv6(card)
     phase_lm_parity(card)
     serve = phase_serve(card)
@@ -1581,7 +1788,7 @@ def main() -> int:
                   "prefix_select.cu",
         "replaces": "src/repro/kernels/prefix_gather/kernel.py:79",
         "launches": sum(p["launches"]["prefix_select"]
-                        for p in (search, pareto, strategies)),
+                        for p in (search, pareto, strategies, scenario)),
         "max_abs_err": kmain["max_abs_err"], "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"], "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"], "library_ms": None}, {

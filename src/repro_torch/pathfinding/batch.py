@@ -45,6 +45,7 @@ from repro_torch.core.carbon import (
 )
 from repro_torch.core.chiplet import Chiplet
 from repro_torch.core.evaluate import Metrics
+from repro_torch.core.regions import as_region
 from repro_torch.core.scalesim import OPERAND_BYTES, PSUM_BYTES
 from repro_torch.core.techdb import DEFAULT_DB, HOURS_PER_DAY, TechDB
 from repro_torch.core.templates import Normalizer
@@ -1037,3 +1038,61 @@ def fit_normalizer_batched(wl: GEMMWorkload, db: TechDB = DEFAULT_DB,
     mb = evaluate_batch(space.sample(samples, key=seed), wl, db, space=space,
                         torch_device=torch_device)
     return Normalizer.fit_arrays(mb.fields())
+
+
+def fit_region_normalizers(wl: GEMMWorkload, regions,
+                           db: TechDB = DEFAULT_DB,
+                           samples: int = 400, seed: int = 1234,
+                           space: Optional[DesignSpace] = None,
+                           max_chiplets: int = 6,
+                           torch_device: DeviceLike = None
+                           ) -> List[Normalizer]:
+    """One normalizer per region spec from a *single* batched evaluation.
+
+    ``regions`` entries are bare carbon intensities (floats) or
+    :class:`repro_torch.core.regions.Region` specs. Of the six Eq. 17
+    metrics only three depend on the deployment region, each a
+    closed-form rescale of the base evaluation:
+
+    * ``ope_cfp_kg``  = kwh x effective intensity (24h profile-weighted);
+    * ``dollar``      = base dollar + kwh x electricity price;
+    * ``emb_cfp_kg``  = base embodied x regional fab-grid factor.
+
+    So the per-cell fits of a region sweep collapse to one evaluation of
+    the sample population at the base ``db`` (stage 3 on
+    ``torch_device``, ``None`` = cuda) plus exact per-region column
+    recomputes: each returned normalizer is bit-identical to
+    :func:`fit_normalizer_batched` under ``dataclasses.replace(db,
+    **region.db_overrides())``, given a base ``db`` with the neutral
+    regional axes (the default)."""
+    space = space or DesignSpace(db, max_chiplets)
+    pop = space.sample(samples, key=seed)
+    fields = evaluate_batch(pop, wl, db, space=space,
+                            torch_device=torch_device).fields()
+    active_s = db.lifetime_years * SECONDS_PER_YEAR * db.use_fraction
+    runs = db.duty_runs_per_s * active_s
+    energy = np.asarray(fields["energy_j"], dtype=np.float64)
+    dollar = np.asarray(fields["dollar"], dtype=np.float64)
+    emb = np.asarray(fields["emb_cfp_kg"], dtype=np.float64)
+    # window-schedule spaces: per-row duty loads reshape the regional
+    # effective intensity/price row by row
+    loads = (_schedule_loads(pop.astype(np.int64), space, db)
+             if space.schedule == "window" else None)
+    out = []
+    for spec in regions:
+        r = as_region(spec)
+        if loads is None:
+            eff = np.float64(effective_intensity(
+                r.carbon_intensity, r.grid_profile, db.load_profile))
+            eprice = np.float64(effective_price(
+                r.electricity_price, r.price_profile, db.load_profile))
+        else:
+            eff = _effective_rows(r.carbon_intensity, r.grid_profile, loads)
+            eprice = _effective_rows(
+                r.electricity_price, r.price_profile, loads)
+        per_region = dict(fields)
+        per_region["ope_cfp_kg"] = energy * runs / 3.6e6 * eff
+        per_region["dollar"] = dollar + energy * runs / 3.6e6 * eprice
+        per_region["emb_cfp_kg"] = emb * np.float64(r.emb_factor)
+        out.append(Normalizer.fit_arrays(per_region))
+    return out

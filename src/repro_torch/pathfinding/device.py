@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -476,37 +476,58 @@ def _topology(v, areas, tb, cfg: _Cfg):
 # ---------------------------------------------------------------------------
 
 
-def _gather_sims(v, a_idx, s_idx, di, start, end, tb, cfg: _Cfg):
+def _gather_sims(v, a_idx, s_idx, di, start, end, tb, cfg: _Cfg, rt=None):
     """Prefix-table gathers for both split-K tables + per-row select.
 
     The whole stage — both split-K gathers for all five sim metrics, the
     clip to the true tile totals, the split select and the per-slot
     segment reduction — is one :func:`~repro_torch.kernels.
     prefix_gather.prefix_select` call: the ``prefix_select`` CUDA kernel
-    on the card, its plain torch version on the CPU."""
+    on the card, its plain torch version on the CPU.
+
+    ``rt`` (the stacked scenario engine's per-row runtime constants,
+    ``[P]`` tensors ``T0``, ``T1``, ``wi``) switches to the
+    workload-stacked ``[5, Wk*A*S*3, T_bucket+1]`` tables: rows pick up
+    the offset ``wi*A*S*3``, the kernel clips each row at its workload's
+    true tile totals, and the ``mn`` rows are read from row ``wi`` of
+    the padded ``mn0w``/``mn1w`` clipped at the bucket (``cfg.T0``,
+    ``cfg.T1``), as the reference reads them."""
     P = v.shape[0]
     def i32(x):
         return x.to(torch.int32).contiguous()
 
-    rows = i32((a_idx * cfg.S + s_idx) * 3 + di)
-    t0v = torch.full((P,), cfg.T0, dtype=torch.int32, device=v.device)
-    t1v = torch.full((P,), cfg.T1, dtype=torch.int32, device=v.device)
-    sel, _ = prefix_select(tb["pref0_flat"], tb["pref1_flat"], rows,
-                           i32(start), i32(end), i32(v[:, COL_SPLITK]),
-                           t0v, t1v)
+    rows = (a_idx * cfg.S + s_idx) * 3 + di
+    if rt is None:
+        p0, p1 = tb["pref0_flat"], tb["pref1_flat"]
+        t0v = torch.full((P,), cfg.T0, dtype=torch.int32, device=v.device)
+        t1v = torch.full((P,), cfg.T1, dtype=torch.int32, device=v.device)
+    else:
+        p0, p1 = tb["pref0_flatw"], tb["pref1_flatw"]
+        rows = rows + (cfg.A * cfg.S * 3) * rt["wi"][:, None]
+        t0v, t1v = i32(rt["T0"]), i32(rt["T1"])
+    sel, _ = prefix_select(p0, p1, i32(rows), i32(start), i32(end),
+                           i32(v[:, COL_SPLITK]), t0v, t1v)
     sims = {f: sel[..., fi] for fi, f in enumerate(_SIM_METRICS)}
     split1 = (v[:, COL_SPLITK] == 1)[:, None]
-    mn0 = tb["mn0"][torch.clamp(end, 0, cfg.T0)] - tb["mn0"][
-        torch.clamp(start, 0, cfg.T0)]
-    mn1 = tb["mn1"][torch.clamp(end, 0, cfg.T1)] - tb["mn1"][
-        torch.clamp(start, 0, cfg.T1)]
+    if rt is None:
+        mn0 = tb["mn0"][torch.clamp(end, 0, cfg.T0)] - tb["mn0"][
+            torch.clamp(start, 0, cfg.T0)]
+        mn1 = tb["mn1"][torch.clamp(end, 0, cfg.T1)] - tb["mn1"][
+            torch.clamp(start, 0, cfg.T1)]
+    else:
+        wi = rt["wi"][:, None]
+        mn0 = tb["mn0w"][wi, torch.clamp(end, 0, cfg.T0)] - tb["mn0w"][
+            wi, torch.clamp(start, 0, cfg.T0)]
+        mn1 = tb["mn1w"][wi, torch.clamp(end, 0, cfg.T1)] - tb["mn1w"][
+            wi, torch.clamp(start, 0, cfg.T1)]
     mn_bits = torch.where(split1, mn1, mn0)
     return sims, mn_bits
 
 
-def _slots(v, tb, cfg: _Cfg):
+def _slots(v, tb, cfg: _Cfg, rt=None):
     """Per-slot chiplet indices, physicals and the Algorithm-1 tile
-    ranges of an encoded population (int64 ``v``)."""
+    ranges of an encoded population (int64 ``v``); ``rt`` gives each row
+    its workload's tile totals (see :func:`_gather_sims`)."""
     C = cfg.C
     P = v.shape[0]
     slot = torch.arange(C, device=v.device)
@@ -519,13 +540,17 @@ def _slots(v, tb, cfg: _Cfg):
     cphys = tb["chiplet"][a_idx, t_idx, s_idx]  # [P, C, 4] physicals
     areas = torch.where(nmask, cphys[:, :, 0], 0.0)
     powers = torch.where(nmask, tb["t_power"][a_idx, t_idx], 0.0)
-    total = torch.where(v[:, COL_SPLITK] == 1, cfg.T1, cfg.T0)
+    if rt is None:
+        total = torch.where(v[:, COL_SPLITK] == 1, cfg.T1, cfg.T0)
+    else:
+        total = torch.where(v[:, COL_SPLITK] == 1, rt["T1"], rt["T0"])
     start, count = _assign(powers, nmask, v[:, COL_ORDER], total, cfg)
     return dict(nmask=nmask, a_idx=a_idx, t_idx=t_idx, s_idx=s_idx,
                 cphys=cphys, areas=areas, start=start, end=start + count)
 
 
-def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile):
+def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile,
+             rt=None):
     """The 13 MetricsBatch tensors for an encoded population.
 
     Mirrors the reference's ``_metrics_jax`` stage by stage. ``ci``
@@ -534,17 +559,20 @@ def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile):
     rows) are runtime tensors; their neutral values (0.0, 1.0,
     flat-at-ci, flat-at-price) reproduce the scalar model bit-for-bit,
     since the corrections ``sum((profile - ci) * load)`` and
-    ``sum((pprofile - price) * load)`` are exactly +0.0 for flat rows."""
+    ``sum((pprofile - price) * load)`` are exactly +0.0 for flat rows.
+    Each is a scalar, or one value (``[P]``, ``[P, 24]``) per row.
+    ``rt`` (``None`` = the cfg constants) carries the stacked scenario
+    engine's per-row ``T0``, ``T1``, ``wr_bits`` and workload ``wi``."""
     C = cfg.C
     P = v.shape[0]
     slot = torch.arange(C, device=v.device)
-    st = _slots(v, tb, cfg)
+    st = _slots(v, tb, cfg, rt)
     nmask, t_idx, cphys = st["nmask"], st["t_idx"], st["cphys"]
     areas = st["areas"]
     split = v[:, COL_SPLITK]
     di = v[:, COL_DATAFLOW][:, None].expand(P, C)
     sims, mn_bits = _gather_sims(v, st["a_idx"], st["s_idx"], di,
-                                 st["start"], st["end"], tb, cfg)
+                                 st["start"], st["end"], tb, cfg, rt)
 
     topo = _topology(v, areas, tb, cfg)
     dest = topo["dest"]
@@ -596,7 +624,7 @@ def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile):
 
     # Eq. 5 term 3: DRAM write-back (split-K dependent)
     eff_dest = torch.gather(eff_bw, 1, dest[:, None])[:, 0]
-    wr_split = cfg.wr_bits / eff_dest
+    wr_split = (cfg.wr_bits if rt is None else rt["wr_bits"]) / eff_dest
     wr_direct = torch.amax(torch.where(wr > 0, wr / den_bw, 0.0), dim=1)
     l_wr = torch.where(split == 1, wr_split, wr_direct)
     latency = l_cr + l_d2d + l_wr
@@ -645,7 +673,8 @@ def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile):
         load = torch.gather(tb["sched_tab"][s_shape], 1, roll)
     else:
         load = tb["sched_tab"][0][None, :].expand(P, HOURS_PER_DAY)
-    eff_price = price + torch.sum((pprofile - price) * load, dim=-1)
+    eff_price = price + torch.sum((pprofile - price[..., None]) * load,
+                                  dim=-1)
     dollar = ((chip_cost + icost + package) / bond_y + mrow[:, 2]
               + energy * runs / 3.6e6 * eff_price)
 
@@ -670,7 +699,7 @@ def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile):
     else:
         pkg_cfp = pkg_cfp + cfg.router_area_frac * mfg
     emb = (mfg + des + pkg_cfp) * embf
-    eff_ci = ci + torch.sum((profile - ci) * load, dim=-1)
+    eff_ci = ci + torch.sum((profile - ci[..., None]) * load, dim=-1)
     ope = energy * runs / 3.6e6 * eff_ci
 
     return (latency, energy, area, dollar, emb, ope, l_cr, l_d2d, l_wr,
@@ -692,16 +721,16 @@ def _nb_yield(area, d0: float, alpha: float):
 
 
 def _eval_cost(v, mins, medians, w, ci, price, embf, profile, pprofile,
-               tb, cfg: _Cfg):
+               tb, cfg: _Cfg, rt=None):
     """Fused metrics + Eq. 17 cost (METRIC_FIELDS column order) + the
     ``OBJECTIVE_AXES`` vector ``(latency_s, dollar, total_cfp)``.
 
-    ``w`` is a ``[6]`` weight row or a per-row ``[P, 6]`` matrix."""
-    mets = _metrics(v, tb, cfg, ci, price, embf, profile, pprofile)
+    ``w``, ``mins`` and ``medians`` are ``[6]`` rows or per-row
+    ``[P, 6]`` matrices; ``rt`` as in :func:`_metrics`."""
+    mets = _metrics(v, tb, cfg, ci, price, embf, profile, pprofile, rt)
     x = torch.stack([mets[1], mets[2], mets[0], mets[3], mets[4], mets[5]],
                     dim=1)
-    cost = ((x - mins[None, :]) / medians[None, :]
-            * torch.atleast_2d(w)).sum(dim=1)
+    cost = ((x - mins) / medians * torch.atleast_2d(w)).sum(dim=1)
     vec = torch.stack([mets[0], mets[3], mets[4] + mets[5]], dim=1)
     return mets, cost, vec
 
@@ -755,7 +784,17 @@ def _validity(v, tb, cfg: _Cfg):
     return ok
 
 
-def _propose(key, v, tb, cfg: _Cfg):
+def _draws(key, rows: int, P: int) -> torch.Tensor:
+    """``[rows, P]`` uniforms for P population rows. A ``[2]`` key draws
+    ``uniform(key, (rows, P))``; a ``[S, 2]`` batch draws ``(rows, P //
+    S)`` per key, so population row p of cell ``p // (P // S)`` reads its
+    own key's draws."""
+    if key.dim() == 1:
+        return trandom.uniform(key, (rows, P))
+    return trandom.uniform_cells(key, rows, P // key.shape[0])
+
+
+def _propose(key, v, tb, cfg: _Cfg, noc_on=None, sched_on=None):
     """One hierarchical move per encoded row (int64 ``v``), mirroring the
     level/branch distribution of :func:`repro_torch.core.sa.propose`.
 
@@ -765,14 +804,20 @@ def _propose(key, v, tb, cfg: _Cfg):
     levels read their own ``fold_in(key, 7)`` / ``fold_in(key, 8)``
     side-streams, so the legacy draws are the same whichever levels
     exist. Chiplet redraw-until-different uses two resamples. Rows whose
-    candidate fails validity keep the incumbent."""
+    candidate fails validity keep the incumbent.
+
+    ``key`` is one ``[2]`` key, or a ``[S, 2]`` batch whose cell s owns
+    the s-th block of ``P // S`` rows (the stacked scenario engine). The
+    NoC / schedule move gates ``noc_on`` / ``sched_on`` are per-row
+    float tensors of 0.0 / 1.0, or ``None`` for the space's own
+    liveness."""
     C = cfg.C
     P = v.shape[0]
     dev = v.device
     slot = torch.arange(C, device=dev)
     mesh = cfg.comm == "mesh_noc"
     win = cfg.schedule == "window"
-    U = trandom.uniform(key, (31 + C, P))
+    U = _draws(key, 31 + C, P)
 
     def uni(i):
         return U[i]
@@ -916,7 +961,7 @@ def _propose(key, v, tb, cfg: _Cfg):
 
     # -- NoC level: redraw one chiplet's (mesh dims, entry) pair ------------
     if mesh:
-        Un = trandom.uniform(trandom.fold_in(key, 7), (5, P))
+        Un = _draws(trandom.fold_in(key, 7), 5, P)
         r_noc = torch.floor(Un[0] * n.to(F64)).to(I64)
 
         def draw_noc(im, ie):
@@ -936,7 +981,7 @@ def _propose(key, v, tb, cfg: _Cfg):
 
     # -- schedule level: nudge start hour or redraw the window shape --------
     if win:
-        Us = trandom.uniform(trandom.fold_in(key, 8), (3, P))
+        Us = _draws(trandom.fold_in(key, 8), 3, P)
         sc = cfg.sched_col
         s_start = v[:, sc]
         s_shape = v[:, sc + 1]
@@ -956,8 +1001,10 @@ def _propose(key, v, tb, cfg: _Cfg):
         # live axes widen the uniform level draw from 3 to up to 5
         # options; floor(u * 3.0) is the legacy ri(29, 3) exactly, so
         # frozen-axis spaces replay the 3-level distribution
-        noc_on_f = (1.0 if cfg.noc_live else 0.0) if mesh else None
-        sched_on_f = (1.0 if cfg.sched_live else 0.0) if win else None
+        noc_on_f = (((1.0 if cfg.noc_live else 0.0) if noc_on is None
+                     else noc_on) if mesh else None)
+        sched_on_f = (((1.0 if cfg.sched_live else 0.0) if sched_on is None
+                       else sched_on) if win else None)
         n_levels = 3.0
         if mesh:
             n_levels = n_levels + noc_on_f
@@ -967,7 +1014,10 @@ def _propose(key, v, tb, cfg: _Cfg):
         if mesh and win:
             # the schedule level sits after the NoC level iff NoC moves
             # are on
-            is_noc = (level == 3) & (int(noc_on_f) == 1)
+            if noc_on is None:
+                is_noc = (level == 3) & (int(noc_on_f) == 1)
+            else:
+                is_noc = (level == 3) & (torch.floor(noc_on_f) == 1)
             lower = torch.where(
                 (level == 1)[:, None], cand_rep,
                 torch.where((level == 2)[:, None], cand_pkg,
@@ -994,22 +1044,26 @@ def _propose(key, v, tb, cfg: _Cfg):
 
 
 def _exchange(v, costs, inv_t, us, pair_ok=None):
-    """Sequential adjacent-pair replica exchange, in place on the device
-    tensors ``v``/``costs``. ``d >= 0`` short-circuits in the host
-    reference, so only exp of non-positive ``d`` is compared;
-    ``pair_ok[j]`` gates the pair (j, j+1) (independent ladders). With
-    no mask every pair may swap, and the loop adds no gating op."""
-    for j in range(costs.shape[0] - 1):
-        c_i, c_j = costs[j].clone(), costs[j + 1].clone()
-        d = (inv_t[j] - inv_t[j + 1]) * (c_i - c_j)
-        sw = (d >= 0) | (us[j] < torch.exp(torch.clamp(d, max=0.0)))
+    """Sequential adjacent-pair replica exchange of S independent cells,
+    in place on the device tensors ``v`` ``[S, n, W]`` / ``costs``
+    ``[S, n]`` (``inv_t`` ``[S, n]``, ``us`` ``[S, n-1]``). Pair step j
+    updates column j of every cell at once, so the kernel count does not
+    grow with S. ``d >= 0`` short-circuits in the host reference, so
+    only exp of non-positive ``d`` is compared; ``pair_ok[s, j]`` gates
+    the pair (j, j+1) of cell s (independent ladders, cells that do not
+    swap this sweep). With no mask every pair may swap, and the loop
+    adds no gating op."""
+    for j in range(costs.shape[1] - 1):
+        c_i, c_j = costs[:, j].clone(), costs[:, j + 1].clone()
+        d = (inv_t[:, j] - inv_t[:, j + 1]) * (c_i - c_j)
+        sw = (d >= 0) | (us[:, j] < torch.exp(torch.clamp(d, max=0.0)))
         if pair_ok is not None:
-            sw = sw & pair_ok[j]
-        costs[j] = torch.where(sw, c_j, c_i)
-        costs[j + 1] = torch.where(sw, c_i, c_j)
-        v_i, v_j = v[j].clone(), v[j + 1].clone()
-        v[j] = torch.where(sw, v_j, v_i)
-        v[j + 1] = torch.where(sw, v_i, v_j)
+            sw = sw & pair_ok[:, j]
+        costs[:, j] = torch.where(sw, c_j, c_i)
+        costs[:, j + 1] = torch.where(sw, c_i, c_j)
+        v_i, v_j = v[:, j].clone(), v[:, j + 1].clone()
+        v[:, j] = torch.where(sw[:, None], v_j, v_i)
+        v[:, j + 1] = torch.where(sw[:, None], v_i, v_j)
 
 
 # ---------------------------------------------------------------------------
@@ -1353,7 +1407,8 @@ class DeviceEvaluator:
                 best_v = torch.where(better, prop[i], best_v)
                 us = trandom.uniform(ksw, (max(n - 1, 1),))
                 if sweep % swap_every == 0:
-                    _exchange(v, costs, inv_t, us, pair_t)
+                    _exchange(v[None], costs[None], inv_t[None], us[None],
+                              None if pair_t is None else pair_t[None])
                 hist_parts.append(costs[-1:].clone())
                 if collect_samples:
                     seg_enc.append(prop)
@@ -1399,6 +1454,465 @@ class DeviceEvaluator:
 
 
 # ---------------------------------------------------------------------------
+# The stacked scenario engine: a region x workload grid as one population
+# ---------------------------------------------------------------------------
+
+
+def _tile_bucket(t: int) -> int:
+    """Power-of-two tile-count bucket (>= 64) that the stacked tables pad
+    every workload's tile axis to."""
+    return max(64, 1 << (int(t) - 1).bit_length())
+
+
+def _pad_tiles(a: np.ndarray, bucket: int, axis: int) -> np.ndarray:
+    """Edge-pad a prefix table's T+1 axis to bucket+1 slots. Tile ranges
+    never pass a workload's true total, and edge replication makes any
+    clipped tail difference exactly zero anyway."""
+    cur = a.shape[axis]
+    if cur == bucket + 1:
+        return a
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, bucket + 1 - cur)
+    return np.pad(a, pad, mode="edge")
+
+
+def _stacked_tables(workloads, hosts, tb0: int, tb1: int,
+                    dev: torch.device) -> dict:
+    """The workload-stacked tables of the scenario engine on ``dev``.
+
+    ``pref0_flatw``/``pref1_flatw`` are the int64 ``[5, Wk*A*S*3,
+    bucket+1]`` stacks ``prefix_select`` reads at row ``((wi*A + a)*S +
+    s)*3 + d`` (each workload's tables edge-padded to the shared bucket
+    and concatenated along the rows; ``[5, 96, 65]`` for workloads 1+6),
+    ``mn0w``/``mn1w`` the padded ``mn`` prefix rows ``[Wk, bucket+1]``,
+    ``t0w``/``t1w`` each workload's true tile totals and ``wrw`` its
+    DRAM write-back bits."""
+    out = {}
+    for sk, bucket in ((0, tb0), (1, tb1)):
+        mats = []
+        for h in hosts:
+            pref = _pad_tiles(np.stack([h.tiles[sk]["pref"][f]
+                                        for f in _SIM_METRICS]),
+                              bucket, axis=-1)
+            mats.append(pref.reshape(pref.shape[0], -1, bucket + 1))
+        out[f"pref{sk}_flatw"] = torch.as_tensor(
+            np.ascontiguousarray(np.concatenate(mats, axis=1)), device=dev)
+        out[f"mn{sk}w"] = torch.as_tensor(np.stack(
+            [_pad_tiles(h.tiles[sk]["mn_pref"], bucket, axis=0)
+             for h in hosts]), device=dev)
+        out[f"t{sk}w"] = torch.tensor([h.tiles[sk]["T"] for h in hosts],
+                                      dtype=I64, device=dev)
+    out["wrw"] = torch.tensor(
+        [float(wl.M * wl.N * OPERAND_BYTES * 8) for wl in workloads],
+        dtype=F64, device=dev)
+    return out
+
+
+@dataclasses.dataclass
+class ScenarioPTResult:
+    """Per-cell outputs of the stacked scenario tempering engine (host
+    arrays; leading axis = scenario cell everywhere)."""
+
+    best_enc: np.ndarray          # [S, width]
+    best_cost: np.ndarray         # [S]
+    history: np.ndarray           # [S, 1 + sweeps] coldest-chain costs
+    evaluations: int              # total across all cells
+    final_enc: np.ndarray         # [S, n, width]
+    final_costs: np.ndarray       # [S, n]
+    # every evaluated design + its OBJECTIVE_AXES vector, seed population
+    # first: enc [1 + sweeps, S, n, width], vec [1 + sweeps, S, n, 3]
+    samples: Optional[Dict[str, np.ndarray]] = None
+
+
+class ScenarioEngine:
+    """A whole (workload x deployment region) scenario grid as one
+    population on one torch device.
+
+    The S cells of a grid, ``n`` chains each, ride as one ``[S*n]``
+    population (cell-major: row ``s*n + i`` is chain i of cell s)
+    through the single-workload engine's stages. Every per-cell knob is
+    a per-row tensor: the grid carbon intensity, price, embodied factor
+    and 24h profiles, the normalizer and Eq. 17 weight rows, and the
+    workload's tile totals and write-back bits (its prefix tables ride
+    in the workload-stacked, tile-bucket-padded tables indexed by a
+    per-cell workload id). So a sweep of the whole grid is one
+    :func:`_propose`, one :func:`_eval_cost` — one ``prefix_select``
+    launch — and one batched replica exchange, whatever S is.
+
+    Per-cell RNG: the base key is folded with the cell index
+    (``fold_in(key, s)``), and each cell splits its own stream every
+    sweep, exactly as the reference's vmapped step does, so a cell's
+    trajectory depends only on (seed, cell index).
+
+    Tables are built once from the host :class:`~repro_torch.pathfinding.
+    batch.BatchEvaluator` of each workload and live on ``torch_device``
+    (``None`` = cuda)."""
+
+    def __init__(self, workloads: Sequence[GEMMWorkload],
+                 db: TechDB = DEFAULT_DB,
+                 tile_sizes: Tuple[int, int, int] = DEFAULT_TILE,
+                 space: Optional[DesignSpace] = None,
+                 torch_device: DeviceLike = None):
+        self.device = resolve_device(torch_device)
+        self.workloads = tuple(workloads)
+        if not self.workloads:
+            raise ValueError("ScenarioEngine needs >= 1 workload")
+        self.db, self.tile_sizes = db, tile_sizes
+        hosts = [get_evaluator(wl, db, tile_sizes, space)
+                 for wl in self.workloads]
+        self.hosts = hosts
+        self.space = hosts[0].space
+        tb0 = _tile_bucket(max(h.tiles[0]["T"] for h in hosts))
+        tb1 = _tile_bucket(max(h.tiles[1]["T"] for h in hosts))
+        # cfg.T0/T1 are the bucket: they bound the padded mn gathers,
+        # while each row's true totals come from the tables at run time
+        self.cfg = _base_cfg(self.space, db, T0=tb0, T1=tb1, wr_bits=0.0)
+        self.tables = {
+            **_shared_tables(hosts[0], self.space, self.device),
+            **_stacked_tables(self.workloads, hosts, tb0, tb1, self.device)}
+
+    def _t(self, x, dtype=F64) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _widx(self, widx, S: int) -> np.ndarray:
+        w = np.asarray(widx, dtype=np.int64).reshape(S)
+        if w.min(initial=0) < 0 or w.max(initial=0) >= len(self.workloads):
+            raise ValueError(
+                f"widx out of range for {len(self.workloads)} workloads")
+        return w
+
+    def _rows(self, n: int, widx, mins, med, w, ci, price, embf, profile,
+              pprofile):
+        """The per-cell constants of an S-cell grid as per-row tensors of
+        its ``[S*n]`` population: the ``(mins, medians, w, ci, price,
+        embf, profile, pprofile)`` arguments of :func:`_eval_cost` and
+        its ``rt`` (workload id, true tile totals, write-back bits).
+        ``w`` is one row a cell ``[S, 6]`` or one a chain ``[S, n, 6]``."""
+        t, tb = self._t, self.tables
+        wi = t(widx, I64).reshape(-1)
+        S = wi.shape[0]
+        w = t(w)
+        w = (w.reshape(S * n, 6) if w.dim() == 3
+             else w.reshape(S, 6).repeat_interleave(n, dim=0))
+        mins, med, ci, price, embf, profile, pprofile = [
+            t(x).reshape(S, -1).repeat_interleave(n, dim=0)
+            for x in (mins, med, ci, price, embf, profile, pprofile)]
+        wi = wi.repeat_interleave(n)
+        rt = dict(wi=wi, T0=tb["t0w"][wi], T1=tb["t1w"][wi],
+                  wr_bits=tb["wrw"][wi])
+        return (mins, med, w, ci[:, 0], price[:, 0], embf[:, 0], profile,
+                pprofile), rt
+
+    @staticmethod
+    def _region_cols(S: int, ci: np.ndarray, price=None, embf=None,
+                     profile=None, pprofile=None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+        """Normalize/synthesize the per-cell region columns: ``price``
+        [S] (default zeros), ``embf`` [S] (default ones), ``profile``
+        [S, 24] (default flat-at-ci rows, whose correction is exactly
+        +0.0) and ``pprofile`` [S, 24] (default flat-at-price rows)."""
+        ci = np.asarray(ci, np.float64).reshape(S)
+        price = (np.zeros(S, np.float64) if price is None
+                 else np.asarray(price, np.float64).reshape(S))
+        embf = (np.ones(S, np.float64) if embf is None
+                else np.asarray(embf, np.float64).reshape(S))
+        profile = (np.repeat(ci[:, None], HOURS_PER_DAY, axis=1)
+                   if profile is None
+                   else np.asarray(profile, np.float64).reshape(
+                       S, HOURS_PER_DAY))
+        pprofile = (np.repeat(price[:, None], HOURS_PER_DAY, axis=1)
+                    if pprofile is None
+                    else np.asarray(pprofile, np.float64).reshape(
+                        S, HOURS_PER_DAY))
+        return price, embf, profile, pprofile
+
+    def evaluate_cost(self, encoded: np.ndarray, mins: np.ndarray,
+                      medians: np.ndarray, weights: np.ndarray,
+                      ci: np.ndarray, widx: np.ndarray,
+                      price: Optional[np.ndarray] = None,
+                      embf: Optional[np.ndarray] = None,
+                      profile: Optional[np.ndarray] = None,
+                      pprofile: Optional[np.ndarray] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Fused cost + objective vectors for a stacked ``[S, m, width]``
+        population (per-cell ``[S, 6]`` normalizer and weight rows,
+        ``[S]`` carbon intensities and workload ids, and the optional
+        regional axes ``price`` [S], ``embf`` [S], ``profile`` [S, 24]
+        and ``pprofile`` [S, 24], neutral when omitted), as one
+        ``[S*m]`` evaluation: one ``prefix_select`` launch. Returns
+        ``(cost [S, m], vec [S, m, 3])``."""
+        v = np.asarray(encoded, dtype=np.int32)
+        if v.ndim != 3:
+            raise ValueError(f"encoded must be [S, m, width], got {v.shape}")
+        S, m, width = v.shape
+        ci_a = np.asarray(ci, np.float64).reshape(S)
+        args, rt = self._rows(
+            m, self._widx(widx, S), np.asarray(mins, np.float64),
+            np.asarray(medians, np.float64), np.asarray(weights, np.float64),
+            ci_a, *self._region_cols(S, ci_a, price, embf, profile,
+                                     pprofile))
+        _, cost, vec = _eval_cost(self._t(v.reshape(S * m, width), I64),
+                                  *args, self.tables, self.cfg, rt)
+        return (cost.reshape(S, m).cpu().numpy(),
+                vec.reshape(S, m, 3).cpu().numpy())
+
+    # -- the stacked tempering loop ------------------------------------
+
+    def segment_runner(self, S: int, n: int, seg: int, swap_every: int,
+                       collect_samples: bool = False):
+        """The segment step of :meth:`parallel_tempering`, for callers
+        that drive segments themselves.
+
+        The returned callable has the reference's positional signature
+        ``run(v, costs, best_v, best_c, keys, sweep0, temps, mins, med,
+        w, pair_ok, ci, price, embf, profile, pprofile, widx)``, plus a
+        trailing ``noc_on`` [S] iff the engine is mesh_noc and a
+        trailing ``sched_on`` [S] iff it is window-schedule. The carry
+        ``(v [S, n, W], costs [S, n], best_v [S, W], best_c [S], keys
+        [S, 2])`` and the per-cell constants (``temps`` [S, n], ``mins``
+        / ``med`` [S, 6], ``w`` [S, n, 6], ``pair_ok`` [S, n-1], ``ci``
+        / ``price`` / ``embf`` [S], ``profile`` / ``pprofile`` [S, 24],
+        ``widx`` [S]) are tensors or arrays; ``sweep0`` is the host
+        ``[S]`` integer array of per-cell sweep counters (cell s swaps
+        at sweep t iff ``(sweep0[s] + t) % swap_every == 0``). It
+        returns ``(carry, ys)``: the carry as device tensors, ``ys`` =
+        ``(coldest costs [seg, S], best costs [seg, S])`` plus
+        ``(proposals [seg, S, n, W], vectors [seg, S, n, 3])`` with
+        ``collect_samples``."""
+        S, n, seg, swap_every = int(S), int(n), int(seg), int(swap_every)
+        collect = bool(collect_samples)
+        n_gates = ((self.cfg.comm == "mesh_noc")
+                   + (self.cfg.schedule == "window"))
+
+        def run(v, costs, best_v, best_c, keys, sweep0, temps, mins, med,
+                w, pair_ok, ci, price, embf, profile, pprofile, widx,
+                *gates):
+            if len(gates) != n_gates:
+                raise TypeError(
+                    f"this engine's segment takes {17 + n_gates} "
+                    f"arguments, got {17 + len(gates)}")
+            return self._segment(S, n, seg, swap_every, collect,
+                                 (v, costs, best_v, best_c, keys), sweep0,
+                                 temps, mins, med, w, pair_ok, ci, price,
+                                 embf, profile, pprofile, widx, *gates)
+
+        return run
+
+    def _segment(self, S, n, seg, swap_every, collect, carry, sweep0,
+                 temps, mins, med, w, pair_ok, ci, price, embf, profile,
+                 pprofile, widx, *gates):
+        tb, cfg, t = self.tables, self.cfg, self._t
+        P = S * n
+        v, costs, best_v, best_c, keys = (
+            t(carry[0], I64), t(carry[1]), t(carry[2], I64), t(carry[3]),
+            t(carry[4], I64))
+        width = v.shape[-1]
+        temps = t(temps).reshape(S, n)
+        inv_t = 1.0 / temps
+        args, rt = self._rows(n, widx, mins, med, t(w).reshape(S, n, 6), ci,
+                              price, embf, profile, pprofile)
+        gate_rows = [t(g).reshape(S).repeat_interleave(n) for g in gates]
+        noc_r = gate_rows.pop(0) if cfg.comm == "mesh_noc" else None
+        sched_r = gate_rows.pop(0) if cfg.schedule == "window" else None
+        pair = t(pair_ok, torch.bool).reshape(S, max(n - 1, 1))
+        # the swap schedule is host data: per sweep, no cell swaps (the
+        # exchange is skipped), every cell swaps (pair_ok alone gates),
+        # or some do (an [S] mask joins the gate)
+        do = ((np.asarray(sweep0, np.int64).reshape(1, S)
+               + np.arange(seg)[:, None]) % swap_every) == 0
+        mixed = do.any(axis=1) & ~do.all(axis=1)
+        do_t = t(do, torch.bool) if mixed.any() else None
+        rows = torch.arange(S, device=self.device)
+        cold, best, props, vecs = [], [], [], []
+        for k in range(seg):
+            ks = trandom.split(keys, 4)
+            keys, kp, ka, ksw = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
+            prop = _propose(kp, v.reshape(P, width), tb, cfg, noc_r,
+                            sched_r)
+            _, pcost, pvec = _eval_cost(prop, *args, tb, cfg, rt)
+            prop = prop.reshape(S, n, width)
+            pcost = pcost.reshape(S, n)
+            u = trandom.uniform(ka, (n,))
+            delta = pcost - costs
+            accept = (delta <= 0) | (
+                u < torch.exp(-delta / torch.clamp(temps, min=1e-12)))
+            v = torch.where(accept[..., None], prop, v)
+            costs = torch.where(accept, pcost, costs)
+            acc = torch.where(accept, pcost, math.inf)
+            i = _argmin_first(acc)
+            cand_c, cand_v = acc[rows, i], prop[rows, i]
+            us = trandom.uniform(ksw, (max(n - 1, 1),))
+            if do[k].any():
+                _exchange(v, costs, inv_t, us,
+                          pair & do_t[k][:, None] if mixed[k] else pair)
+            better = cand_c < best_c
+            best_c = torch.where(better, cand_c, best_c)
+            best_v = torch.where(better[:, None], cand_v, best_v)
+            cold.append(costs[:, -1])
+            best.append(best_c)
+            if collect:
+                props.append(prop)
+                vecs.append(pvec.reshape(S, n, 3))
+        ys = (torch.stack(cold), torch.stack(best))
+        if collect:
+            ys = ys + (torch.stack(props), torch.stack(vecs))
+        return (v, costs, best_v, best_c, keys), ys
+
+    def parallel_tempering(self, v0: np.ndarray, temps, sweeps: int,
+                           swap_every: int, seed: int, mins, medians,
+                           weights, pair_mask, ci, widx,
+                           price=None, embf=None, profile=None,
+                           pprofile=None, noc_on=None, sched_on=None,
+                           collect_samples: bool = True,
+                           mesh=None, segment: Optional[int] = None,
+                           checkpoint=None,
+                           archives: Optional[Sequence] = None
+                           ) -> ScenarioPTResult:
+        """Run the whole scenario grid's tempering loop.
+
+        ``v0`` is ``[S, n, width]`` (cell-major seed populations),
+        ``temps`` / ``weights`` / ``pair_mask`` the per-cell ladders
+        ``[S, n]``, Eq. 17 rows ``[S, n, 6]`` and exchange gates ``[S,
+        n-1]``, ``mins`` / ``medians`` the per-cell normalizer rows,
+        ``ci`` the per-cell grid carbon intensities and ``widx`` the
+        per-cell workload indices into this engine's workloads.
+        ``price`` / ``embf`` / ``profile`` / ``pprofile`` are the
+        optional per-cell regional axes ([S], [S], [S, 24], [S, 24]);
+        omitted axes take their neutral columns. ``noc_on`` ([S],
+        mesh_noc engines only) and ``sched_on`` ([S], window engines
+        only) gate each cell's NoC and schedule move levels (default:
+        the space's liveness).
+
+        ``segment`` cuts the sweeps into host-driven chunks of that many
+        (default: one chunk) without changing a bit; ``archives`` (one
+        :class:`~repro_torch.pathfinding.pareto.ParetoArchive` per cell)
+        are fed every evaluated design at each segment end in place of
+        returning ``.samples``. ``checkpoint`` (checkpoint/resume) and
+        ``mesh`` (sharding the cells over several devices) are later
+        slices of the port and raise ``NotImplementedError``."""
+        v0 = np.asarray(v0, dtype=np.int32)
+        if v0.ndim != 3:
+            raise ValueError(f"v0 must be [S, n, width], got {v0.shape}")
+        S, n, width = v0.shape
+        sweeps = int(sweeps)
+        if segment is not None and int(segment) < 1:
+            raise ValueError(f"segment must be >= 1, got {segment}")
+        seg_size = max(1, sweeps) if segment is None else int(segment)
+        if checkpoint is not None and collect_samples \
+                and archives is None:
+            raise ValueError(
+                "checkpointing with collect_samples requires "
+                "archives= to feed: bulk .samples live only in "
+                "process memory and would be lost across a resume")
+        if archives is not None and len(archives) != S:
+            raise ValueError(
+                f"need one archive per cell: {len(archives)} != {S}")
+        widx_a = self._widx(widx, S)
+        gates = []
+        for name, on, live, kind in (
+                ("noc_on", noc_on, self.space.noc_live, "mesh_noc"),
+                ("sched_on", sched_on, self.space.sched_live, "window")):
+            if kind in (self.cfg.comm, self.cfg.schedule):
+                gates.append(np.full(S, 1.0 if live else 0.0) if on is None
+                             else np.asarray(on, np.float64).reshape(S))
+            elif on is not None:
+                raise ValueError(
+                    "noc_on is only meaningful for mesh_noc engines"
+                    if name == "noc_on" else
+                    "sched_on is only meaningful for window-schedule "
+                    "engines")
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpoint/resume of the torch scenario engine is not "
+                "ported yet (it comes with the resume slice)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharding the scenario cells over a device mesh is not "
+                "ported yet (ROADMAP queue 1, item 11)")
+        t = self._t
+        ci_a = np.asarray(ci, np.float64).reshape(S)
+        consts = (
+            t(np.asarray(temps, np.float64).reshape(S, n)),
+            t(np.asarray(mins, np.float64).reshape(S, 6)),
+            t(np.asarray(medians, np.float64).reshape(S, 6)),
+            t(np.asarray(weights, np.float64).reshape(S, n, 6)),
+            t(np.asarray(pair_mask, bool).reshape(S, max(n - 1, 1)),
+              torch.bool),
+            t(ci_a),
+            *[t(x) for x in self._region_cols(S, ci_a, price, embf,
+                                              profile, pprofile)],
+            t(widx_a, I64), *[t(g) for g in gates])
+
+        # the seed populations: one [S*n] evaluation, per-cell keys
+        v = t(v0, I64)
+        args, rt = self._rows(n, consts[10], *consts[1:4], *consts[5:10])
+        _, cost0, vec0 = _eval_cost(v.reshape(S * n, width), *args,
+                                    self.tables, self.cfg, rt)
+        cost0 = cost0.reshape(S, n)
+        keys = trandom.fold_in(trandom.PRNGKey(seed, self.device),
+                               torch.arange(S, device=self.device))
+        bi = _argmin_first(cost0)
+        rows = torch.arange(S, device=self.device)
+        carry = (v, cost0, v[rows, bi], cost0[rows, bi], keys)
+        hist_parts = [cost0.amin(dim=1).cpu().numpy()[:, None]]
+        seed_block = ((v0[None], vec0.reshape(1, S, n, 3).cpu().numpy())
+                      if collect_samples else None)
+        enc_parts: List[np.ndarray] = []
+        vec_parts: List[np.ndarray] = []
+        sweep_done = np.zeros(S, dtype=np.int64)
+
+        def feed(enc_s, vec_s):
+            for s in range(S):
+                archives[s].insert(enc_s[:, s].reshape(-1, width),
+                                   vec_s[:, s].reshape(-1, 3))
+
+        done = 0
+        while done < sweeps:
+            seg = min(seg_size, sweeps - done)
+            run = self.segment_runner(S, n, seg, swap_every,
+                                      collect_samples)
+            carry, ys = run(*carry, sweep_done, *consts)
+            hist_parts.append(ys[0].T.cpu().numpy())
+            if collect_samples:
+                enc_s = ys[2].to(torch.int32).cpu().numpy()
+                vec_s = ys[3].cpu().numpy()
+                if seed_block is not None:
+                    enc_s = np.concatenate([seed_block[0], enc_s])
+                    vec_s = np.concatenate([seed_block[1], vec_s])
+                    seed_block = None
+                if archives is not None:
+                    feed(enc_s, vec_s)
+                else:
+                    enc_parts.append(enc_s)
+                    vec_parts.append(vec_s)
+            sweep_done = sweep_done + seg
+            done += seg
+        if seed_block is not None and archives is not None:
+            # zero sweeps: the seed population is all there is to feed
+            feed(*seed_block)
+            seed_block = None
+
+        samples = None
+        if collect_samples and archives is None:
+            blocks_e = ([seed_block[0]] if seed_block is not None
+                        else []) + enc_parts
+            blocks_v = ([seed_block[1]] if seed_block is not None
+                        else []) + vec_parts
+            samples = dict(enc=np.concatenate(blocks_e),
+                           vec=np.concatenate(blocks_v))
+        v_fin, costs_fin, best_v, best_c, _ = carry
+        return ScenarioPTResult(
+            best_enc=best_v.to(torch.int32).cpu().numpy(),
+            best_cost=best_c.cpu().numpy(),
+            history=np.concatenate(hist_parts, axis=1),
+            evaluations=S * n * (1 + sweeps),
+            final_enc=v_fin.to(torch.int32).cpu().numpy(),
+            final_costs=costs_fin.cpu().numpy(),
+            samples=samples)
+
+
+# ---------------------------------------------------------------------------
 # Cached evaluators + functional entry points
 # ---------------------------------------------------------------------------
 
@@ -1424,6 +1938,35 @@ def get_device_evaluator(wl: GEMMWorkload, db: TechDB = DEFAULT_DB,
         _DEVICE_EVALUATORS, key, db,
         lambda: DeviceEvaluator(wl, db, tile_sizes, space, dev),
         _DEVICE_EVALUATOR_CACHE_MAX)
+
+
+_SCENARIO_ENGINES: Dict[tuple, Tuple[TechDB, ScenarioEngine]] = {}
+_SCENARIO_ENGINE_CACHE_MAX = 4
+
+
+def get_scenario_engine(workloads: Sequence[GEMMWorkload],
+                        db: TechDB = DEFAULT_DB,
+                        tile_sizes: Tuple[int, int, int] = DEFAULT_TILE,
+                        space: Optional[DesignSpace] = None,
+                        torch_device: DeviceLike = None) -> ScenarioEngine:
+    """Cached :class:`ScenarioEngine` per (workload tuple, db, tiles,
+    space layout, torch device), the stacked twin of
+    :func:`get_device_evaluator`. The db's load profile and router share
+    enter the key as values, so two TechDBs that differ only there never
+    share an engine even if an ``id()`` is recycled."""
+    from repro_torch.pathfinding.batch import (
+        cached_evaluator,
+        evaluator_cache_key,
+    )
+
+    dev = resolve_device(torch_device)
+    workloads = tuple(workloads)
+    key = evaluator_cache_key(workloads, db, tile_sizes, space) + (
+        tuple(db.load_profile), db.router_area_frac, str(dev))
+    return cached_evaluator(
+        _SCENARIO_ENGINES, key, db,
+        lambda: ScenarioEngine(workloads, db, tile_sizes, space, dev),
+        _SCENARIO_ENGINE_CACHE_MAX)
 
 
 def propose_batch(encoded: np.ndarray, wl: GEMMWorkload,

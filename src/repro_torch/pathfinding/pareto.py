@@ -21,21 +21,28 @@ The counterpart of the archive half of :mod:`repro.pathfinding.pareto`:
   replica-exchange pair mask keep each direction's ladder independent.
   Every evaluation feeds the archive, so one call maps the frontier.
 
-The scenario sweep of the reference module is a later slice of the
-port.
+* :class:`ScenarioSweep` — the frontier across deployment regions and
+  workloads: the whole (workload x region) grid as one stacked
+  population of the :class:`~repro_torch.pathfinding.device.
+  ScenarioEngine`, with :class:`Scenario` cells, a
+  :class:`ScenarioFrontier` result and the per-cell key
+  :func:`fold_cell_key`.
 """
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, random as trandom, resolve_device
+from repro_torch.core.regions import Region, RegionLike, as_region
 from repro_torch.core.sa import OBJECTIVE_AXES, random_system
-from repro_torch.core.templates import Template
+from repro_torch.core.techdb import DEFAULT_DB, TechDB
+from repro_torch.core.templates import TEMPLATES, Template
+from repro_torch.core.workload import GEMMWorkload
 from repro_torch.pathfinding.space import DesignSpace
 
 N_AXES = len(OBJECTIVE_AXES)
@@ -558,3 +565,349 @@ class ScalarizationSweep:
         return SearchResult(best, mb.row(i), float(cost[i]),
                             list(history), evals, objective.cache,
                             frontier=archive)
+
+
+# ---------------------------------------------------------------------------
+# ScenarioSweep: frontier x deployment region x workload
+# ---------------------------------------------------------------------------
+
+# representative grid carbon intensities, kg CO2 / kWh (world-average
+# default matches techdb.CARBON_INTENSITY_KG_PER_KWH)
+REGION_INTENSITIES: Dict[str, float] = {
+    "hydro": 0.024,        # e.g. NO/IS grids
+    "nuclear-heavy": 0.085,
+    "eu-avg": 0.276,
+    "world-avg": 0.475,
+    "coal-heavy": 0.820,
+}
+
+
+def workloads_from_configs(names: Sequence[str],
+                           tokens: int = 512) -> List[GEMMWorkload]:
+    """MLP up-projection GEMMs (``tokens x d_model x d_ff``) for model
+    configs from :mod:`repro_torch.configs`, the dominant GEMM shape of
+    each architecture, usable anywhere a Table IV workload is. Only the
+    architectures the port serves (``rwkv6-3b``, ``recurrentgemma-9b``)
+    resolve; the JAX package's other eight raise the registry's
+    ``NotImplementedError`` until their slice of the port (ROADMAP,
+    queue 1, item 12)."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for name in names:
+        cfg = get_config(name)
+        out.append(GEMMWorkload(f"{cfg.name}-mlp{tokens}", tokens,
+                                cfg.d_model, cfg.d_ff))
+    return out
+
+
+def fold_cell_key(base: int, idx: int) -> int:
+    """Deterministic per-cell search key: ``fold_in`` of the cell index
+    into the key of ``base``, as a 63-bit Python int (a valid seed
+    itself). Distinct (workload, region) cells explore with distinct,
+    reproducible streams; the stacked engine applies the same fold on
+    the device, and the host fallback and the per-cell seed populations
+    use this helper.
+
+    The key is built from the low 32 bits of ``base``, as the
+    reference's is (it calls ``PRNGKey`` in jax's default 32-bit mode,
+    which truncates the seed), while the engine's own key keeps all 64
+    bits of the seed (ROADMAP queue 3, R8)."""
+    a, b = (int(x) for x in trandom.fold_in(
+        trandom.PRNGKey(int(base) & 0xFFFFFFFF), idx).tolist())
+    return ((a << 32) | b) & 0x7FFF_FFFF_FFFF_FFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One (workload, deployment region) cell of a sweep.
+
+    ``spec`` carries the full regional axes (price, embodied factor,
+    24h profiles); ``carbon_intensity`` stays a plain float for
+    reporting (it equals ``spec.carbon_intensity``)."""
+
+    workload: GEMMWorkload
+    region: str
+    carbon_intensity: float
+    spec: Optional[Region] = None
+
+    @property
+    def key(self) -> Tuple[str, str]:
+        return (self.workload.name, self.region)
+
+
+@dataclasses.dataclass
+class ScenarioFrontier:
+    """Results of a :class:`ScenarioSweep`: one ``SearchResult`` (and
+    frontier archive) per scenario."""
+
+    scenarios: List[Scenario]
+    results: Dict[Tuple[str, str], "object"]   # key -> SearchResult
+
+    def frontier(self, workload_name: str, region: str) -> ParetoArchive:
+        return self.results[(workload_name, region)].frontier
+
+    def merged(self, workload_name: str,
+               max_size: int = 512) -> ParetoArchive:
+        """Union frontier across regions for one workload (the envelope a
+        deployment-portfolio planner optimizes against)."""
+        out = ParetoArchive(max_size=max_size)
+        for s in self.scenarios:
+            if s.workload.name == workload_name:
+                out.merge(self.results[s.key].frontier)
+        return out
+
+    def rows(self):
+        """Flat (workload, region, ci, latency, dollar, cfp) rows for
+        CSV/JSON reporting."""
+        for s in self.scenarios:
+            arch = self.results[s.key].frontier
+            for v in arch.vectors:
+                yield (s.workload.name, s.region, s.carbon_intensity,
+                       float(v[0]), float(v[1]), float(v[2]))
+
+
+@dataclasses.dataclass
+class ScenarioSweep:
+    """Map the Pareto frontier across deployment regions and workloads.
+
+    Each (workload, region) cell runs the inner
+    :class:`ScalarizationSweep` under the region's axes: scalar grid
+    carbon intensity and, through :class:`~repro_torch.core.regions.
+    Region` values in ``regions``, a 24h grid-intensity profile, a
+    regional electricity price (and price profile) and an embodied
+    factor. Every cell gets a distinct key (:func:`fold_cell_key`).
+
+    On the device path the whole grid is **one stacked population** of
+    the :class:`~repro_torch.pathfinding.device.ScenarioEngine`: a sweep
+    of all S cells is one evaluation, one ``prefix_select`` launch. The
+    normalizer fits batch too: one evaluation per workload plus exact
+    per-region rescales (:func:`~repro_torch.pathfinding.batch.
+    fit_region_normalizers`). The device path seeds each cell with
+    ``random_system`` alone, as the reference does.
+
+    ``budget`` is the *total* evaluation budget, split evenly across
+    cells (``budget // n_cells`` each). ``shard`` is ``"auto"`` or
+    ``False``, both one device; ``True`` (a device mesh over the cells)
+    is a later slice of the port and raises ``NotImplementedError``."""
+
+    strategy: ScalarizationSweep = dataclasses.field(
+        default_factory=lambda: ScalarizationSweep(directions=8,
+                                                   n_chains=4, sweeps=40))
+    regions: Dict[str, RegionLike] = dataclasses.field(
+        default_factory=lambda: dict(REGION_INTENSITIES))
+    norm_samples: int = 400
+    norm_seed: int = 1234
+    shard: Union[bool, str] = "auto"
+    # communication model of the searched DesignSpace (None = the
+    # REPRO_COMM_MODEL-resolved default)
+    comm: Optional[str] = None
+    # schedule model of the searched DesignSpace (None = the
+    # REPRO_SCHEDULE-resolved default)
+    schedule: Optional[str] = None
+
+    def run(self, workloads, template: Union[str, Template] = "T1",
+            db: TechDB = DEFAULT_DB,
+            device: bool = True, budget: Optional[int] = None,
+            key: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None,
+            segment: Optional[int] = None,
+            torch_device: DeviceLike = None) -> ScenarioFrontier:
+        """Run the grid of ``workloads`` (a ``GEMMWorkload``, a sequence
+        of them, or a :class:`~repro_torch.pathfinding.scenario.
+        ScenarioSpec`) x ``self.regions`` on ``torch_device`` (``None``
+        = cuda). A spec supplies the workloads, regions, comm/schedule
+        models and the budget/segment/checkpoint knobs; passing those
+        loose kwargs alongside a spec is an error. ``segment`` cuts the
+        stacked loop into host-driven chunks without changing a bit.
+        ``checkpoint_dir`` needs the device path and is not supported
+        yet (checkpoint/resume is a later slice of the port)."""
+        from repro_torch.pathfinding.batch import fit_region_normalizers
+        from repro_torch.pathfinding.pathfinder import Pathfinder
+        from repro_torch.pathfinding.scenario import ScenarioSpec
+        from repro_torch.pathfinding.strategies import (
+            _check_budget,
+            _checkpointer,
+            _resolve_key,
+        )
+
+        if isinstance(workloads, ScenarioSpec):
+            spec = workloads
+            if (budget is not None or checkpoint_dir is not None
+                    or segment is not None):
+                raise ValueError(
+                    "budget/segment/checkpoint_dir ride inside the "
+                    "ScenarioSpec; don't also pass them to run()")
+            sweep = dataclasses.replace(
+                self, regions=spec.region_map(),
+                comm=spec.comm if spec.comm is not None else self.comm,
+                schedule=(spec.schedule if spec.schedule is not None
+                          else self.schedule))
+            return sweep.run(
+                list(spec.workloads), template=template, db=db,
+                device=device, budget=spec.budget, key=key,
+                checkpoint_dir=spec.checkpoint_dir, segment=spec.segment,
+                torch_device=torch_device)
+        _check_budget(budget)
+        if checkpoint_dir is not None and not device:
+            raise ValueError(
+                "checkpoint_dir requires the device path "
+                "(ScenarioSweep.run(device=True)); the per-cell host "
+                "fallback cannot checkpoint")
+        _checkpointer(checkpoint_dir)
+        if device and self.shard is True:
+            raise NotImplementedError(
+                "shard=True (the scenario cells over a device mesh) is "
+                "not ported yet (ROADMAP queue 1, item 11); use "
+                "shard='auto' or False")
+        dev = resolve_device(torch_device)
+        if isinstance(workloads, GEMMWorkload):
+            workloads = [workloads]
+        workloads = list(workloads)
+        tpl = TEMPLATES[template] if isinstance(template, str) else template
+        base = _resolve_key(key)
+        # regions accept floats (scalar-CI cells) or Region specs; a
+        # float is a neutral-axes Region
+        regions = [(name, as_region(spec))
+                   for name, spec in self.regions.items()]
+        # cell-major grid: workloads outer, regions inner (cell index =
+        # wi * len(regions) + ri)
+        cells = [(wi, wl, region, reg)
+                 for wi, wl in enumerate(workloads)
+                 for region, reg in regions]
+        cell_budget = None
+        if budget is not None:
+            cell_budget = budget // len(cells)
+            if cell_budget < 1:
+                raise ValueError(
+                    f"total budget {budget} < one evaluation per cell "
+                    f"({len(cells)} cells)")
+        # fail fast on inputs the inner ScalarizationSweep would reject
+        # per cell anyway, before paying for the normalizer fits
+        strat = self.strategy
+        if hasattr(strat, "weight_rows"):
+            if strat.frontier_size < 1:
+                raise ValueError(
+                    "ScenarioSweep requires frontier_size >= 1 on its "
+                    "inner ScalarizationSweep (the per-cell frontier "
+                    "archives are the sweep's output), got "
+                    f"{strat.frontier_size}")
+            k = strat.weight_rows().shape[0]
+            nc = k * strat.n_chains
+            if cell_budget is not None and cell_budget < nc:
+                raise ValueError(
+                    f"per-cell budget {cell_budget} < one chain "
+                    f"population {nc} ({k} directions x {strat.n_chains} "
+                    f"chains); total budget must be >= "
+                    f"{nc * len(cells)}")
+        space = DesignSpace(db, comm=self.comm, schedule=self.schedule)
+        norm_of: Dict[Tuple[int, str], object] = {}
+        for wi, wl in enumerate(workloads):
+            fitted = fit_region_normalizers(
+                wl, [reg for _, reg in regions], db,
+                samples=self.norm_samples, seed=self.norm_seed, space=space,
+                torch_device=dev)
+            for (region, _), nz in zip(regions, fitted):
+                norm_of[(wi, region)] = nz
+        if device:
+            return self._run_device(cells, workloads, tpl, db, space,
+                                    norm_of, cell_budget, base, segment,
+                                    dev)
+
+        # host fallback: one Pathfinder per cell, distinct folded keys,
+        # split budget, pre-fitted region normalizers
+        scenarios: List[Scenario] = []
+        results: Dict[Tuple[str, str], object] = {}
+        for idx, (wi, wl, region, reg) in enumerate(cells):
+            db_s = dataclasses.replace(db, **reg.db_overrides())
+            pf = Pathfinder(wl, tpl, db=db_s, device=False,
+                            norm=norm_of[(wi, region)],
+                            space=DesignSpace(db_s, comm=self.comm,
+                                              schedule=self.schedule),
+                            torch_device=dev)
+            res = pf.search(strategy=self.strategy, budget=cell_budget,
+                            key=fold_cell_key(base, idx))
+            sc = Scenario(wl, region, reg.carbon_intensity, reg)
+            scenarios.append(sc)
+            results[sc.key] = res
+        return ScenarioFrontier(scenarios, results)
+
+    def _run_device(self, cells, workloads, tpl, db, space, norm_of,
+                    cell_budget, base, segment, dev) -> ScenarioFrontier:
+        from repro_torch.core.evaluate import evaluate
+        from repro_torch.core.scalesim import SimCache
+        from repro_torch.pathfinding.device import get_scenario_engine
+        from repro_torch.pathfinding.strategies import (
+            SearchResult,
+            budget_sweeps,
+        )
+
+        strat = self.strategy
+        w6 = strat.weight_rows()
+        k = w6.shape[0]
+        nc = k * strat.n_chains
+        # run() already rejected cell_budget < nc with grid context
+        sweeps = budget_sweeps(strat.sweeps, nc, cell_budget)
+        S = len(cells)
+        # per-chain layouts come from the inner strategy itself, so the
+        # stacked grid and the single-cell device path cannot drift
+        temps = np.tile(strat.chain_temps(k), (S, 1))
+        weights = np.tile(strat.chain_weights(w6)[None], (S, 1, 1))
+        pair = np.tile(strat.chain_pair_mask(nc), (S, 1))
+        mm = [norm_of[(wi, region)].weights_arrays()
+              for (wi, _, region, _) in cells]
+        mins = np.stack([a for a, _ in mm])
+        medians = np.stack([b for _, b in mm])
+        ci = np.array([reg.carbon_intensity for *_, reg in cells],
+                      dtype=np.float64)
+        price = np.array([reg.electricity_price for *_, reg in cells],
+                         dtype=np.float64)
+        embf = np.array([reg.emb_factor for *_, reg in cells],
+                        dtype=np.float64)
+        profile = np.stack([reg.profile_array() for *_, reg in cells])
+        pprofile = np.stack([reg.price_array() for *_, reg in cells])
+        widx = np.array([wi for wi, *_ in cells], dtype=np.int32)
+        v0 = np.stack([
+            space.encode_many([
+                random_system(random.Random(fold_cell_key(base, idx)),
+                              db, space.max_chiplets)
+                for _ in range(nc)])
+            for idx in range(S)])
+        engine = get_scenario_engine(tuple(workloads), db, space=space,
+                                     torch_device=dev)
+        archives = [ParetoArchive(max_size=strat.frontier_size)
+                    for _ in range(S)]
+        res = engine.parallel_tempering(
+            v0, temps, sweeps, strat.swap_every, seed=base, mins=mins,
+            medians=medians, weights=weights, pair_mask=pair, ci=ci,
+            widx=widx, price=price, embf=embf, profile=profile,
+            pprofile=pprofile, segment=segment, archives=archives)
+        # best-by-template per cell: ONE stacked re-evaluation of the
+        # (padded) archives, not counted against the budget
+        m = max(len(a) for a in archives)
+        enc_f = np.stack([
+            a.encoded if len(a) == m else np.concatenate(
+                [a.encoded, np.repeat(a.encoded[:1], m - len(a), axis=0)])
+            for a in archives])
+        wt = np.tile(np.asarray(tpl.weights, dtype=np.float64), (S, 1))
+        cost_f, _ = engine.evaluate_cost(enc_f, mins, medians, wt, ci,
+                                         widx, price=price, embf=embf,
+                                         profile=profile,
+                                         pprofile=pprofile)
+        cache = SimCache()
+        evals_cell = nc * (1 + sweeps)
+        scenarios: List[Scenario] = []
+        results: Dict[Tuple[str, str], object] = {}
+        for s, (wi, wl, region, reg) in enumerate(cells):
+            arch = archives[s]
+            cc = cost_f[s, :len(arch)]
+            i = int(np.argmin(cc))
+            best = space.decode(arch.encoded[i])
+            db_s = dataclasses.replace(db, **reg.db_overrides())
+            best_m = evaluate(best, wl, db_s, cache=cache)
+            sc = Scenario(wl, region, reg.carbon_intensity, reg)
+            scenarios.append(sc)
+            results[sc.key] = SearchResult(
+                best, best_m, float(cc[i]), res.history[s].tolist(),
+                evals_cell, cache, frontier=arch)
+        return ScenarioFrontier(scenarios, results)

@@ -9,6 +9,7 @@ evaluation device and drives a :class:`SearchStrategy`::
     pf = Pathfinder(workload(1), "T1")              # runs on cuda
     result = pf.search(ParallelTempering(n_chains=512, sweeps=100), key=0)
     front = pf.pareto_front()                       # ScalarizationSweep
+    grid = pf.run_scenarios(workloads=[workload(1), workload(6)])
 
 ``torch_device`` names the torch device of the batched and fused
 evaluation; ``None`` means ``cuda`` and raises without a GPU. Objective
@@ -173,3 +174,67 @@ class Pathfinder:
 
             strategy = ScalarizationSweep()
         return self.search(strategy, budget, key).frontier
+
+    def run_scenarios(self, sweep=None, workloads=None, regions=None,
+                      budget: Optional[int] = None,
+                      key: Optional[int] = None,
+                      checkpoint_dir: Optional[str] = None,
+                      segment: Optional[int] = None):
+        """Map frontiers across deployment regions (and optionally extra
+        workloads) with this Pathfinder's template, TechDB and
+        ``torch_device``: a :class:`~repro_torch.pathfinding.pareto.
+        ScenarioSweep` whose whole region x workload grid runs as one
+        stacked population on the device path (see
+        :class:`repro_torch.pathfinding.device.ScenarioEngine`).
+
+        ``sweep`` is a :class:`ScenarioSweep` (search knobs) or a
+        :class:`~repro_torch.pathfinding.scenario.ScenarioSpec`, the
+        frozen description of the whole run (workloads, regions,
+        comm/schedule models, budget/segment/checkpoint knobs). With a
+        spec, passing the loose ``workloads``/``regions``/``budget``/
+        ``checkpoint_dir``/``segment`` kwargs as well is an error. The
+        loose ``regions=`` mapping gives the same bits but is deprecated
+        in favor of the spec.
+
+        ``budget`` is the sweep's *total* evaluation budget, split evenly
+        across cells; ``checkpoint_dir`` is not supported yet
+        (checkpoint/resume is a later slice of the port). Returns a
+        :class:`~repro_torch.pathfinding.pareto.ScenarioFrontier`."""
+        import dataclasses
+        import warnings
+
+        from repro_torch.pathfinding.pareto import ScenarioSweep
+        from repro_torch.pathfinding.scenario import ScenarioSpec
+
+        if not self.batched:
+            raise ValueError(
+                "run_scenarios requires the carbonpath objective backend: "
+                "ScenarioSweep rebuilds per-cell objectives from the "
+                "TechDB and cannot carry a custom or chipletgym "
+                "evaluate_fn")
+        if isinstance(sweep, ScenarioSpec):
+            if (workloads is not None or regions is not None
+                    or budget is not None or checkpoint_dir is not None
+                    or segment is not None):
+                raise ValueError(
+                    "a ScenarioSpec already carries the workloads, "
+                    "regions and budget/segment/checkpoint knobs; don't "
+                    "also pass them to run_scenarios()")
+            return ScenarioSweep().run(
+                sweep, template=self.template, db=self.db,
+                device=self.device, key=key,
+                torch_device=self.torch_device)
+        sweep = sweep or ScenarioSweep()
+        if regions is not None:
+            warnings.warn(
+                "run_scenarios(regions=...) is deprecated: pass a "
+                "repro_torch.pathfinding.scenario.ScenarioSpec (unified "
+                "workloads + {name: Region} + run knobs) as the first "
+                "argument instead",
+                DeprecationWarning, stacklevel=2)
+            sweep = dataclasses.replace(sweep, regions=dict(regions))
+        wls = [self.wl] if workloads is None else list(workloads)
+        return sweep.run(wls, template=self.template, db=self.db,
+                         device=self.device, budget=budget, key=key,
+                         checkpoint_dir=checkpoint_dir, segment=segment,
+                         torch_device=self.torch_device)

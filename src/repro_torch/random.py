@@ -13,6 +13,13 @@ the same bits, not just the same distribution. This module reproduces
 exactly as ``jax.random`` computes them with
 ``jax_threefry_partitionable=False``.
 
+Every function also takes a leading batch of keys, ``[S, 2]``, and
+returns what ``jax.vmap`` of the same call returns (``split`` ->
+``[S, n, 2]``, ``fold_in`` -> ``[S, 2]``, ``uniform`` ->
+``[S, *shape]``) from one pass over all S keys, so the number of
+kernels does not grow with S. ``fold_in`` also takes a ``[S]`` tensor of
+counters for one key: the vmap over the data, ``[S, 2]``.
+
 Keys are int64 tensors holding uint32 words. All arithmetic runs on
 int64 and is masked back to 32 bits after every add and shift (torch's
 ``>>`` on int64 is arithmetic, and its uint32 coverage is thin), so the
@@ -36,11 +43,20 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) & _M32) | (x >> (32 - r))
 
 
+def _key_words(key: torch.Tensor):
+    """The two key words; a ``[S, 2]`` batch gives ``[S, 1]`` columns
+    that broadcast over each key's ``[S, m]`` counters."""
+    if key.dim() == 1:
+        return key[0], key[1]
+    return key[:, 0:1], key[:, 1:2]
+
+
 def threefry_2x32(key: torch.Tensor, x0: torch.Tensor,
                   x1: torch.Tensor):
     """The threefry2x32 block cipher on two equal-shape word arrays
-    (20 rounds, key schedule injected every 4 rounds)."""
-    k0, k1 = key[0], key[1]
+    (20 rounds, key schedule injected every 4 rounds). A ``[S, 2]`` key
+    batch hashes ``[S, m]`` (or broadcastable ``[m]``) words per key."""
+    k0, k1 = _key_words(key)
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -55,11 +71,12 @@ def threefry_2x32(key: torch.Tensor, x0: torch.Tensor,
 
 def _hash_counts(key: torch.Tensor, n: int) -> torch.Tensor:
     """``threefry_2x32(key, iota(n))`` for even ``n``: the counter array
-    is cut into halves, hashed pairwise and the halves concatenated."""
+    is cut into halves, hashed pairwise and the halves concatenated
+    (``[n]``, or ``[S, n]`` for a key batch)."""
     half = n // 2
     cnt = torch.arange(n, dtype=torch.int64, device=key.device)
     y0, y1 = threefry_2x32(key, cnt[:half], cnt[half:])
-    return torch.cat([y0, y1])
+    return torch.cat([y0, y1], dim=-1)
 
 
 def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
@@ -71,18 +88,26 @@ def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> ``[num, 2]``."""
-    return _hash_counts(key, 2 * num).reshape(num, 2)
+    """``jax.random.split(key, num)`` -> ``[num, 2]`` (``[S, num, 2]``
+    for a key batch)."""
+    return _hash_counts(key, 2 * num).reshape(*key.shape[:-1], num, 2)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+def fold_in(key: torch.Tensor,
+            data: Union[int, torch.Tensor]) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the key hashed with the counter
-    pair ``(0, data)``."""
+    pair ``(0, data)``. A ``[S, 2]`` key batch folds the same ``data``
+    into each key; a ``[S]`` int64 tensor of ``data`` folds each counter
+    into the one ``[2]`` key. Both give ``[S, 2]``."""
+    if isinstance(data, torch.Tensor):
+        x1 = data.to(torch.int64) & _M32
+        y0, y1 = threefry_2x32(key, torch.zeros_like(x1), x1)
+        return torch.stack([y0, y1], dim=-1)
     x0 = torch.zeros(1, dtype=torch.int64, device=key.device)
     x1 = torch.full((1,), int(data) & _M32, dtype=torch.int64,
                     device=key.device)
     y0, y1 = threefry_2x32(key, x0, x1)
-    return torch.cat([y0, y1])
+    return torch.cat([y0, y1], dim=-1)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
@@ -92,12 +117,28 @@ def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     half of the hashed counters, the low word from the second half) and
     keeps the top 52 as the mantissa of a number in ``[1, 2)``, minus
     one. That is exactly ``mantissa * 2**-52``, which is what is
-    computed here."""
-    shape = tuple(int(s) for s in shape)
-    size = math.prod(shape)
+    computed here. A ``[S, 2]`` key batch gives ``[S, *shape]``."""
+    shape = tuple(key.shape[:-1]) + tuple(int(s) for s in shape)
+    size = math.prod(shape[key.dim() - 1:])
     if size == 0:
         return torch.zeros(shape, dtype=torch.float64, device=key.device)
     bits = _hash_counts(key, 2 * size)
-    hi, lo = bits[:size], bits[size:]
+    hi, lo = bits[..., :size], bits[..., size:]
     mant = (hi << 20) | (lo >> 12)
     return (mant.to(torch.float64) * 2.0 ** -52).reshape(shape)
+
+
+def uniform_cells(keys: torch.Tensor, rows: int, n: int) -> torch.Tensor:
+    """``uniform(keys[s], (rows, n))`` for each of S keys, laid out as one
+    ``[rows, S*n]`` matrix: row i, columns ``s*n .. s*n + n - 1`` hold
+    key s's row i. Value k of a key hashes the counter pair ``(k, k +
+    rows*n)``, as :func:`uniform` does; here the counters are broadcast
+    against the ``[S, 1]`` key words in this layout, so no copy
+    transposes the draws and the work does not grow in kernels with
+    S."""
+    size = int(rows) * int(n)
+    cnt = torch.arange(size, dtype=torch.int64,
+                       device=keys.device).reshape(rows, 1, n)
+    hi, lo = threefry_2x32(keys, cnt, cnt + size)
+    mant = (hi << 20) | (lo >> 12)
+    return (mant.to(torch.float64) * 2.0 ** -52).reshape(rows, -1)

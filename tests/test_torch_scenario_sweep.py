@@ -1,0 +1,330 @@
+"""The port's scenario facades against a live run of the reference:
+``ScenarioSweep.run`` on the 5 x 2 grid (the default five regions x
+workloads 1 and 6) on the device path, its host fallback, the total
+budget split across cells, ``ScenarioSpec``, ``Pathfinder.run_scenarios``
+and ``workloads_from_configs``.
+
+Exact: best designs, frontier encodings, evaluation counts, error
+messages. Within 1e-6 relative: best costs, histories, frontier
+vectors. The ``cuda`` cases hold a 2-cell sweep on the card against the
+same sweep on the CPU."""
+import dataclasses
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_support import run_reference
+
+from repro_torch.core import TEMPLATES, workload
+from repro_torch.core.regions import Region, diurnal_profile
+from repro_torch.pathfinding import (
+    REGION_INTENSITIES,
+    DesignSpace,
+    Pathfinder,
+    ScalarizationSweep,
+    ScenarioSpec,
+    ScenarioSweep,
+    non_dominated_mask,
+    workloads_from_configs,
+)
+
+RTOL = 1e-6
+WL = workload(1)
+CONFIGS = ["rwkv6-3b", "recurrentgemma-9b"]
+TWO = {"clean": 0.024, "dirty": 0.82}
+
+REF = """
+from repro.core import workload
+from repro.pathfinding import DesignSpace, ScalarizationSweep, ScenarioSweep
+from repro.pathfinding.pareto import workloads_from_configs
+
+space = DesignSpace()
+
+
+def save(tag, sf):
+    for i, s in enumerate(sf.scenarios):
+        r = sf.results[s.key]
+        t = f"{tag}/{i}/"
+        out[t + "key"] = np.array("|".join(s.key))
+        out[t + "ci"] = np.array(s.carbon_intensity)
+        out[t + "best_enc"] = space.encode(r.best)
+        out[t + "best_cost"] = np.array(r.best_cost)
+        out[t + "history"] = np.array(r.history)
+        out[t + "evaluations"] = np.array(r.evaluations)
+        out[t + "front_enc"] = r.frontier.encoded
+        out[t + "front_vec"] = r.frontier.vectors
+        out[t + "latency_s"] = np.array(r.best_metrics.latency_s)
+
+
+wls = [workload(1), workload(6)]
+grid = ScenarioSweep(
+    strategy=ScalarizationSweep(directions=2, n_chains=2, sweeps=3),
+    norm_samples=100)
+save("grid", grid.run(wls, key=11))
+two = ScenarioSweep(
+    strategy=ScalarizationSweep(directions=2, n_chains=2, sweeps=3),
+    regions=TWO, norm_samples=80)
+save("host", two.run(workload(1), key=4, device=False))
+budget = ScenarioSweep(
+    strategy=ScalarizationSweep(directions=2, n_chains=2, sweeps=10),
+    regions=TWO, norm_samples=80)
+save("budget", budget.run(workload(1), budget=40, key=2))
+for name, b in (("population", 7), ("per_cell", 1)):
+    try:
+        budget.run(workload(1), budget=b, key=2)
+        out["refuse/" + name] = np.array("none")
+    except Exception as e:
+        out["refuse/" + name] = np.array(f"{type(e).__name__}: {e}")
+for i, wl in enumerate(workloads_from_configs(CONFIGS, tokens=256)):
+    out[f"cfg/{i}"] = np.array([wl.name, str(wl.M), str(wl.K), str(wl.N)])
+"""
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    consts = f"TWO = {TWO!r}\nCONFIGS = {CONFIGS!r}\n"
+    return run_reference(consts + REF, None,
+                         tmp_path_factory.mktemp("ref_scenario_sweep"))
+
+
+def _sweep(sweeps=3, **kw):
+    return ScenarioSweep(
+        strategy=ScalarizationSweep(directions=2, n_chains=2, sweeps=sweeps),
+        **kw)
+
+
+@pytest.fixture(scope="module")
+def grid():
+    return _sweep(norm_samples=100).run([workload(1), workload(6)], key=11,
+                                        torch_device="cpu")
+
+
+def _same(sf, ref, tag):
+    space = DesignSpace()
+    assert len(sf.scenarios) == len({k.split("/")[1] for k in ref
+                                     if k.startswith(tag + "/")})
+    for i, s in enumerate(sf.scenarios):
+        r, t = sf.results[s.key], f"{tag}/{i}/"
+        assert "|".join(s.key) == str(ref[t + "key"])
+        assert s.carbon_intensity == float(ref[t + "ci"])
+        np.testing.assert_array_equal(space.encode(r.best),
+                                      ref[t + "best_enc"])
+        np.testing.assert_array_equal(r.frontier.encoded,
+                                      ref[t + "front_enc"])
+        assert r.evaluations == int(ref[t + "evaluations"])
+        for got, key in ((r.best_cost, "best_cost"), (r.history, "history"),
+                         (r.frontier.vectors, "front_vec"),
+                         (r.best_metrics.latency_s, "latency_s")):
+            got = np.asarray(got, dtype=np.float64)
+            assert np.all(np.isfinite(got))
+            np.testing.assert_allclose(got, ref[t + key], rtol=RTOL, atol=0)
+
+
+def test_grid_5x2_matches_reference(ref, grid):
+    assert len(grid.scenarios) == 10
+    assert [s.region for s in grid.scenarios[:5]] == list(REGION_INTENSITIES)
+    _same(grid, ref, "grid")
+
+
+def test_grid_cells_differ_and_frontiers_are_non_dominated(grid):
+    fronts = [grid.results[s.key].frontier.vectors for s in grid.scenarios]
+    for f in fronts:
+        assert len(f) >= 1 and non_dominated_mask(f).all()
+    for i in range(len(fronts)):
+        for j in range(i + 1, len(fronts)):
+            assert not np.array_equal(fronts[i], fronts[j]), (i, j)
+
+
+def test_grid_rerun_is_bit_equal_and_another_key_moves_it(grid):
+    again = _sweep(norm_samples=100).run([workload(1), workload(6)], key=11,
+                                         torch_device="cpu")
+    other = _sweep(norm_samples=100).run([workload(1), workload(6)], key=12,
+                                         torch_device="cpu")
+    for s in grid.scenarios:
+        a, b = grid.results[s.key], again.results[s.key]
+        np.testing.assert_array_equal(a.frontier.vectors, b.frontier.vectors)
+        assert a.best_cost == b.best_cost and a.history == b.history
+    assert any(not np.array_equal(grid.results[s.key].frontier.vectors,
+                                  other.results[s.key].frontier.vectors)
+               for s in grid.scenarios)
+
+
+def test_segmented_grid_is_bit_equal(grid):
+    seg = _sweep(norm_samples=100).run([workload(1), workload(6)], key=11,
+                                       segment=2, torch_device="cpu")
+    for s in grid.scenarios:
+        a, b = grid.results[s.key], seg.results[s.key]
+        np.testing.assert_array_equal(a.frontier.encoded, b.frontier.encoded)
+        np.testing.assert_array_equal(a.frontier.vectors, b.frontier.vectors)
+        assert a.history == b.history
+
+
+def test_host_fallback_matches_reference(ref):
+    sf = _sweep(regions=TWO, norm_samples=80).run(
+        WL, key=4, device=False, torch_device="cpu")
+    _same(sf, ref, "host")
+
+
+def test_budget_is_split_across_cells(ref):
+    sweep = _sweep(sweeps=10, regions=TWO, norm_samples=80)
+    sf = sweep.run(WL, budget=40, key=2, torch_device="cpu")
+    assert [sf.results[s.key].evaluations for s in sf.scenarios] == [20, 20]
+    _same(sf, ref, "budget")
+
+
+@pytest.mark.parametrize("name,budget", [("population", 7), ("per_cell", 1)])
+def test_budget_refusals_match_reference(ref, name, budget):
+    sweep = _sweep(sweeps=10, regions=TWO, norm_samples=80)
+    want = str(ref["refuse/" + name])
+    assert want.startswith("ValueError: ")
+    with pytest.raises(ValueError) as exc:
+        sweep.run(WL, budget=budget, key=2, torch_device="cpu")
+    assert f"ValueError: {exc.value}" == want
+
+
+def test_workloads_from_configs_match_reference(ref):
+    got = workloads_from_configs(CONFIGS, tokens=256)
+    for i, wl in enumerate(got):
+        assert [wl.name, str(wl.M), str(wl.K), str(wl.N)] == \
+            ref[f"cfg/{i}"].tolist()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        workloads_from_configs(["smollm-135m"])
+
+
+# ---------------------------------------------------------------------------
+# ScenarioSpec
+# ---------------------------------------------------------------------------
+
+
+def test_spec_normalizes_and_hashes():
+    spec = ScenarioSpec(workloads=WL, regions={"a": 0.1, "b": Region(0.5)})
+    assert spec.workloads == (WL,)
+    assert all(isinstance(r, Region) for _, r in spec.regions)
+    again = ScenarioSpec(workloads=(WL,),
+                         regions=(("a", Region(0.1)), ("b", Region(0.5))))
+    assert spec == again and hash(spec) == hash(again)
+    assert list(spec.region_map()) == ["a", "b"]
+    assert spec.region_map()["b"].carbon_intensity == 0.5
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(comm="torus"), "unknown comm model"),
+    (dict(schedule="nightly"), "unknown schedule model"),
+    (dict(regions={}), "1 region"),
+    (dict(workloads=()), "GEMMWorkload")])
+def test_spec_validation(kw, match):
+    args = dict(workloads=WL, regions={"a": 0.1})
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        ScenarioSpec(**args)
+
+
+def test_spec_rejects_loose_kwargs_alongside():
+    spec = ScenarioSpec(workloads=WL, regions={"a": 0.1}, budget=100)
+    with pytest.raises(ValueError, match="ride inside"):
+        ScenarioSweep().run(spec, budget=50, torch_device="cpu")
+    pf = Pathfinder(WL, TEMPLATES["T1"], torch_device="cpu")
+    with pytest.raises(ValueError, match="already carries"):
+        pf.run_scenarios(spec, budget=50)
+    with pytest.raises(ValueError, match="already carries"):
+        pf.run_scenarios(spec, regions={"a": 0.1})
+
+
+def test_spec_replays_loose_regions_bits():
+    """The deprecated ``run_scenarios(regions=...)`` spelling warns and
+    gives the bits of the equivalent ScenarioSpec."""
+    strat = ScalarizationSweep(directions=2, n_chains=2, sweeps=10)
+    pf = Pathfinder(WL, TEMPLATES["T1"], torch_device="cpu")
+    with pytest.warns(DeprecationWarning, match="run_scenarios"):
+        loose = pf.run_scenarios(ScenarioSweep(strategy=strat),
+                                 regions={"a": 0.1, "b": 0.7}, budget=200,
+                                 key=5)
+    spec = ScenarioSpec(workloads=(WL,), regions={"a": 0.1, "b": 0.7},
+                        budget=200)
+    via_spec = ScenarioSweep(strategy=strat).run(spec, key=5,
+                                                 torch_device="cpu")
+    for s in loose.scenarios:
+        a, b = loose.results[s.key], via_spec.results[s.key]
+        assert a.best_cost == b.best_cost and a.best == b.best
+        assert np.array_equal(np.asarray(a.history), np.asarray(b.history))
+
+
+# ---------------------------------------------------------------------------
+# run_scenarios and the refusals of what is not ported
+# ---------------------------------------------------------------------------
+
+
+def test_run_scenarios_facade():
+    pf = Pathfinder(WL, TEMPLATES["T1"], torch_device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        sf = pf.run_scenarios(
+            sweep=dataclasses.replace(_sweep(sweeps=2, norm_samples=80),
+                                      regions=TWO), key=4)
+    assert len(sf.scenarios) == 2
+    assert {s.region for s in sf.scenarios} == set(TWO)
+    merged = sf.merged(WL.name)
+    assert len(merged) >= 1 and non_dominated_mask(merged.vectors).all()
+    rows = list(sf.rows())
+    assert len(rows) == sum(len(sf.results[s.key].frontier)
+                            for s in sf.scenarios)
+    with pytest.raises(ValueError, match="carbonpath"):
+        Pathfinder(WL, objective="chipletgym",
+                   torch_device="cpu").run_scenarios()
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(checkpoint_dir="ckpt"), NotImplementedError),
+    (dict(checkpoint_dir="ckpt", device=False), ValueError)],
+    ids=["device", "host"])
+def test_checkpoint_dir_is_refused(kw, exc):
+    with pytest.raises(exc):
+        _sweep(regions=TWO, norm_samples=80).run(WL, key=1,
+                                                 torch_device="cpu", **kw)
+
+
+def test_shard_true_is_not_ported():
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _sweep(regions=TWO, norm_samples=80, shard=True).run(
+            WL, key=1, torch_device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+def _card_grid(torch_device):
+    regions = {
+        "a": Region(0.3, electricity_price=0.1, emb_factor=1.2,
+                    grid_profile=diurnal_profile(0.3),
+                    price_profile=diurnal_profile(0.1, peak_hour=12)),
+        "b": 0.7}
+    return _sweep(regions=regions, norm_samples=80, comm="mesh_noc",
+                  schedule="window").run(WL, key=3,
+                                         torch_device=torch_device)
+
+
+@pytest.mark.cuda
+def test_two_cell_sweep_on_cuda_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.kernels.prefix_gather import launch_count
+
+    before = launch_count()
+    gpu = _card_grid("cuda")
+    assert launch_count() - before == 1 + 3 + 1
+    cpu = _card_grid("cpu")
+    space = DesignSpace(comm="mesh_noc", schedule="window")
+    for s in cpu.scenarios:
+        a, b = gpu.results[s.key], cpu.results[s.key]
+        np.testing.assert_array_equal(space.encode(a.best),
+                                      space.encode(b.best))
+        np.testing.assert_array_equal(a.frontier.encoded, b.frontier.encoded)
+        np.testing.assert_allclose(a.frontier.vectors, b.frontier.vectors,
+                                   rtol=RTOL, atol=0)
+        np.testing.assert_allclose(a.history, b.history, rtol=RTOL, atol=0)
+        np.testing.assert_allclose(a.best_cost, b.best_cost, rtol=RTOL,
+                                   atol=0)
