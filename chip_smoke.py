@@ -19,8 +19,8 @@ one JSON line that carries the card's name and power limit:
 2. ``kernel``   — ``prefix_select`` on the card against its plain torch
    version on the card, bitwise (``torch.equal``), on the real int64
    tables of workload 1 (single layout) and workloads 1+6 (stacked
-   layout), at P = 256, 300, 320, 512, 1024 and 4096 sampled systems plus
-   edge rows; kernel and plain times by CUDA events (per call, in a CUDA
+   layout), at P = 16, 256, 300, 320, 512, 1024 and 4096 sampled systems
+   plus edge rows; kernel and plain times by CUDA events (per call, in a CUDA
    graph and eager), the bound, the launch geometry and the ``ptxas``
    registers and spills.
 3. ``evaluate`` — ``DeviceEvaluator(workload(1))`` on 4096 systems on
@@ -68,7 +68,38 @@ one JSON line that carries the card's name and power limit:
     and price profiles) on a mesh-NoC + window space, each on the card
     and on the CPU: best designs and frontier encodings equal; history,
     best cost and frontier vectors within 1e-6.
-11. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
+11. ``resume`` — checkpoint/resume: ``DeviceEvaluator.parallel_tempering``
+    at the reference benchmark's shape (workload 1, T1, 512 chains x 100
+    sweeps, swap 5, seed 11, ``ParetoArchive(256)``) monolithic, in
+    50-sweep segments and checkpointed (``SearchCheckpointer``), once
+    each, all bit-identical, with ms per save, snapshot bytes and the
+    save share of the wall; a run preempted after its
+    first snapshot and resumed, bit-identical; ``run_scenarios()`` at its
+    defaults in 10-sweep segments, killed in a subprocess after its
+    first snapshot (``scripts/torch_resume_worker.py``) and resumed by a
+    second one, bit-identical to an uninterrupted run; the card's
+    sweep-50 snapshot resumed on the CPU and a CPU snapshot resumed on
+    the card, each against both devices' uninterrupted runs: final
+    populations equal, floats within 1e-6, best and frontier designs
+    equal up to rounding ties (``tests/test_torch_ties.py``'s
+    ``assert_same_up_to_ties``: the same points, and at each only
+    designs the uninterrupted run holds there or that score within
+    1e-13 of one it holds when re-evaluated on the CPU); the two
+    uninterrupted runs against each other with equal designs; with the
+    ``prefix_select`` launches of the card's runs.
+12. ``service`` — ``PathfinderService`` on the card: the six-job table
+    of ``scripts/torch_serve_pathfinder.py`` run solo and packed
+    (bit-identical), packed on the CPU (designs equal, floats within
+    1e-6), then served by a subprocess killed after 9 snapshots and
+    resumed by a restarted one (bit-identical to solo); the reference
+    serving benchmark's 8 jobs (16 sweeps, segment 2, 4 slots,
+    ``norm_samples`` 60) drained by one warm service and by 8 cold ones
+    (each building its own engine), jobs/s of each, with the device idle
+    share of one profiled tick; 4 jobs of the default
+    ``ScalarizationSweep()`` (16 directions x 4 chains, 100 sweeps) in
+    one bucket with segment 10: wall, sweeps/s,
+    evaluations/s, peak memory; with the ``prefix_select`` launches.
+13. ``wkv6_kernel`` — ``wkv6`` on the card against its plain torch
     version on the card, within 1e-6 x M, at the serve phase's shapes:
     prefill (G = 160, T = 512, zero start) as (G, T, D) rows and in the
     model's (B, T, H, D) = (4, 512, 40, 64) layout (y equal to the rows'
@@ -77,15 +108,15 @@ one JSON line that carries the card's name and power limit:
     (G = 1, T = 37); max errors of ``y`` and ``S_T``, kernel and plain
     times (in a CUDA graph and eager), the bound, the launch geometry and,
     on the first case, the ``ptxas`` registers and spills.
-12. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
+14. ``lm_parity`` — the reduced RWKV-6 at four heads (d_model 256, two
     layers) on cuda against the same weights on the CPU: prefill and
     eight teacher-forced greedy steps (the CPU's tokens fed to both).
-13. ``serve``    — the language-model path: ``rwkv6-3b`` at full width in
+15. ``serve``    — the language-model path: ``rwkv6-3b`` at full width in
     float32 through ``repro_torch.launch.serve`` (batch 4, prompt 512,
     32 generated tokens, seeded weights and prompts), timed, with the
     ``wkv6`` launch count of that run (32 + 31 * 32 = 1024) and every
     logit checked finite.
-14. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
+16. ``rglru_kernel`` — ``rglru`` on the card against its plain torch
     version on the card, bitwise (``torch.equal``), at the serve_hybrid
     phase's shapes: prefill (B = 4, T = 3072, C = 4096, zero start),
     decode (T = 1, nonzero start, ``h_out`` aliasing ``h0``), an edge
@@ -94,17 +125,17 @@ one JSON line that carries the card's name and power limit:
     channel block); kernel and plain times (in a CUDA graph and eager),
     the bound, the launch geometry and the ``ptxas`` registers and
     spills.
-15. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
+17. ``hybrid_parity`` — a reduced RecurrentGemma (d_model 256, 4 heads
     of 64, 1 KV head, RG-LRU width 256, 5 layers: one group and the
     2-layer tail, window 32) on cuda against the same weights on the
     CPU: a 48-token prompt (beyond the window, so the ring cache is
     rotated) and eight teacher-forced greedy steps.
-16. ``serve_hybrid`` — ``recurrentgemma-9b`` at full width in float32
+18. ``serve_hybrid`` — ``recurrentgemma-9b`` at full width in float32
     through ``repro_torch.launch.serve`` (batch 4, prompt 3072, 1.5x the
     2048 window, 32 generated tokens, seeded weights and prompts), timed,
     with the ``rglru`` launch count of that run (26 RG-LRU layers x 32 =
     832) and every logit checked finite.
-17. ``gemm_kernel`` — the systolic GEMM path: first every case once
+19. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
     sites, and of each site's path ("simt", "wgmma"), over that run;
@@ -127,7 +158,7 @@ one JSON line that carries the card's name and power limit:
     key product at the serve cell's prefill (2048 x 2560 x 8960) under
     the five settings in float32 and under OS, OS split-K 2, WS and IS in
     bfloat16; float16 OS and WS at WL2.
-18. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
+20. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run, by kernel: the unrolled and the
     grouped kernel must both have run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -139,8 +170,9 @@ one JSON line that carries the card's name and power limit:
     ``ptxas`` registers and spills (a spill fails the phase).
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line (the
-``prefix_select`` launches are those of the search, pareto, strategies
-and both scenario runs) and, last, ``{"ok": true, "device": {...}}``. Any failure raises and the
+``prefix_select`` launches are those of the search, pareto, strategies,
+scenario, resume and service phases) and, last,
+``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero without that last line. Without CUDA, or outside a
 checkout of the repository, it exits non-zero at once.
 """
@@ -151,6 +183,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -173,7 +206,8 @@ GEMM_TILES = ((64, 64, 64), (32, 64, 32), (32, 32, 32), (64, 128, 32),
               (128, 64, 96))
 DEV = "cuda"                   # the card the phases run on
 # phase kernel: systems P of prefix_select, in both layouts
-KERNEL_PS = (256, 300, 320, 512, 1024, 4096)   # 320: scenario, 10 x 32
+# 16: a service tick, 4 slots x 4 chains; 320: the scenario grid, 10 x 32
+KERNEL_PS = (16, 256, 300, 320, 512, 1024, 4096)
 # phase rglru_kernel: (shape, (B, T, C), a start state, which the kernel
 # updates in place)
 RGLRU_SHAPES = (("prefill", (4, 3072, 4096), False),
@@ -968,6 +1002,450 @@ def phase_scenario(card: str) -> dict:
                         for k, v in prof.items()},
                kernel_ratio=k10 / k1, parity=parity,
                parity_max_rel_dev=worst, card=card)
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# resume / service phases: checkpoint/resume and the pathfinding service
+# ---------------------------------------------------------------------------
+
+WORK = os.path.join(REPO, "build", "chip_smoke_work")   # snapshots, .npz
+SCRIPTS = os.path.join(REPO, "scripts")
+
+
+def _work_dir(name: str) -> str:
+    path = os.path.join(WORK, name)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    return path
+
+
+def _script(name: str, *args: str, expect: int = 0) -> dict:
+    """Run ``scripts/<name>`` in a fresh process (``PYTHONPATH=src``);
+    its exit code must be ``expect``. Returns the process's wall time
+    and, for a clean exit, the JSON object its last line prints."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(SCRIPTS, name),
+                           *args], env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t
+    if proc.returncode != expect:
+        raise AssertionError(
+            f"{name} {' '.join(args)} exited {proc.returncode}, not "
+            f"{expect}:\n{proc.stderr[-3000:]}")
+    out = dict(process_s=wall)
+    if expect == 0:
+        out.update(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return out
+
+
+def _same_arrays(name: str, got: dict, ref: dict) -> None:
+    """Two dicts of arrays equal key for key, to the bit."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{name}: keys {sorted(got)} vs {sorted(ref)}")
+    for k in sorted(ref):
+        if not np.array_equal(got[k], ref[k]):
+            raise AssertionError(f"{name}: {k} differs")
+
+
+def _pt_equal(name: str, got, ref) -> None:
+    """Two runs of the tempering engine on one device, bit for bit:
+    history, best, final population and frontier."""
+    (res, arch), (rres, rarch) = got, ref
+    same = (res.history == rres.history and res.best_cost == rres.best_cost
+            and all(np.array_equal(getattr(res, f), getattr(rres, f))
+                    for f in ("best_enc", "final_enc", "final_costs"))
+            and np.array_equal(arch.encoded, rarch.encoded)
+            and np.array_equal(arch.vectors, rarch.vectors))
+    if not same:
+        raise AssertionError(f"{name}: not bit-identical")
+
+
+def _pt_close(name: str, got, ref, judge=None) -> dict:
+    """Two runs of the tempering engine on different devices: final
+    population equal, history and costs within TOL. Without ``judge``
+    (two uninterrupted runs) best and frontier designs equal, frontier
+    vectors within TOL. With ``judge`` (a run resumed from the other
+    device's snapshot) best and frontier designs equal up to rounding
+    ties, by the tests' rule (``assert_same_up_to_ties`` of
+    ``tests/test_torch_ties.py``; ``judge`` gives ``(costs,
+    vectors)`` of rows on the CPU). Returns the largest deviation and
+    the number of designs accepted as ties."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_ties import assert_same_up_to_ties
+
+    (res, arch), (rres, rarch) = got, ref
+    if not np.array_equal(res.final_enc, rres.final_enc):
+        raise AssertionError(f"{name}: final populations differ")
+    dev = max(_allclose(f"{name}.history", res.history, rres.history),
+              _allclose(f"{name}.best_cost", res.best_cost, rres.best_cost),
+              _allclose(f"{name}.final_costs", res.final_costs,
+                        rres.final_costs))
+    if judge is None:
+        for f, a, b in (("best_enc", res.best_enc, rres.best_enc),
+                        ("frontier", arch.encoded, rarch.encoded)):
+            if not (a.shape == b.shape and np.array_equal(a, b)):
+                raise AssertionError(f"{name}: {f} differs")
+        dev = max(dev, _allclose(f"{name}.frontier", arch.vectors,
+                                 rarch.vectors))
+        tied = dict(best=0, frontier=0)
+    else:
+        try:
+            tied = dict(
+                best=assert_same_up_to_ties(
+                    res.best_enc[None], [[res.best_cost]],
+                    rres.best_enc[None], [[rres.best_cost]], rtol=TOL,
+                    score=lambda e: judge(e)[0]),
+                frontier=assert_same_up_to_ties(
+                    arch.encoded, arch.vectors, rarch.encoded,
+                    rarch.vectors, rtol=TOL, score=lambda e: judge(e)[1]))
+        except AssertionError as exc:
+            raise AssertionError(f"{name}: {exc}") from exc
+    return dict(max_rel_dev=dev, tied_designs=tied, frontier=len(arch),
+                ref_frontier=len(rarch))
+
+
+class _Dying:
+    """A checkpointer that raises after its first save (a preemption
+    between a finished snapshot and the next segment)."""
+
+    def __init__(self, directory: str):
+        from repro_torch.pathfinding import SearchCheckpointer
+
+        self.inner = SearchCheckpointer(directory)
+
+    def save(self, *a, **kw):
+        self.inner.save(*a, **kw)
+        raise KeyboardInterrupt("preempted after the first snapshot")
+
+    def restore(self, *a, **kw):
+        return self.inner.restore(*a, **kw)
+
+
+def phase_resume(card: str) -> dict:
+    """Checkpoint/resume: (a) the reference benchmark's shape (workload
+    1, T1, 512 chains x 100 sweeps, swap 5, seed 11, ParetoArchive(256))
+    monolithic, in 50-sweep segments and checkpointed, once each, bit
+    for bit, with ms per save; (b) preempted after its first snapshot
+    and resumed, bit for bit; (c) ``run_scenarios`` at its defaults (5 x 2
+    grid, 40 sweeps) in 10-sweep segments, a subprocess killed after its
+    first snapshot and a second resuming it, bit for bit against an
+    uninterrupted run; (d) the sweep-50 snapshot of (b) resumed on the
+    CPU, and a CPU snapshot resumed on the card."""
+    from repro_torch.core import TEMPLATES, workload
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.pathfinding import (
+        DesignSpace,
+        ParetoArchive,
+        SearchCheckpointer,
+        fit_normalizer_batched,
+    )
+    from repro_torch.pathfinding.device import get_device_evaluator
+
+    sys.path.insert(0, SCRIPTS)
+    import torch_resume_worker as worker
+
+    wl, space, tpl = workload(1), DesignSpace(), TEMPLATES["T1"]
+    n, sweeps, seg = 512, 100, 50
+    norm = fit_normalizer_batched(wl, samples=2000, seed=1234, space=space,
+                                  torch_device=DEV)
+    v0 = space.sample(n, key=3)
+    ratio = (1.0 / 4000.0) ** (1.0 / (n - 1))
+    temps = np.array([4000.0 * ratio ** i for i in range(n)])
+
+    def run(dev=DEV, **kw):
+        ev = get_device_evaluator(wl, space=space, torch_device=dev)
+        archive = ParetoArchive(max_size=256)
+        if dev == DEV:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ev.parallel_tempering(v0, temps, sweeps, 5, seed=11,
+                                    norm=norm, template=tpl,
+                                    archive=archive, **kw)
+        if dev == DEV:
+            torch.cuda.synchronize()
+        return (res, archive), time.perf_counter() - t
+
+    get_device_evaluator(wl, space=space, torch_device=DEV)  # not timed
+    kops.reset_launch_count()
+    # (a) three ways, once each
+    walls, results = {}, {}
+    for way in ("monolithic", "segmented", "checkpointed"):
+        kw = {} if way == "monolithic" else dict(segment=seg)
+        if way == "checkpointed":
+            kw["checkpoint"] = SearchCheckpointer(_work_dir("ck"))
+            with _Recorder(SearchCheckpointer, "save") as rec:
+                results[way], walls[way] = run(**kw)
+            saves = [c[2] for c in rec.calls]
+            snap = kw["checkpoint"].manager.latest()
+            snap_bytes = sum(os.path.getsize(os.path.join(snap, f))
+                             for f in os.listdir(snap))
+        else:
+            results[way], walls[way] = run(**kw)
+    mono = results["monolithic"]
+    _pt_equal("resume.segmented", results["segmented"], mono)
+    _pt_equal("resume.checkpointed", results["checkpointed"], mono)
+    if not (math.isfinite(mono[0].best_cost)
+            and len(mono[0].history) == sweeps + 1 and len(mono[1]) > 0
+            and np.all(np.isfinite(mono[1].vectors))):
+        raise AssertionError("resume: malformed result")
+    save_ms = 1e3 * float(np.mean(saves))
+    launches_a = kops.launch_count()
+
+    # (b) preempted after the first snapshot (sweep 50), then resumed
+    d_b = _work_dir("interrupt")
+    try:
+        run(segment=seg, checkpoint=_Dying(d_b))
+        raise AssertionError("resume: the preempted run did not stop")
+    except KeyboardInterrupt:
+        pass
+    d_cuda50 = _work_dir("cuda50")
+    shutil.copytree(d_b, d_cuda50, dirs_exist_ok=True)
+    resumed_b, resume_b_s = run(segment=seg,
+                                checkpoint=SearchCheckpointer(d_b))
+    _pt_equal("resume.interrupted", resumed_b, mono)
+
+    # (d) across devices: the card's sweep-50 snapshot on the CPU, and a
+    # CPU snapshot at sweep 50 on the card, against both uninterrupted
+    cpu_full, cpu_full_s = run("cpu", segment=seg)
+    cpu_resumed, cpu_resumed_s = run(
+        "cpu", segment=seg, checkpoint=SearchCheckpointer(d_cuda50))
+    d_cpu50 = _work_dir("cpu50")
+    try:
+        run("cpu", segment=seg, checkpoint=_Dying(d_cpu50))
+        raise AssertionError("resume: the preempted CPU run did not stop")
+    except KeyboardInterrupt:
+        pass
+    card_resumed, card_resumed_s = run(
+        segment=seg, checkpoint=SearchCheckpointer(d_cpu50))
+    cpu_ev = get_device_evaluator(wl, space=space, torch_device="cpu")
+
+    def judge(enc):        # ties are judged on the CPU: no launches
+        return cpu_ev.evaluate_cost_vector(enc, norm, tpl)[1:]
+
+    across = {
+        "cuda_to_cpu": dict(
+            vs_cuda=_pt_close("resume.cuda_to_cpu", cpu_resumed, mono,
+                              judge),
+            vs_cpu=_pt_close("resume.cuda_to_cpu.cpu", cpu_resumed,
+                             cpu_full, judge), cpu_s=cpu_resumed_s),
+        "cpu_to_cuda": dict(
+            vs_cuda=_pt_close("resume.cpu_to_cuda", card_resumed, mono,
+                              judge),
+            vs_cpu=_pt_close("resume.cpu_to_cuda.cpu", card_resumed,
+                             cpu_full, judge), cuda_s=card_resumed_s),
+        "cpu_vs_cuda_uninterrupted": _pt_close("resume.cpu_full", cpu_full,
+                                               mono),
+        "cpu_full_s": cpu_full_s}
+
+    launches_abd = kops.launch_count()   # the card's runs of (a), (b), (d)
+
+    # (c) the default scenario grid killed in a subprocess and resumed
+    kops.reset_launch_count()
+    t = time.perf_counter()
+    sf = worker.run_grid("defaults", None, DEV)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t
+    launches_c = kops.launch_count()
+    ref = {}
+    for i, s in enumerate(sf.scenarios):
+        res = sf.results[s.key]
+        ref.update({f"enc_{i}": res.frontier.encoded,
+                    f"vec_{i}": res.frontier.vectors,
+                    f"hist_{i}": np.asarray(res.history),
+                    f"best_cost_{i}": np.float64(res.best_cost)})
+    d_c = _work_dir("grid")
+    args = ("run", "--grid", "defaults", "--torch-device", DEV,
+            "--checkpoint-dir", d_c)
+    killed = _script("torch_resume_worker.py", *args, "--max-segments", "1",
+                     expect=3)
+    steps = SearchCheckpointer(d_c).manager.all_steps()
+    if steps != [worker.DEFAULTS_SEGMENT]:
+        raise AssertionError(f"resume: killed grid left steps {steps}")
+    out_npz = os.path.join(d_c, "resumed.npz")
+    resumed = _script("torch_resume_worker.py", *args, "--out", out_npz)
+    got = dict(np.load(out_npz))
+    _same_arrays("resume.grid", got, ref)
+
+    rec = dict(
+        phase="resume", n_chains=n, sweeps=sweeps, segment=seg,
+        walls_s=walls, saves=len(saves), save_ms=save_ms,
+        save_ms_max=1e3 * max(saves), snapshot_bytes=snap_bytes,
+        overhead_share=1e-3 * save_ms * len(saves) / walls["checkpointed"],
+        ck_vs_mono=walls["checkpointed"] / walls["monolithic"] - 1,
+        seg_vs_mono=walls["segmented"] / walls["monolithic"] - 1,
+        frontier=len(mono[1]), best_cost=mono[0].best_cost,
+        interrupted_resume_s=resume_b_s, across=across,
+        grid=dict(cells=len(sf.scenarios), segment=worker.DEFAULTS_SEGMENT,
+                  uninterrupted_s=grid_s, killed_process_s=killed[
+                      "process_s"], resumed_process_s=resumed["process_s"],
+                  resumed_sweep_s=resumed["wall_s"],
+                  launches_uninterrupted=launches_c,
+                  launches_resumed=resumed["launches"]),
+        launches={"prefix_select": launches_abd + launches_c
+                  + resumed["launches"]},
+        launches_a=launches_a, card=card)
+    emit(rec)
+    return rec
+
+
+def _throughput_specs(prefix: str, n_jobs: int = 8, sweeps: int = 16):
+    """The reference serving benchmark's job mix: ``n_jobs`` jobs of 2
+    directions x 2 chains, workloads 1 and 6 in turn, four regions."""
+    from repro_torch.core.regions import Region
+    from repro_torch.pathfinding import ScalarizationSweep
+    from repro_torch.serving import JobSpec
+
+    wls = _serve_workloads()
+    return [JobSpec(job_id=f"{prefix}-{i}", workload=wls[i % 2].name,
+                    strategy=ScalarizationSweep(directions=2, n_chains=2,
+                                                sweeps=sweeps),
+                    region=Region([0.024, 0.3, 0.475, 0.82][i % 4]))
+            for i in range(n_jobs)]
+
+
+def _serve_workloads():
+    from repro_torch.core import workload
+
+    return [workload(1), workload(6)]
+
+
+def _drain(svc, specs) -> float:
+    """Submit ``specs``, drain, read every result; the wall time."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for sp in specs:
+        svc.submit(sp)
+    svc.drain()
+    results = [svc.result(sp.job_id) for sp in specs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for r in results:
+        if not (math.isfinite(r.best_cost) and len(r.frontier) > 0
+                and np.all(np.isfinite(r.frontier.vectors))):
+            raise AssertionError(f"service: job {r.job_id} malformed")
+    return wall
+
+
+def phase_service(card: str) -> dict:
+    """The pathfinding service on the card: (a) the six-job table of
+    ``scripts/torch_serve_pathfinder.py`` solo and packed, bit for bit,
+    packed on the CPU (designs equal, floats within TOL), then served by
+    a subprocess killed after 9 snapshots and resumed by a restarted
+    one, bit for bit against the solo runs; (b) the reference serving
+    benchmark's 8 jobs (16 sweeps, segment 2, 4 slots, ``norm_samples``
+    60) drained by one warm service and by 8 cold runs (each building
+    its own engine), with the device idle share of one profiled tick;
+    (c) 4 jobs of the default ``ScalarizationSweep()`` (16 directions x
+    4 chains, 100 sweeps) in one bucket, segment 10."""
+    import repro_torch.pathfinding.device as device_mod
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.pathfinding import ScalarizationSweep
+    from repro_torch.serving import JobSpec, JobState, PathfinderService
+
+    sys.path.insert(0, SCRIPTS)
+    import torch_serve_pathfinder as table
+
+    kops.reset_launch_count()
+    # (a) solo == packed, and kill-and-resume of the whole service
+    t = time.perf_counter()
+    solo = table.serve_table("solo", torch_device=DEV)
+    solo_s = time.perf_counter() - t
+    t = time.perf_counter()
+    packed = table.serve_table("service", torch_device=DEV)
+    packed_s = time.perf_counter() - t
+    _same_arrays("service.packed", packed, solo)
+    t = time.perf_counter()
+    on_cpu = table.serve_table("service", torch_device="cpu")
+    cpu_s = time.perf_counter() - t
+    if set(on_cpu) != set(packed):
+        raise AssertionError("service.cpu: other jobs or fields")
+    cpu_dev = 0.0
+    for k in sorted(packed):
+        if k.split("_")[0] in ("enc", "sweeps") or k.startswith("best_enc"):
+            if not np.array_equal(on_cpu[k], packed[k]):
+                raise AssertionError(f"service.cpu: {k} differs")
+        else:
+            cpu_dev = max(cpu_dev, _allclose(f"service.cpu.{k}", on_cpu[k],
+                                             packed[k]))
+    root = _work_dir("serve")
+    args = ("run", "--torch-device", DEV, "--checkpoint-root", root)
+    killed = _script("torch_serve_pathfinder.py", *args, "--max-segments",
+                     "9", expect=3)
+    out_npz = os.path.join(WORK, "serve_resumed.npz")
+    resumed = _script("torch_serve_pathfinder.py", *args, "--out", out_npz)
+    _same_arrays("service.resumed", dict(np.load(out_npz)), solo)
+
+    # (b) throughput: one warm packed service against cold runs
+    def svc_b():
+        return PathfinderService(_serve_workloads(), slots=4, segment=2,
+                                 norm_samples=60, torch_device=DEV)
+
+    _drain(svc_b(), _throughput_specs("warmup"))
+    before = kops.launch_count()
+    packed_b = _drain(svc_b(), _throughput_specs("warm"))
+    packed_launches = kops.launch_count() - before
+    cold = []
+    for sp in _throughput_specs("cold"):
+        device_mod._SCENARIO_ENGINES.clear()
+        cold.append(_drain(svc_b(), [sp]))
+    svc = svc_b()
+    for sp in _throughput_specs("prof", n_jobs=4):
+        svc.submit(sp)
+    svc.step()                          # warmup, admission, one segment
+    tick = _profiled(svc.step)
+    n_jobs = 8
+
+    # (c) full width: 4 default sweeps in one bucket, 10-sweep segments
+    strat = ScalarizationSweep()
+    chains = strat.directions * strat.n_chains
+    wls = _serve_workloads()
+    from repro_torch.core.regions import Region
+
+    specs = [JobSpec(job_id=f"full-{i}", workload=wls[i % 2].name,
+                     strategy=strat,
+                     region=Region([0.024, 0.3, 0.475, 0.82][i]))
+             for i in range(4)]
+    svc = PathfinderService(wls, slots=4, segment=10, torch_device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    before = kops.launch_count()
+    full_s = _drain(svc, specs)
+    full_launches = kops.launch_count() - before
+    for sp in specs:
+        r = svc.result(sp.job_id)
+        if svc.status(sp.job_id) is not JobState.DONE or r.sweeps != \
+                strat.sweeps or len(r.history) != strat.sweeps + 1:
+            raise AssertionError(f"service: {sp.job_id} ran {r.sweeps}")
+
+    rec = dict(
+        phase="service",
+        table=dict(jobs=len(table.JOBS), solo_s=solo_s, packed_s=packed_s,
+                   cpu_s=cpu_s, cpu_max_rel_dev=cpu_dev,
+                   killed_process_s=killed["process_s"],
+                   resumed_process_s=resumed["process_s"],
+                   resumed_drain_s=resumed["wall_s"],
+                   resumed_launches=resumed["launches"]),
+        throughput=dict(
+            jobs=n_jobs, sweeps=16, segment=2, slots=4,
+            packed_s=packed_b, packed_jobs_per_s=n_jobs / packed_b,
+            cold_s=sum(cold), cold_jobs_per_s=n_jobs / sum(cold),
+            cold_each_s=cold,
+            packed_vs_cold=sum(cold) / packed_b,
+            packed_launches=packed_launches,
+            tick=dict(slots=4, chains_per_slot=4, sweeps=2, **tick)),
+        full=dict(jobs=len(specs), chains_per_job=chains,
+                  sweeps=strat.sweeps, segment=10, wall_s=full_s,
+                  sweeps_per_s=strat.sweeps / full_s,
+                  evals_per_s=len(specs) * chains * (strat.sweeps + 1)
+                  / full_s,
+                  peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                  launches=full_launches),
+        launches={"prefix_select": kops.launch_count()
+                  + resumed["launches"]},
+        card=card)
     emit(rec)
     return rec
 
@@ -1768,6 +2246,9 @@ def main() -> int:
     pareto = phase_pareto(card)
     strategies = phase_strategies(card)
     scenario = phase_scenario(card)
+    resume = phase_resume(card)
+    service = phase_service(card)
+    shutil.rmtree(WORK, ignore_errors=True)
     wmain = phase_wkv6(card)
     phase_lm_parity(card)
     serve = phase_serve(card)
@@ -1788,7 +2269,8 @@ def main() -> int:
                   "prefix_select.cu",
         "replaces": "src/repro/kernels/prefix_gather/kernel.py:79",
         "launches": sum(p["launches"]["prefix_select"]
-                        for p in (search, pareto, strategies, scenario)),
+                        for p in (search, pareto, strategies, scenario,
+                                  resume, service)),
         "max_abs_err": kmain["max_abs_err"], "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"], "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"], "library_ms": None}, {

@@ -1,8 +1,8 @@
 """Design-space pathfinding on torch: the encoded space, the batched and
 fused evaluators, the tempering engine, the stacked scenario engine, the
 search strategies, the Pareto archive, the scalarization and scenario
-sweeps, and the :class:`Pathfinder` facade (counterparts of
-:mod:`repro.pathfinding`)."""
+sweeps, checkpoint/resume of the device searches, and the
+:class:`Pathfinder` facade (counterparts of :mod:`repro.pathfinding`)."""
 from repro_torch.pathfinding.batch import (
     BatchEvaluator,
     MetricsBatch,
@@ -31,6 +31,7 @@ from repro_torch.pathfinding.pareto import (
     crowding_distance,
     directions_to_weights,
     fold_cell_key,
+    fold_job_key,
     hypervolume,
     non_dominated_mask,
     non_dominated_mask_torch,
@@ -38,6 +39,7 @@ from repro_torch.pathfinding.pareto import (
     workloads_from_configs,
 )
 from repro_torch.pathfinding.pathfinder import OBJECTIVES, Pathfinder
+from repro_torch.pathfinding.resume import SearchCheckpointer
 from repro_torch.pathfinding.scenario import ScenarioSpec
 from repro_torch.pathfinding.space import DesignSpace
 from repro_torch.pathfinding.strategies import (
@@ -58,7 +60,8 @@ __all__ = [
     "ScenarioPTResult", "get_device_evaluator", "get_scenario_engine",
     "propose_batch", "FrontierFeed", "ParetoArchive", "ScalarizationSweep",
     "REGION_INTENSITIES", "Scenario", "ScenarioFrontier", "ScenarioSpec",
-    "ScenarioSweep", "fold_cell_key", "workloads_from_configs",
+    "ScenarioSweep", "fold_cell_key", "fold_job_key",
+    "workloads_from_configs", "SearchCheckpointer",
     "crowding_distance", "directions_to_weights", "hypervolume",
     "non_dominated_mask", "non_dominated_mask_torch", "simplex_directions",
     "OBJECTIVES", "Pathfinder", "DesignSpace", "DEFAULT_SEARCH_KEY",

@@ -1303,7 +1303,7 @@ class DeviceEvaluator:
                            pair_mask: Optional[np.ndarray] = None,
                            collect_samples: bool = True,
                            segment: Optional[int] = None,
-                           checkpoint=None,
+                           checkpoint=None, resume: bool = True,
                            archive=None) -> DevicePTResult:
         """Run the propose/evaluate/accept/exchange loop.
 
@@ -1324,8 +1324,18 @@ class DeviceEvaluator:
         pareto.ParetoArchive`) they feed it at each segment boundary,
         otherwise they return in ``.samples``. ``segment`` cuts the
         sweeps into chunks of that many (default: one chunk) without
-        changing the trajectory. ``checkpoint`` is not supported yet:
-        checkpoint/resume is a later slice of the port."""
+        changing the trajectory. ``checkpoint`` (a
+        :class:`~repro_torch.pathfinding.resume.SearchCheckpointer`)
+        snapshots carry + archive + history at every boundary; with
+        ``resume=True`` the newest snapshot of this search is restored
+        and the run continues to ``sweeps`` (``record_trace`` cannot be
+        combined with checkpointing). The loop itself is
+        :func:`~repro_torch.pathfinding.resume.run_segmented`."""
+        from repro_torch.pathfinding.resume import (
+            run_segmented,
+            segment_fingerprint,
+        )
+
         v0 = np.atleast_2d(np.asarray(v0, dtype=np.int32))
         n, width = v0.shape
         sweeps = int(sweeps)
@@ -1336,18 +1346,19 @@ class DeviceEvaluator:
             raise ValueError(
                 "record_trace records host-replay state for the full "
                 "run and cannot be checkpointed/resumed")
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint/resume of the torch tempering engine is not "
-                "ported yet (it comes with the resume slice)")
+        if checkpoint is not None and collect_samples and archive is None:
+            raise ValueError(
+                "checkpointing with collect_samples requires an "
+                "archive= to feed: bulk .samples live only in process "
+                "memory and would be lost across a resume")
         tb, cfg, dev = self.tables, self.cfg, self.device
         mins, medians = norm.weights_arrays()
         mins_t, med_t = self._t(mins), self._t(medians)
-        w = np.asarray(template.weights if weights is None else weights,
-                       np.float64)
-        if weights is not None and w.shape != (n, 6):
-            raise ValueError(f"weights must be [{n}, 6], got {w.shape}")
-        w = self._t(w)
+        w_np = np.asarray(template.weights if weights is None else weights,
+                          np.float64)
+        if weights is not None and w_np.shape != (n, 6):
+            raise ValueError(f"weights must be [{n}, 6], got {w_np.shape}")
+        w = self._t(w_np)
         pair_t = None
         if pair_mask is not None:
             pair_ok = np.asarray(pair_mask, dtype=bool)
@@ -1356,39 +1367,73 @@ class DeviceEvaluator:
                     f"pair_mask must be [{max(n - 1, 1)}], "
                     f"got {pair_ok.shape}")
             pair_t = self._t(pair_ok, dtype=torch.bool)
-        temps_t = self._t(np.asarray(temps, np.float64))
+        temps_np = np.asarray(temps, np.float64)
+        temps_t = self._t(temps_np)
         inv_t = 1.0 / temps_t
         region = self._region()
-        key = trandom.PRNGKey(seed, dev)
+        key0 = trandom.PRNGKey(seed, dev)
 
-        v = self._enc(v0)
-        _, costs, vec0 = _eval_cost(v, mins_t, med_t, w, *region, tb, cfg)
-        cost0 = costs
-        bi = _argmin_first(costs)
-        best_v, best_c = v[bi].clone(), costs[bi].clone()
-        hist_parts = [costs.min()[None]]
-        seed_block = (v.clone(), vec0) if collect_samples else None
+        fp = carry_like = None
+        if checkpoint is not None:
+            price, embf, profile, pprofile = _db_region_cols(self.db)
+            extra = {}
+            if cfg.comm != "legacy":
+                extra["comm"] = np.frombuffer(cfg.comm.encode(), np.uint8)
+            if cfg.schedule != "fixed":
+                extra["schedule"] = np.frombuffer(cfg.schedule.encode(),
+                                                  np.uint8)
+            if not np.all(pprofile == price):
+                extra["pprofile"] = pprofile
+            fp = segment_fingerprint(
+                "device_pt", v0=v0, temps=temps_np, swap_every=swap_every,
+                seed=seed, mins=mins, medians=medians,
+                weights=(np.tile(w_np, (n, 1)) if weights is None
+                         else w_np),
+                pair_mask=(np.ones(max(n - 1, 1), dtype=bool)
+                           if pair_mask is None else pair_ok),
+                ci=np.float64(self.db.carbon_intensity), segment=segment,
+                collect=collect_samples, price=price, embf=embf,
+                profile=profile, **extra)
+            carry_like = dict(
+                v=np.zeros((n, width), np.int32),
+                costs=np.zeros(n, np.float64),
+                best_v=np.zeros(width, np.int32),
+                best_c=np.zeros((), np.float64),
+                key=trandom.key_to_np(key0))
+
+        # host state the loop's hooks share: the history parts (device
+        # tensors), the seed population's samples until a segment (or
+        # flush_seed) feeds them, the seed costs for the trace
+        st = dict(hist=None, seed_block=None, cost0=None)
         enc_parts: List[torch.Tensor] = []
         vec_parts: List[torch.Tensor] = []
         trace_parts: List[tuple] = []
 
-        def absorb(enc_s, vec_s):
-            nonlocal seed_block
-            if archive is None:
-                enc_parts.append(enc_s)
-                vec_parts.append(vec_s)
-                return
-            if seed_block is not None:
-                enc_s = torch.cat([seed_block[0][None], enc_s])
-                vec_s = torch.cat([seed_block[1][None], vec_s])
-                seed_block = None
+        def feed(enc_s, vec_s):
             archive.insert(enc_s.reshape(-1, width).to(torch.int32).cpu()
                            .numpy(), vec_s.reshape(-1, 3).cpu().numpy())
 
-        done = 0
-        while done < sweeps:
-            seg = min(seg_size, sweeps - done)
-            seg_enc, seg_vec = [], []
+        def fresh():
+            v = self._enc(v0)
+            _, costs, vec0 = _eval_cost(v, mins_t, med_t, w, *region, tb,
+                                        cfg)
+            st["cost0"] = costs
+            st["hist"] = [costs.min()[None]]
+            if collect_samples:
+                st["seed_block"] = (v.clone(), vec0)
+            bi = _argmin_first(costs)
+            return v, costs, v[bi].clone(), costs[bi].clone(), key0
+
+        def from_restored(r):
+            c = r.carry
+            st["hist"] = [self._t(r.history)]
+            return (self._enc(c["v"]), self._t(c["costs"]),
+                    self._t(c["best_v"], I64), self._t(c["best_c"]),
+                    trandom.key_from_np(c["key"], dev))
+
+        def run_segment(carry, done, seg):
+            v, costs, best_v, best_c, key = carry
+            cold, props, vecs = [], [], []
             for sweep in range(done, done + seg):
                 key, kp, ka, ksw = trandom.split(key, 4)
                 prop = _propose(kp, v, tb, cfg)
@@ -1409,29 +1454,67 @@ class DeviceEvaluator:
                 if sweep % swap_every == 0:
                     _exchange(v[None], costs[None], inv_t[None], us[None],
                               None if pair_t is None else pair_t[None])
-                hist_parts.append(costs[-1:].clone())
+                cold.append(costs[-1:].clone())
                 if collect_samples:
-                    seg_enc.append(prop)
-                    seg_vec.append(pvec)
+                    props.append(prop)
+                    vecs.append(pvec)
                 if record_trace:
                     trace_parts.append((prop, pcost, u, us, accept,
                                         costs.clone(), best_c))
-            if collect_samples:
-                absorb(torch.stack(seg_enc), torch.stack(seg_vec))
-            done += seg
-        if seed_block is not None and archive is not None:
-            # zero sweeps: the seed population is all there is to feed
-            archive.insert(seed_block[0].to(torch.int32).cpu().numpy(),
-                           seed_block[1].cpu().numpy())
-            seed_block = None
+            return (v, costs, best_v, best_c, key), (cold, props, vecs)
+
+        def absorb(ys, seg):
+            cold, props, vecs = ys
+            st["hist"].extend(cold)
+            if not collect_samples:
+                return
+            enc_s, vec_s = torch.stack(props), torch.stack(vecs)
+            if archive is None:
+                enc_parts.append(enc_s)
+                vec_parts.append(vec_s)
+                return
+            if st["seed_block"] is not None:
+                enc_s = torch.cat([st["seed_block"][0][None], enc_s])
+                vec_s = torch.cat([st["seed_block"][1][None], vec_s])
+                st["seed_block"] = None
+            feed(enc_s, vec_s)
+
+        def carry_np(carry):
+            v, costs, best_v, best_c, key = carry
+            return dict(v=v.to(torch.int32).cpu().numpy(),
+                        costs=costs.cpu().numpy(),
+                        best_v=best_v.to(torch.int32).cpu().numpy(),
+                        best_c=best_c.cpu().numpy(),
+                        key=trandom.key_to_np(key))
+
+        def flush_seed():
+            # zero sweeps (or a restored run with none left): the seed
+            # population is all there is to feed
+            if st["seed_block"] is not None and archive is not None:
+                feed(*st["seed_block"])
+                st["seed_block"] = None
+
+        carry, _ = run_segmented(
+            sweeps=sweeps, seg_size=seg_size, checkpoint=checkpoint,
+            resume=resume, fingerprint=fp, archives=archive,
+            carry_like=carry_like, fresh=fresh,
+            from_restored=from_restored, run_segment=run_segment,
+            absorb=absorb, carry_np=carry_np,
+            history_np=lambda: torch.cat(st["hist"]).cpu().numpy(),
+            sweep_counter=lambda done: done, flush_seed=flush_seed)
+        v, costs, best_v, best_c, _ = carry
+        seed_block = st["seed_block"]
 
         samples = None
         if collect_samples and archive is None:
-            blocks_e = [seed_block[0][None]] + enc_parts
-            blocks_v = [seed_block[1][None]] + vec_parts
-            samples = dict(
-                enc=torch.cat(blocks_e).to(torch.int32).cpu().numpy(),
-                vec=torch.cat(blocks_v).cpu().numpy())
+            blocks_e = ([seed_block[0][None]] if seed_block is not None
+                        else []) + enc_parts
+            blocks_v = ([seed_block[1][None]] if seed_block is not None
+                        else []) + vec_parts
+            if blocks_e:
+                samples = dict(
+                    enc=torch.cat(blocks_e).to(torch.int32).cpu().numpy(),
+                    vec=torch.cat(blocks_v).cpu().numpy())
         trace = None
         if record_trace:
             if trace_parts:
@@ -1442,11 +1525,11 @@ class DeviceEvaluator:
                 cat = [np.zeros((0,) + tail(n, width))
                        for tail in _TRACE_TAILS]
             trace = dict(zip(_TRACE_FIELDS, cat))
-            trace["initial_costs"] = cost0.cpu().numpy()
+            trace["initial_costs"] = st["cost0"].cpu().numpy()
         return DevicePTResult(
             best_enc=best_v.to(torch.int32).cpu().numpy(),
             best_cost=float(best_c),
-            history=torch.cat(hist_parts).cpu().tolist(),
+            history=torch.cat(st["hist"]).cpu().tolist(),
             evaluations=n + n * sweeps,
             final_enc=v.to(torch.int32).cpu().numpy(),
             final_costs=costs.cpu().numpy(), trace=trace,
@@ -1575,7 +1658,9 @@ class ScenarioEngine:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def _widx(self, widx, S: int) -> np.ndarray:
-        w = np.asarray(widx, dtype=np.int64).reshape(S)
+        # int32, as the reference holds it: the workload ids enter the
+        # scenario fingerprint, which hashes their dtype
+        w = np.asarray(widx, dtype=np.int32).reshape(S)
         if w.min(initial=0) < 0 or w.max(initial=0) >= len(self.workloads):
             raise ValueError(
                 f"widx out of range for {len(self.workloads)} workloads")
@@ -1658,6 +1743,29 @@ class ScenarioEngine:
                 vec.reshape(S, m, 3).cpu().numpy())
 
     # -- the stacked tempering loop ------------------------------------
+
+    def init_step(self, v0, mins, med, w, ci, price, embf, profile,
+                  pprofile, widx, key):
+        """The seed evaluation of an S-cell grid (the reference's
+        ``_init_fn(S, n)``): ``v0`` ``[S, n, W]`` seed populations, the
+        per-cell ``mins`` / ``med`` ``[S, 6]``, ``w`` ``[S, n, 6]``,
+        ``ci`` / ``price`` / ``embf`` ``[S]``, ``profile`` / ``pprofile``
+        ``[S, 24]`` and ``widx`` ``[S]`` (tensors or arrays), and the
+        base ``key`` (``[2]`` key words). Returns device tensors
+        ``(keys0 [S, 2], cost0 [S, n], vec0 [S, n, 3])``: cell s's key
+        stream ``fold_in(key, s)`` and its seed costs and objective
+        vectors, from one ``[S*n]`` evaluation (one ``prefix_select``
+        launch)."""
+        t = self._t
+        v = t(v0, I64)
+        S, n, width = v.shape
+        args, rt = self._rows(n, widx, mins, med, t(w).reshape(S, n, 6), ci,
+                              price, embf, profile, pprofile)
+        _, cost0, vec0 = _eval_cost(v.reshape(S * n, width), *args,
+                                    self.tables, self.cfg, rt)
+        keys0 = trandom.fold_in(t(key, I64),
+                                torch.arange(S, device=self.device))
+        return keys0, cost0.reshape(S, n), vec0.reshape(S, n, 3)
 
     def segment_runner(self, S: int, n: int, seg: int, swap_every: int,
                        collect_samples: bool = False):
@@ -1766,7 +1874,7 @@ class ScenarioEngine:
                            pprofile=None, noc_on=None, sched_on=None,
                            collect_samples: bool = True,
                            mesh=None, segment: Optional[int] = None,
-                           checkpoint=None,
+                           checkpoint=None, resume: bool = True,
                            archives: Optional[Sequence] = None
                            ) -> ScenarioPTResult:
         """Run the whole scenario grid's tempering loop.
@@ -1784,13 +1892,22 @@ class ScenarioEngine:
         only) gate each cell's NoC and schedule move levels (default:
         the space's liveness).
 
-        ``segment`` cuts the sweeps into host-driven chunks of that many
-        (default: one chunk) without changing a bit; ``archives`` (one
+        ``segment`` / ``checkpoint`` / ``resume`` / ``archives`` mirror
+        :meth:`DeviceEvaluator.parallel_tempering`: the loop advances in
+        host-driven chunks (default: one chunk) without changing a bit,
+        the carry (with the per-cell sweep counters and key words) and
+        the per-cell archives snapshot at every boundary, and ``resume``
+        restores the newest snapshot of this grid. ``archives`` (one
         :class:`~repro_torch.pathfinding.pareto.ParetoArchive` per cell)
         are fed every evaluated design at each segment end in place of
-        returning ``.samples``. ``checkpoint`` (checkpoint/resume) and
-        ``mesh`` (sharding the cells over several devices) are later
-        slices of the port and raise ``NotImplementedError``."""
+        returning ``.samples``. ``mesh`` (sharding the cells over several
+        devices) is a later slice of the port and raises
+        ``NotImplementedError``."""
+        from repro_torch.pathfinding.resume import (
+            run_segmented,
+            segment_fingerprint,
+        )
+
         v0 = np.asarray(v0, dtype=np.int32)
         if v0.ndim != 3:
             raise ValueError(f"v0 must be [S, n, width], got {v0.shape}")
@@ -1822,76 +1939,132 @@ class ScenarioEngine:
                     if name == "noc_on" else
                     "sched_on is only meaningful for window-schedule "
                     "engines")
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint/resume of the torch scenario engine is not "
-                "ported yet (it comes with the resume slice)")
         if mesh is not None:
             raise NotImplementedError(
                 "sharding the scenario cells over a device mesh is not "
                 "ported yet (ROADMAP queue 1, item 11)")
-        t = self._t
+        t, dev = self._t, self.device
         ci_a = np.asarray(ci, np.float64).reshape(S)
+        price_a, embf_a, profile_a, pprofile_a = self._region_cols(
+            S, ci_a, price, embf, profile, pprofile)
+        arrays = dict(
+            temps=np.asarray(temps, np.float64).reshape(S, n),
+            mins=np.asarray(mins, np.float64).reshape(S, 6),
+            med=np.asarray(medians, np.float64).reshape(S, 6),
+            w=np.asarray(weights, np.float64).reshape(S, n, 6),
+            pair_ok=np.asarray(pair_mask, bool).reshape(S, max(n - 1, 1)))
         consts = (
-            t(np.asarray(temps, np.float64).reshape(S, n)),
-            t(np.asarray(mins, np.float64).reshape(S, 6)),
-            t(np.asarray(medians, np.float64).reshape(S, 6)),
-            t(np.asarray(weights, np.float64).reshape(S, n, 6)),
-            t(np.asarray(pair_mask, bool).reshape(S, max(n - 1, 1)),
-              torch.bool),
-            t(ci_a),
-            *[t(x) for x in self._region_cols(S, ci_a, price, embf,
-                                              profile, pprofile)],
+            t(arrays["temps"]), t(arrays["mins"]), t(arrays["med"]),
+            t(arrays["w"]), t(arrays["pair_ok"], torch.bool), t(ci_a),
+            t(price_a), t(embf_a), t(profile_a), t(pprofile_a),
             t(widx_a, I64), *[t(g) for g in gates])
+        key0 = trandom.PRNGKey(seed, dev)
 
-        # the seed populations: one [S*n] evaluation, per-cell keys
-        v = t(v0, I64)
-        args, rt = self._rows(n, consts[10], *consts[1:4], *consts[5:10])
-        _, cost0, vec0 = _eval_cost(v.reshape(S * n, width), *args,
-                                    self.tables, self.cfg, rt)
-        cost0 = cost0.reshape(S, n)
-        keys = trandom.fold_in(trandom.PRNGKey(seed, self.device),
-                               torch.arange(S, device=self.device))
-        bi = _argmin_first(cost0)
-        rows = torch.arange(S, device=self.device)
-        carry = (v, cost0, v[rows, bi], cost0[rows, bi], keys)
-        hist_parts = [cost0.amin(dim=1).cpu().numpy()[:, None]]
-        seed_block = ((v0[None], vec0.reshape(1, S, n, 3).cpu().numpy())
-                      if collect_samples else None)
+        fp = carry_like = None
+        if checkpoint is not None:
+            extra = {}
+            if self.cfg.comm != "legacy":
+                extra["comm"] = np.frombuffer(self.cfg.comm.encode(),
+                                              np.uint8)
+                extra["noc_on"] = gates[0]
+            if self.cfg.schedule != "fixed":
+                extra["schedule"] = np.frombuffer(
+                    self.cfg.schedule.encode(), np.uint8)
+                extra["sched_on"] = gates[-1]
+            if not np.all(pprofile_a == price_a[:, None]):
+                extra["pprofile"] = pprofile_a
+            fp = segment_fingerprint(
+                "scenario_pt", v0=v0, temps=arrays["temps"],
+                swap_every=swap_every, seed=seed, mins=arrays["mins"],
+                medians=arrays["med"], weights=arrays["w"],
+                pair_mask=arrays["pair_ok"], ci=ci_a, segment=segment,
+                collect=collect_samples, widx=widx_a, price=price_a,
+                embf=embf_a, profile=profile_a, **extra)
+            carry_like = dict(
+                v=np.zeros((S, n, width), np.int32),
+                costs=np.zeros((S, n), np.float64),
+                best_v=np.zeros((S, width), np.int32),
+                best_c=np.zeros(S, np.float64),
+                keys=np.zeros((S, 2), np.uint32))
+
+        # host state the loop's hooks share: history parts [S, k], the
+        # seed block until a segment (or flush_seed) feeds it, and the
+        # per-cell sweep counters
+        st = dict(hist=None, seed_block=None,
+                  sweep_done=np.zeros(S, dtype=np.int64))
         enc_parts: List[np.ndarray] = []
         vec_parts: List[np.ndarray] = []
-        sweep_done = np.zeros(S, dtype=np.int64)
 
         def feed(enc_s, vec_s):
             for s in range(S):
                 archives[s].insert(enc_s[:, s].reshape(-1, width),
                                    vec_s[:, s].reshape(-1, 3))
 
-        done = 0
-        while done < sweeps:
-            seg = min(seg_size, sweeps - done)
+        def fresh():
+            keys0, cost0, vec0 = self.init_step(v0, *consts[1:4],
+                                                *consts[5:11], key0)
+            v = t(v0, I64)
+            bi = _argmin_first(cost0)
+            rows = torch.arange(S, device=dev)
+            st["hist"] = [cost0.amin(dim=1).cpu().numpy()[:, None]]
+            if collect_samples:
+                st["seed_block"] = (v0[None], vec0[None].cpu().numpy())
+            return v, cost0, v[rows, bi], cost0[rows, bi], keys0
+
+        def from_restored(r):
+            c = r.carry
+            st["sweep_done"] = np.asarray(r.sweep_done_per_cell,
+                                          dtype=np.int64).reshape(S)
+            st["hist"] = [np.asarray(r.history, np.float64).reshape(S, -1)]
+            return (t(c["v"], I64), t(c["costs"]), t(c["best_v"], I64),
+                    t(c["best_c"]), trandom.key_from_np(c["keys"], dev))
+
+        def run_segment(carry, done, seg):
             run = self.segment_runner(S, n, seg, swap_every,
                                       collect_samples)
-            carry, ys = run(*carry, sweep_done, *consts)
-            hist_parts.append(ys[0].T.cpu().numpy())
+            return run(*carry, st["sweep_done"], *consts)
+
+        def absorb(ys, seg):
+            st["hist"].append(ys[0].T.cpu().numpy())
             if collect_samples:
                 enc_s = ys[2].to(torch.int32).cpu().numpy()
                 vec_s = ys[3].cpu().numpy()
-                if seed_block is not None:
-                    enc_s = np.concatenate([seed_block[0], enc_s])
-                    vec_s = np.concatenate([seed_block[1], vec_s])
-                    seed_block = None
+                if st["seed_block"] is not None:
+                    enc_s = np.concatenate([st["seed_block"][0], enc_s])
+                    vec_s = np.concatenate([st["seed_block"][1], vec_s])
+                    st["seed_block"] = None
                 if archives is not None:
                     feed(enc_s, vec_s)
                 else:
                     enc_parts.append(enc_s)
                     vec_parts.append(vec_s)
-            sweep_done = sweep_done + seg
-            done += seg
-        if seed_block is not None and archives is not None:
-            # zero sweeps: the seed population is all there is to feed
-            feed(*seed_block)
-            seed_block = None
+            st["sweep_done"] = st["sweep_done"] + seg
+
+        def carry_np(carry):
+            v, costs, best_v, best_c, keys = carry
+            return dict(v=v.to(torch.int32).cpu().numpy(),
+                        costs=costs.cpu().numpy(),
+                        best_v=best_v.to(torch.int32).cpu().numpy(),
+                        best_c=best_c.cpu().numpy(),
+                        keys=trandom.key_to_np(keys))
+
+        def flush_seed():
+            # zero sweeps (or a restored run with none left): the seed
+            # population is all there is to feed
+            if st["seed_block"] is not None and archives is not None:
+                feed(*st["seed_block"])
+                st["seed_block"] = None
+
+        carry, _ = run_segmented(
+            sweeps=sweeps, seg_size=seg_size, checkpoint=checkpoint,
+            resume=resume, fingerprint=fp, archives=archives,
+            carry_like=carry_like, fresh=fresh,
+            from_restored=from_restored, run_segment=run_segment,
+            absorb=absorb, carry_np=carry_np,
+            history_np=lambda: np.concatenate(st["hist"], axis=1),
+            sweep_counter=lambda done: st["sweep_done"],
+            flush_seed=flush_seed)
+        seed_block = st["seed_block"]
 
         samples = None
         if collect_samples and archives is None:
@@ -1899,13 +2072,14 @@ class ScenarioEngine:
                         else []) + enc_parts
             blocks_v = ([seed_block[1]] if seed_block is not None
                         else []) + vec_parts
-            samples = dict(enc=np.concatenate(blocks_e),
-                           vec=np.concatenate(blocks_v))
+            if blocks_e:
+                samples = dict(enc=np.concatenate(blocks_e),
+                               vec=np.concatenate(blocks_v))
         v_fin, costs_fin, best_v, best_c, _ = carry
         return ScenarioPTResult(
             best_enc=best_v.to(torch.int32).cpu().numpy(),
             best_cost=best_c.cpu().numpy(),
-            history=np.concatenate(hist_parts, axis=1),
+            history=np.concatenate(st["hist"], axis=1),
             evaluations=S * n * (1 + sweeps),
             final_enc=v_fin.to(torch.int32).cpu().numpy(),
             final_costs=costs_fin.cpu().numpy(),

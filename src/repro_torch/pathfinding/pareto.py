@@ -436,8 +436,10 @@ class ScalarizationSweep:
 
     ``frontier_size=0`` is rejected: the frontier archive is this
     strategy's output (``best`` is re-derived from it).
-    ``checkpoint_dir`` needs the device engine and is not supported yet
-    (checkpoint/resume is a later slice of the port)."""
+    ``checkpoint_dir`` (device engine only) advances the run in
+    ``segment``-sweep chunks and snapshots carry + archive at each
+    boundary; ``resume`` restores the newest snapshot (a bit-identical
+    continuation)."""
 
     directions: int = 16
     n_chains: int = 4
@@ -452,6 +454,7 @@ class ScalarizationSweep:
     weights: Optional[np.ndarray] = None   # [K, 6] override
     segment: Optional[int] = None
     checkpoint_dir: Optional[str] = None
+    resume: bool = True
 
     def weight_rows(self) -> np.ndarray:
         if self.weights is not None:
@@ -548,7 +551,8 @@ class ScalarizationSweep:
             template=objective.template, weights=self.chain_weights(w6),
             pair_mask=self.chain_pair_mask(total),
             segment=self.segment, archive=archive,
-            checkpoint=_checkpointer(self.checkpoint_dir))
+            checkpoint=_checkpointer(self.checkpoint_dir),
+            resume=self.resume)
         return self._finalize(space, objective, archive,
                               res.history, res.evaluations)
 
@@ -616,6 +620,20 @@ def fold_cell_key(base: int, idx: int) -> int:
     a, b = (int(x) for x in trandom.fold_in(
         trandom.PRNGKey(int(base) & 0xFFFFFFFF), idx).tolist())
     return ((a << 32) | b) & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def fold_job_key(base: int, job_id: str) -> int:
+    """Deterministic per-job search key of the serving layer: the job's
+    *name* (not its slot) hashed to a 32-bit index and folded into the
+    base key by :func:`fold_cell_key` (so it keeps that function's 32-bit
+    base, R8). The key depends only on ``(base, job_id)``, never on the
+    slot the scheduler packs the job into or on its co-tenants, which is
+    what makes a job's trajectory the same solo or packed."""
+    import hashlib
+
+    idx = int.from_bytes(
+        hashlib.sha256(str(job_id).encode()).digest()[:4], "big")
+    return fold_cell_key(base, idx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -688,8 +706,8 @@ class ScenarioSweep:
 
     ``budget`` is the *total* evaluation budget, split evenly across
     cells (``budget // n_cells`` each). ``shard`` is ``"auto"`` or
-    ``False``, both one device; ``True`` (a device mesh over the cells)
-    is a later slice of the port and raises ``NotImplementedError``."""
+    ``False``, both one device; ``True`` (a device mesh over the cells,
+    ROADMAP queue 1, item 11) raises ``NotImplementedError``."""
 
     strategy: ScalarizationSweep = dataclasses.field(
         default_factory=lambda: ScalarizationSweep(directions=8,
@@ -711,6 +729,7 @@ class ScenarioSweep:
             device: bool = True, budget: Optional[int] = None,
             key: Optional[int] = None,
             checkpoint_dir: Optional[str] = None,
+            resume: bool = True,
             segment: Optional[int] = None,
             torch_device: DeviceLike = None) -> ScenarioFrontier:
         """Run the grid of ``workloads`` (a ``GEMMWorkload``, a sequence
@@ -720,8 +739,13 @@ class ScenarioSweep:
         models and the budget/segment/checkpoint knobs; passing those
         loose kwargs alongside a spec is an error. ``segment`` cuts the
         stacked loop into host-driven chunks without changing a bit.
-        ``checkpoint_dir`` needs the device path and is not supported
-        yet (checkpoint/resume is a later slice of the port)."""
+
+        ``checkpoint_dir`` (device path only) makes the grid
+        interruptible: the carry (per-cell populations, costs,
+        incumbents, key words and sweep counters) and every per-cell
+        frontier archive snapshot at each segment boundary, and
+        ``resume=True`` restores the newest snapshot, continuing bit for
+        bit as the uninterrupted run would."""
         from repro_torch.pathfinding.batch import fit_region_normalizers
         from repro_torch.pathfinding.pathfinder import Pathfinder
         from repro_torch.pathfinding.scenario import ScenarioSpec
@@ -746,15 +770,14 @@ class ScenarioSweep:
             return sweep.run(
                 list(spec.workloads), template=template, db=db,
                 device=device, budget=spec.budget, key=key,
-                checkpoint_dir=spec.checkpoint_dir, segment=spec.segment,
-                torch_device=torch_device)
+                checkpoint_dir=spec.checkpoint_dir, resume=spec.resume,
+                segment=spec.segment, torch_device=torch_device)
         _check_budget(budget)
         if checkpoint_dir is not None and not device:
             raise ValueError(
                 "checkpoint_dir requires the device path "
                 "(ScenarioSweep.run(device=True)); the per-cell host "
                 "fallback cannot checkpoint")
-        _checkpointer(checkpoint_dir)
         if device and self.shard is True:
             raise NotImplementedError(
                 "shard=True (the scenario cells over a device mesh) is "
@@ -812,7 +835,8 @@ class ScenarioSweep:
         if device:
             return self._run_device(cells, workloads, tpl, db, space,
                                     norm_of, cell_budget, base, segment,
-                                    dev)
+                                    dev, _checkpointer(checkpoint_dir),
+                                    resume)
 
         # host fallback: one Pathfinder per cell, distinct folded keys,
         # split budget, pre-fitted region normalizers
@@ -833,7 +857,8 @@ class ScenarioSweep:
         return ScenarioFrontier(scenarios, results)
 
     def _run_device(self, cells, workloads, tpl, db, space, norm_of,
-                    cell_budget, base, segment, dev) -> ScenarioFrontier:
+                    cell_budget, base, segment, dev, checkpoint=None,
+                    resume=True) -> ScenarioFrontier:
         from repro_torch.core.evaluate import evaluate
         from repro_torch.core.scalesim import SimCache
         from repro_torch.pathfinding.device import get_scenario_engine
@@ -881,7 +906,8 @@ class ScenarioSweep:
             v0, temps, sweeps, strat.swap_every, seed=base, mins=mins,
             medians=medians, weights=weights, pair_mask=pair, ci=ci,
             widx=widx, price=price, embf=embf, profile=profile,
-            pprofile=pprofile, segment=segment, archives=archives)
+            pprofile=pprofile, segment=segment, archives=archives,
+            checkpoint=checkpoint, resume=resume)
         # best-by-template per cell: ONE stacked re-evaluation of the
         # (padded) archives, not counted against the budget
         m = max(len(a) for a in archives)

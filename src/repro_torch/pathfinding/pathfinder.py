@@ -179,6 +179,7 @@ class Pathfinder:
                       budget: Optional[int] = None,
                       key: Optional[int] = None,
                       checkpoint_dir: Optional[str] = None,
+                      resume: bool = True,
                       segment: Optional[int] = None):
         """Map frontiers across deployment regions (and optionally extra
         workloads) with this Pathfinder's template, TechDB and
@@ -197,8 +198,11 @@ class Pathfinder:
         in favor of the spec.
 
         ``budget`` is the sweep's *total* evaluation budget, split evenly
-        across cells; ``checkpoint_dir`` is not supported yet
-        (checkpoint/resume is a later slice of the port). Returns a
+        across cells. ``checkpoint_dir`` makes the sweep interruptible:
+        the grid advances in ``segment``-sweep chunks and snapshots its
+        carry + per-cell frontier archives at every boundary;
+        ``resume=True`` (default) restores the newest snapshot and
+        continues bit for bit as the uninterrupted run would. Returns a
         :class:`~repro_torch.pathfinding.pareto.ScenarioFrontier`."""
         import dataclasses
         import warnings
@@ -236,5 +240,5 @@ class Pathfinder:
         wls = [self.wl] if workloads is None else list(workloads)
         return sweep.run(wls, template=self.template, db=self.db,
                          device=self.device, budget=budget, key=key,
-                         checkpoint_dir=checkpoint_dir, segment=segment,
-                         torch_device=self.torch_device)
+                         checkpoint_dir=checkpoint_dir, resume=resume,
+                         segment=segment, torch_device=self.torch_device)

@@ -30,10 +30,9 @@ class ScenarioSpec:
     tuple of ``(name, Region)`` pairs, so the spec is hashable and
     usable as a cache key. ``comm`` / ``schedule`` of ``None`` defer to
     the environment-resolved defaults (``REPRO_COMM_MODEL`` /
-    ``REPRO_SCHEDULE``). ``checkpoint_dir`` / ``resume`` describe a
-    checkpointed run; the port does not run one yet (checkpoint/resume
-    is a later slice), so a spec with a ``checkpoint_dir`` is refused
-    when it is run."""
+    ``REPRO_SCHEDULE``). ``checkpoint_dir`` / ``resume`` make the run
+    interruptible (see :meth:`~repro_torch.pathfinding.pareto.
+    ScenarioSweep.run`)."""
 
     workloads: Tuple[GEMMWorkload, ...]
     regions: Tuple[Tuple[str, Region], ...]

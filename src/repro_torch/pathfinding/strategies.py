@@ -227,13 +227,13 @@ def budget_sweeps(sweeps: int, population: int,
 
 
 def _checkpointer(checkpoint_dir: Optional[str]):
-    """The search checkpointer for the directory, or ``None`` when
-    checkpointing is off."""
+    """A :class:`~repro_torch.pathfinding.resume.SearchCheckpointer` for
+    the directory, or ``None`` when checkpointing is off."""
     if checkpoint_dir is None:
         return None
-    raise NotImplementedError(
-        "checkpoint_dir: search checkpoint/resume is not ported to "
-        "repro_torch yet (it comes with the resume slice)")
+    from repro_torch.pathfinding.resume import SearchCheckpointer
+
+    return SearchCheckpointer(checkpoint_dir)
 
 
 def _check_checkpointable(checkpoint_dir: Optional[str],
@@ -343,10 +343,14 @@ class ParallelTempering:
     default) the whole sweep loop — propose, evaluate, Metropolis
     accept, replica exchange — runs on the torch device engine
     (:mod:`repro_torch.pathfinding.device`), advanced in segments of
-    ``segment`` sweeps (default: one segment; segmentation never changes
-    the trajectory). The host path below is kept as the fallback.
-    ``checkpoint_dir`` needs the device engine and is not supported yet:
-    checkpoint/resume is a later slice of the port."""
+    ``segment`` sweeps (default: one segment). Segmentation never
+    changes the trajectory, but gives the search its checkpoint
+    boundaries: with ``checkpoint_dir`` set, the carry + frontier archive
+    + history snapshot atomically at every boundary
+    (:mod:`repro_torch.pathfinding.resume`), and ``resume=True``
+    (default) restores the newest snapshot, so an interrupted search
+    reproduces the uninterrupted run bit for bit. The host path below is
+    kept as the fallback (checkpointing needs the device engine)."""
 
     n_chains: int = 8
     t_max: float = 4000.0
@@ -356,6 +360,7 @@ class ParallelTempering:
     frontier_size: int = 256
     segment: Optional[int] = None
     checkpoint_dir: Optional[str] = None
+    resume: bool = True
 
     def search(self, space: DesignSpace, objective: Objective,
                budget: Optional[int] = None,
@@ -449,7 +454,8 @@ class ParallelTempering:
             norm=objective.norm, template=objective.template,
             collect_samples=self.frontier_size > 0,
             segment=self.segment, archive=archive,
-            checkpoint=_checkpointer(self.checkpoint_dir))
+            checkpoint=_checkpointer(self.checkpoint_dir),
+            resume=self.resume)
         best = space.decode(res.best_enc)
         return SearchResult(best, objective.evaluate(best),
                             res.best_cost, res.history, res.evaluations,

@@ -24,13 +24,16 @@ Keys are int64 tensors holding uint32 words. All arithmetic runs on
 int64 and is masked back to 32 bits after every add and shift (torch's
 ``>>`` on int64 is arithmetic, and its uint32 coverage is thin), so the
 same code runs on the CPU and on CUDA, and the key stays on the device
-it was made on.
+it was made on. On the host (checkpoints, the serving layer's slot
+state) the words are ``uint32`` arrays, as the reference stores them:
+:func:`key_to_np` / :func:`key_from_np`.
 """
 from __future__ import annotations
 
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -142,3 +145,16 @@ def uniform_cells(keys: torch.Tensor, rows: int, n: int) -> torch.Tensor:
     hi, lo = threefry_2x32(keys, cnt, cnt + size)
     mant = (hi << 20) | (lo >> 12)
     return (mant.to(torch.float64) * 2.0 ** -52).reshape(rows, -1)
+
+
+def key_to_np(key: torch.Tensor) -> np.ndarray:
+    """The key words on the host as ``uint32`` (``[2]`` or ``[S, 2]``),
+    the dtype the reference checkpoints its RNG stream position in."""
+    return key.cpu().numpy().astype(np.uint32)
+
+
+def key_from_np(words, device: DeviceLike = "cpu") -> torch.Tensor:
+    """Key words saved by :func:`key_to_np` (or by the reference) back as
+    this module's int64 key tensor on ``device``."""
+    return torch.as_tensor(np.asarray(words, dtype=np.uint32)
+                           .astype(np.int64), device=device)

@@ -1,5 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
-import neither jax nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` (with
+``tests/test_torch_ties.py``, which it loads) and the port's scripts
+(``scripts/torch_*.py``) import neither jax nor anything of the JAX
+package ``repro``."""
 import os
 import re
 import subprocess
@@ -20,6 +22,11 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tests", "test_torch_ties.py")  # chip_smoke's
+    scripts = os.path.join(REPO, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def _modules():

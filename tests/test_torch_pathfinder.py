@@ -182,12 +182,15 @@ def test_host_path_matches_reference(ref):
 
 
 @pytest.mark.parametrize("what", ["checkpoint"])
-def test_later_slices_raise_not_implemented(what):
+def test_later_slices_raise_not_implemented(what, tmp_path):
+    """Checkpointing, once a later slice, is ported: a checkpointed
+    search writes its snapshot and raises nothing."""
     pf = Pathfinder(workload(1), norm=normalizer_from_arrays(
         np.zeros(6), np.ones(6)), torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="resume"):
-        pf.search(ParallelTempering(n_chains=2, sweeps=1,
-                                    checkpoint_dir="x"), key=0)
+    res = pf.search(ParallelTempering(n_chains=2, sweeps=1,
+                                      checkpoint_dir=str(tmp_path)), key=0)
+    assert len(res.history) == 2
+    assert [d for d in os.listdir(tmp_path)] == ["step_00000001"]
 
 
 def test_default_device_raises_without_cuda():

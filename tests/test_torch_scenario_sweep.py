@@ -9,6 +9,7 @@ messages. Within 1e-6 relative: best costs, histories, frontier
 vectors. The ``cuda`` cases hold a 2-cell sweep on the card against the
 same sweep on the CPU."""
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -276,13 +277,27 @@ def test_run_scenarios_facade():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(checkpoint_dir="ckpt"), NotImplementedError),
+    (dict(checkpoint_dir="ckpt"), None),
     (dict(checkpoint_dir="ckpt", device=False), ValueError)],
     ids=["device", "host"])
-def test_checkpoint_dir_is_refused(kw, exc):
-    with pytest.raises(exc):
-        _sweep(regions=TWO, norm_samples=80).run(WL, key=1,
-                                                 torch_device="cpu", **kw)
+def test_checkpoint_dir_is_refused(kw, exc, tmp_path):
+    """The host fallback refuses ``checkpoint_dir`` as the reference's
+    does; the device path checkpoints (a snapshot per boundary) and
+    returns what the plain run returns."""
+    kw = dict(kw, checkpoint_dir=str(tmp_path / kw["checkpoint_dir"]))
+    sweep = _sweep(regions=TWO, norm_samples=80)
+    if exc is not None:
+        with pytest.raises(exc):
+            sweep.run(WL, key=1, torch_device="cpu", **kw)
+        return
+    got = sweep.run(WL, key=1, torch_device="cpu", segment=2, **kw)
+    plain = sweep.run(WL, key=1, torch_device="cpu")
+    assert sorted(os.listdir(kw["checkpoint_dir"])) == [
+        "step_00000002", "step_00000003"]
+    for s in plain.scenarios:
+        assert got.results[s.key].history == plain.results[s.key].history
+        np.testing.assert_array_equal(got.results[s.key].frontier.encoded,
+                                      plain.results[s.key].frontier.encoded)
 
 
 def test_shard_true_is_not_ported():

@@ -315,15 +315,27 @@ def test_facade_evaluation_paths_agree(norm, systems):
 
 @pytest.mark.parametrize("device", [True, False])
 @pytest.mark.parametrize("strategy", ["pt", "sweep"])
-def test_checkpoint_dir(norm, device, strategy):
+def test_checkpoint_dir(norm, device, strategy, tmp_path):
     """The host fallbacks refuse ``checkpoint_dir`` as the reference's
-    do; the device engine's checkpointing is a later slice."""
+    do; the device engine checkpoints (one snapshot after the one
+    segment) and returns what the plain run returns."""
+    import dataclasses
+
     from repro_torch.pathfinding import ParallelTempering, ScalarizationSweep
 
-    strat = (ParallelTempering(n_chains=2, sweeps=1, checkpoint_dir="x")
+    ckpt = str(tmp_path / "x")
+    strat = (ParallelTempering(n_chains=2, sweeps=1, checkpoint_dir=ckpt)
              if strategy == "pt" else
              ScalarizationSweep(directions=2, n_chains=2, sweeps=1,
-                                checkpoint_dir="x"))
-    err = NotImplementedError if device else ValueError
-    with pytest.raises(err, match="resume" if device else "device engine"):
-        _pf(norm, device=device).search(strat, key=0)
+                                checkpoint_dir=ckpt))
+    if not device:
+        with pytest.raises(ValueError, match="device engine"):
+            _pf(norm, device=device).search(strat, key=0)
+        return
+    got = _pf(norm, device=device).search(strat, key=0)
+    plain = _pf(norm, device=device).search(
+        dataclasses.replace(strat, checkpoint_dir=None), key=0)
+    assert os.listdir(ckpt) == ["step_00000001"]
+    assert got.history == plain.history
+    np.testing.assert_array_equal(got.frontier.encoded,
+                                  plain.frontier.encoded)
