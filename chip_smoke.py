@@ -135,7 +135,34 @@ one JSON line that carries the card's name and power limit:
     2048 window, 32 generated tokens, seeded weights and prompts), timed,
     with the ``rglru`` launch count of that run (26 RG-LRU layers x 32 =
     832) and every logit checked finite.
-19. ``gemm_kernel`` — the systolic GEMM path: first every case once
+19. ``dense_parity`` — the dense family's three variants, ``qwen3-8b``
+    (qk-norm), ``qwen2.5-14b`` (QKV bias) and ``smollm-135m`` (tied
+    embeddings), reduced and widened to d_model 256 (4 heads of 64, 2
+    layers), with every norm weight and bias drawn non-default from a
+    seed, on cuda against the same weights on the CPU in float32: a
+    48-token prompt and eight teacher-forced greedy steps.
+20. ``serve_dense`` — ``qwen3-8b`` at full width (36 layers, d_model
+    4096, 32.8 GB of weights) in float32 through
+    ``repro_torch.launch.serve`` (batch 4, prompt 1024, 32 generated
+    tokens), timed beside the cell's least times (a decode step's
+    weight and cache read; the prefill's operations at the float32
+    rate, TF32 off), with one decode step profiled after a fresh
+    prefill (device busy time and idle share, kernels); no hand-written
+    kernel may launch (the path has none) and every logit must be
+    finite.
+21. ``serve_dense_bf16`` — ``qwen2.5-14b`` at full width (48 layers,
+    d_model 5120, 29.5 GB) in bfloat16 (``DTypePolicy.bf16()``; norms,
+    attention scores and the softmax in float32), batch 4, prompt 512,
+    32 tokens, with its bounds at the bf16 rate; the same checks.
+22. ``scenario_llm`` — ``ScenarioSweep(ScalarizationSweep(directions=2,
+    n_chains=4, sweeps=10), shard=True)`` over
+    ``workloads_from_configs(["smollm-135m", "qwen3-8b"])`` (the two
+    models' MLP GEMMs x the five default regions), on the card and on
+    the CPU: the cells must pass through the one-device scenario mesh
+    of each run's device, launch ``prefix_select`` 1 + 10 + 1 times on
+    the card, equal the card's ``shard=False`` run bit for bit, and
+    agree with the CPU by the ``scenario`` phase's rule.
+23. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
     sites, and of each site's path ("simt", "wgmma"), over that run;
@@ -158,7 +185,7 @@ one JSON line that carries the card's name and power limit:
     key product at the serve cell's prefill (2048 x 2560 x 8960) under
     the five settings in float32 and under OS, OS split-K 2, WS and IS in
     bfloat16; float16 OS and WS at WL2.
-20. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
+24. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run, by kernel: the unrolled and the
     grouped kernel must both have run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -171,7 +198,7 @@ one JSON line that carries the card's name and power limit:
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line (the
 ``prefix_select`` launches are those of the search, pareto, strategies,
-scenario, resume and service phases) and, last,
+scenario, resume, service and scenario_llm phases) and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero without that last line. Without CUDA, or outside a
 checkout of the repository, it exits non-zero at once.
@@ -1592,16 +1619,19 @@ def phase_wkv6(card: str) -> dict:
 
 
 def _decode_parity(cfg, prompt_len: int, seed: int, steps: int = 8,
-                   batch: int = 2) -> dict:
+                   batch: int = 2, prepare=None) -> dict:
     """The model of ``cfg`` on cuda against the same weights on the CPU:
     prefill of a ``prompt_len`` prompt, then ``steps`` teacher-forced
     greedy steps (the CPU's tokens fed to both); every step's logits
     within ``LM_TOL`` of max |logit| and the greedy tokens equal where
-    the CPU's top-2 gap exceeds that."""
+    the CPU's top-2 gap exceeds that. ``prepare(model, seed)`` edits the
+    CPU model's weights before they are copied to the card."""
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models.transformer import decode_step, init_model, prefill
 
     cpu = init_model(cfg, seed=seed, torch_device="cpu")
+    if prepare is not None:
+        prepare(cpu, seed)
     gpu = init_model(cfg, seed=seed, torch_device=DEV)
     gpu.load_state_dict(cpu.state_dict())
     prompts = make_prompts(cfg.vocab, batch, prompt_len, seed=seed + 1,
@@ -1676,10 +1706,12 @@ def _kernel_sources() -> dict:
 
 
 def _serve(card: str, phase: str, arch: str, prompt_len: int,
-           expect: dict, batch: int = 4, gen: int = 32) -> dict:
-    """``arch`` at full width in float32 through ``generate`` (prefill,
-    then ``gen - 1`` greedy steps), after a short warm-up run; the
-    kernel launch counts of the timed run must equal ``expect``."""
+           expect: dict, batch: int = 4, gen: int = 32, policy=None,
+           extra=None) -> dict:
+    """``arch`` at full width under ``policy`` (default float32) through
+    ``generate`` (prefill, then ``gen - 1`` greedy steps), after a short
+    warm-up run; the kernel launch counts of the timed run must equal
+    ``expect``. ``extra(cfg, model, prompts)`` adds to the record."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models.common import DTypePolicy
@@ -1689,7 +1721,8 @@ def _serve(card: str, phase: str, arch: str, prompt_len: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    model = init_model(cfg, DTypePolicy(), seed=0, torch_device=DEV)
+    model = init_model(cfg, policy or DTypePolicy(), seed=0,
+                       torch_device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in model.parameters())
@@ -1710,7 +1743,8 @@ def _serve(card: str, phase: str, arch: str, prompt_len: int,
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
         raise AssertionError(f"{phase} output malformed: finite="
                              f"{out['all_finite']}, tokens {tuple(toks.shape)}")
-    rec = dict(phase=phase, arch=cfg.name, dtype="float32",
+    rec = dict(phase=phase, arch=cfg.name,
+               dtype=str(model.embed.dtype).removeprefix("torch."),
                params=n_params, batch=batch, prompt_len=prompt_len, gen=gen,
                init_s=init_s, warmup_prefill_ms=warm["prefill_ms"],
                prefill_ms=out["prefill_ms"],
@@ -1723,6 +1757,11 @@ def _serve(card: str, phase: str, arch: str, prompt_len: int,
                launches=launches, all_finite=out["all_finite"],
                sample_row0=toks[0][:16].tolist(),
                peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    if extra is not None:
+        rec.update(extra(cfg, model, prompts))
+        rec["prefill_over_bound"] = rec["prefill_ms"] / rec["prefill_bound_ms"]
+        rec["decode_p50_over_bound"] = (rec["decode_p50_ms"]
+                                        / rec["decode_bound_ms"])
     emit(rec)
     return rec
 
@@ -1858,6 +1897,196 @@ def phase_serve_hybrid(card: str) -> dict:
     n_rg = 2 * n_groups + tail
     return _serve(card, "serve_hybrid", "recurrentgemma-9b", 3072,
                   {"rglru": n_rg * gen}, gen=gen)
+
+
+# ---------------------------------------------------------------------------
+# dense_parity / serve_dense / serve_dense_bf16 / scenario_llm phases: the
+# dense LM family (no hand-written kernel on its path) and the one-device
+# scenario mesh over its MLP GEMMs
+# ---------------------------------------------------------------------------
+
+DENSE_PARITY = ("qwen3-8b", "qwen2.5-14b", "smollm-135m")
+
+
+def _nondefault_norms_and_biases(model, seed: int) -> None:
+    """Every norm weight ``1 + 0.2 N`` and every QKV bias ``0.5 N``, drawn
+    by numpy from ``seed``: the JAX package inits them to one and zero,
+    which would leave qk-norm and the biases unexercised."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+                draw = 1.0 + 0.2 * rng.standard_normal(p.shape)
+            elif leaf in ("bq", "bk", "bv"):
+                draw = 0.5 * rng.standard_normal(p.shape)
+            else:
+                continue
+            p.copy_(torch.as_tensor(draw, dtype=p.dtype))
+
+
+def phase_dense_parity(card: str) -> dict:
+    """The three dense variants (qk-norm, QKV bias, tied embeddings)
+    reduced, widened to d_model 256 with 4 heads of 64, on cuda against
+    the CPU in float32, with non-default norm weights and biases."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for i, arch in enumerate(DENSE_PARITY):
+        cfg = dataclasses.replace(get_config(arch).reduced(), d_model=256,
+                                  d_head=64)
+        out[arch] = dict(qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
+                         tied=cfg.tie_embeddings, heads=cfg.n_heads,
+                         kv_heads=cfg.n_kv_heads,
+                         **_decode_parity(cfg, 48, seed=11 + i,
+                                          prepare=_nondefault_norms_and_biases))
+    rec = dict(phase="dense_parity", variants=out,
+               max_rel_err=max(v["max_rel_err"] for v in out.values()),
+               tol=LM_TOL, card=card)
+    emit(rec)
+    return rec
+
+
+def _dense_extra(cfg, model, prompts) -> dict:
+    """The dense serve cell's least times and a profile of one decode
+    step after a prefill of ``prompts`` (device busy share, kernels)."""
+    from repro_torch.models.transformer import decode_step, prefill
+
+    batch, prompt_len = prompts.shape
+    logits, cache, length = prefill(model, prompts, prompt_len + 1)
+    token = logits.argmax(-1).to(torch.int32)
+    # the step writes position ``length`` in place each call: repeatable
+    prof = _profiled(lambda: decode_step(model, token, cache, length))
+    return dict(dense_serve_bound(cfg, model, batch, prompt_len),
+                decode_step_profile=prof)
+
+
+def dense_serve_bound(cfg, model, batch: int, prompt_len: int) -> dict:
+    """Least times of a dense serve cell, each the larger of its bytes
+    over ``HBM_BYTES_PER_S`` and its operations over the card's rate for
+    the weights' dtype (``FP32_OPS_PER_S``, TF32 off, or
+    ``BF16_OPS_PER_S``). A decode step reads every weight and the
+    prompt's KV cache once and does 2 operations a weight a sequence.
+    The prefill reads every weight and writes the KV cache once; it does
+    2 operations a layer weight a prompt token, the causal attention's
+    two products (S (S + 1) / 2 positions a head) and the LM head for
+    the last position of each sequence."""
+    elt = model.embed.element_size()
+    rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
+        else FP32_OPS_PER_S
+    n_params = sum(p.numel() for p in model.parameters())
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    layer_params = sum(p.numel() for p in model.layers.parameters())
+    tokens = batch * prompt_len
+    kv_bytes = (cfg.n_layers * 2 * tokens * cfg.n_kv_heads * cfg.d_head
+                * elt)
+    attn_ops = (cfg.n_layers * 2 * 2 * batch * cfg.n_heads * cfg.d_head
+                * prompt_len * (prompt_len + 1) / 2)
+    prefill_ops = 2 * layer_params * tokens + attn_ops \
+        + 2 * head.numel() * batch
+    out = {}
+    for name, nbytes, ops in (
+            ("decode", n_params * elt + kv_bytes, 2 * n_params * batch),
+            ("prefill", n_params * elt + kv_bytes, prefill_ops)):
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / rate * 1e3
+        out[f"{name}_bound_ms"] = max(by_bytes, by_ops)
+        out[f"{name}_bound_by"] = "bytes" if by_bytes >= by_ops \
+            else "operations"
+        out[f"{name}_bytes"], out[f"{name}_ops"] = nbytes, ops
+    out["ops_per_s"] = rate
+    return out
+
+
+def phase_serve_dense(card: str) -> dict:
+    """``qwen3-8b`` at full width in float32: no hand-written kernel may
+    launch (the dense path has none)."""
+    return _serve(card, "serve_dense", "qwen3-8b", 1024,
+                  {name: 0 for name in _launch_counters()},
+                  extra=_dense_extra)
+
+
+def phase_serve_dense_bf16(card: str) -> dict:
+    """``qwen2.5-14b`` at full width in bfloat16 (59 GB in float32)."""
+    from repro_torch.models.common import DTypePolicy
+
+    return _serve(card, "serve_dense_bf16", "qwen2.5-14b", 512,
+                  {name: 0 for name in _launch_counters()},
+                  policy=DTypePolicy.bf16(), extra=_dense_extra)
+
+
+def phase_scenario_llm(card: str) -> dict:
+    """A carbon-aware grid over two dense LLMs' MLP GEMMs
+    (``workloads_from_configs``) with ``shard=True``, so the cells pass
+    through the one-device scenario mesh: on the card bit for bit the
+    unsharded run, and against the CPU by the ``scenario`` phase's
+    rule."""
+    from repro_torch import distributed
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.pathfinding import (
+        DesignSpace,
+        ScalarizationSweep,
+        ScenarioSweep,
+        workloads_from_configs,
+    )
+
+    wls = workloads_from_configs(["smollm-135m", "qwen3-8b"])
+    sweep = ScenarioSweep(strategy=ScalarizationSweep(
+        directions=2, n_chains=4, sweeps=10), shard=True)
+    got, walls, meshes = {}, {}, {}
+    for dev in (DEV, "cpu"):
+        torch.cuda.synchronize()
+        kops.reset_launch_count()
+        with _Recorder(distributed, "shard_scenarios") as placed:
+            t = time.perf_counter()
+            got[dev] = sweep.run(wls, key=0, torch_device=dev)
+            torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t
+        if dev == DEV:
+            launches = kops.launch_count()
+        meshes[dev] = [[str(d) for d in call[0][1]] for call in placed.calls]
+    for dev in (DEV, "cpu"):
+        want = torch.device(dev).type
+        if len(meshes[dev]) != 1 or len(meshes[dev][0]) != 1 \
+                or not meshes[dev][0][0].startswith(want):
+            raise AssertionError(f"scenario_llm on {dev} placed its cells "
+                                 f"on {meshes[dev]}, not one {want} device")
+    want = 1 + sweep.strategy.sweeps + 1
+    if launches != want:
+        raise AssertionError(f"scenario_llm launched prefix_select "
+                             f"{launches} times, not {want}")
+    plain = dataclasses.replace(sweep, shard=False).run(wls, key=0,
+                                                        torch_device=DEV)
+    for s in plain.scenarios:
+        a, b = got[DEV].results[s.key], plain.results[s.key]
+        if not (a.best == b.best and a.best_cost == b.best_cost
+                and a.history == b.history
+                and np.array_equal(a.frontier.encoded, b.frontier.encoded)
+                and np.array_equal(a.frontier.vectors, b.frontier.vectors)):
+            raise AssertionError(f"scenario_llm cell {s.key}: shard=True "
+                                 "differs from shard=False on the card")
+    space, worst, cells = DesignSpace(), 0.0, {}
+    for s in got["cpu"].scenarios:
+        res = got[DEV].results[s.key]
+        if not (np.all(np.isfinite(res.frontier.vectors))
+                and math.isfinite(res.best_cost)):
+            raise AssertionError(f"scenario_llm cell {s.key} malformed")
+        worst = max(worst, _same_result(f"scenario_llm.{'/'.join(s.key)}",
+                                        res, got["cpu"].results[s.key],
+                                        space))
+        cells["/".join(s.key)] = dict(frontier=len(res.frontier),
+                                      best_cost=res.best_cost)
+    rec = dict(phase="scenario_llm",
+               workloads=[[w.name, w.M, w.K, w.N] for w in wls],
+               cells=len(cells), sweeps=sweep.strategy.sweeps,
+               chains_per_cell=sweep.strategy.directions
+               * sweep.strategy.n_chains, mesh=meshes,
+               shard_false_equal=True,
+               launches={"prefix_select": launches},
+               cuda_s=walls[DEV], cpu_s=walls["cpu"], max_rel_dev=worst,
+               cells_out=cells, card=card)
+    emit(rec)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2259,6 +2488,14 @@ def main() -> int:
     serve_h = phase_serve_hybrid(card)
     gc.collect()                          # free the hybrid model's memory
     torch.cuda.empty_cache()
+    phase_dense_parity(card)
+    phase_serve_dense(card)
+    gc.collect()                          # free qwen3-8b's 32.8 GB
+    torch.cuda.empty_cache()
+    phase_serve_dense_bf16(card)
+    gc.collect()                          # free qwen2.5-14b's 29.5 GB
+    torch.cuda.empty_cache()
+    scen_llm = phase_scenario_llm(card)
     gmain = phase_gemm(card)
     smain = phase_prefix_segment(card)
 
@@ -2270,7 +2507,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/prefix_gather/kernel.py:79",
         "launches": sum(p["launches"]["prefix_select"]
                         for p in (search, pareto, strategies, scenario,
-                                  resume, service)),
+                                  resume, service, scen_llm)),
         "max_abs_err": kmain["max_abs_err"], "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"], "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"], "library_ms": None}, {

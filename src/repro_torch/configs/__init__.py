@@ -1,10 +1,11 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-It holds only the architectures whose serving path is ported: RWKV-6
-(``rwkv6-3b``) and RecurrentGemma (``recurrentgemma-9b``). The JAX
-package's other architectures are known by name and raise
-``NotImplementedError`` until their slice of the port lands (ROADMAP,
-queue 1, item 12).
+It holds the architectures whose serving path is ported: the dense
+family (``smollm-135m``, ``qwen2.5-14b``, ``qwen3-8b``, ``yi-6b``),
+RecurrentGemma (``recurrentgemma-9b``) and RWKV-6 (``rwkv6-3b``). The
+JAX package's moe, vlm and audio architectures are known by name and
+raise ``NotImplementedError`` until their slice of the port lands
+(ROADMAP, queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -12,16 +13,21 @@ import importlib
 from typing import Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable, get_shape
 
 _MODULES: Dict[str, str] = {
-    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "yi-6b": "repro_torch.configs.yi_6b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
 # architectures of the JAX package that the port does not serve yet
 _NOT_PORTED: Tuple[str, ...] = (
-    "smollm-135m", "qwen2.5-14b", "qwen3-8b", "yi-6b", "internvl2-26b",
-    "deepseek-v2-236b", "llama4-maverick-400b-a17b", "hubert-xlarge",
+    "internvl2-26b", "deepseek-v2-236b", "llama4-maverick-400b-a17b",
+    "hubert-xlarge",
 )
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
@@ -37,4 +43,5 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(_MODULES[name]).CONFIG
 
 
-__all__ = ["ModelConfig", "ARCH_NAMES", "get_config"]
+__all__ = ["ModelConfig", "ShapeCell", "SHAPES", "ARCH_NAMES",
+           "get_config", "get_shape", "applicable"]

@@ -2,9 +2,9 @@
 ``configs/base.py``, which imports no framework).
 
 It keeps the fields, the ``param_count`` branches and the ``reduced()``
-entries that the ported families read: ``ssm`` (RWKV-6) and ``hybrid``
-(RecurrentGemma: RG-LRU and local-attention layers). The other
-families' fields come back with the slice that first reads them.
+entries that the served families read: ``dense`` (GQA with qk-norm or
+QKV bias, SwiGLU), ``ssm`` (RWKV-6) and ``hybrid`` (RecurrentGemma:
+RG-LRU and local-attention layers).
 
 One :class:`ModelConfig` per ported architecture lives in
 ``repro_torch/configs/<id>.py``; ``repro_torch.configs.get_config(name)``
@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-PORTED_FAMILIES = ("ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +30,10 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: Optional[int] = None  # defaults to d_model // n_heads
+
+    # dense-attention extras
+    qk_norm: bool = False
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
 
     # hybrid / recurrent (recurrentgemma)
@@ -38,7 +42,13 @@ class ModelConfig:
     rg_conv_width: int = 4
     rg_lru_width: Optional[int] = None    # defaults to d_model
 
+    # structure
+    encoder_only: bool = False            # bidirectional, no decode
     tie_embeddings: bool = False
+
+    # runtime
+    max_seq: int = 1_048_576
+    sub_quadratic: bool = False           # can run long_500k decode
 
     def __post_init__(self):
         if self.d_head is None and self.n_heads:
@@ -57,6 +67,12 @@ class ModelConfig:
             lora = 32
             per_layer = (5 * d * d + 10 * lora * d + 4 * lora * d
                          + 9 * d) + (2 * d * self.d_ff + d * d + 2 * d)
+        elif self.family == "dense":
+            dh = self.d_head
+            per_layer = (d * self.n_heads * dh            # q
+                         + 2 * d * self.n_kv_heads * dh   # k, v
+                         + self.n_heads * dh * d          # o
+                         + 3 * d * self.d_ff)             # swiglu
         else:
             # mixture of rglru + local-attn layers; approximate with the
             # pattern-weighted average
@@ -85,6 +101,7 @@ class ModelConfig:
             vocab=128,
             local_window=32,
             rg_lru_width=64 if self.rg_lru_width else None,
+            max_seq=512,
         )
 
 

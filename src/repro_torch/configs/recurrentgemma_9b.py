@@ -15,5 +15,6 @@ CONFIG = ModelConfig(
     block_pattern=("rglru", "rglru", "local"),
     local_window=2048,
     rg_lru_width=4096,
+    sub_quadratic=True,    # state is O(window): runs long_500k
     tie_embeddings=True,
 )

@@ -11,4 +11,5 @@ CONFIG = ModelConfig(
     n_kv_heads=0,
     d_ff=8960,
     vocab=65536,
+    sub_quadratic=True,    # O(1) state: runs long_500k
 )

@@ -100,14 +100,14 @@ def lm_params_from_reference(tree: Mapping[str, Any],
                              cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of :class:`repro_torch.models.transformer.LM`
     from the reference's ``init_model`` pytree as numpy arrays, unstacked
-    per layer: ``layers`` (ssm, stacked on L) or ``groups`` and ``tail``
-    (hybrid, stacked on the group and tail counts). Load it with
+    per layer: ``layers`` (dense and ssm, stacked on L) or ``groups`` and
+    ``tail`` (hybrid, stacked on the group and tail counts). Load it with
     ``model.load_state_dict(...)``, which rejects missing or extra
-    names."""
+    names (a tied model has no ``lm_head``)."""
     require_ported(cfg)
     out = {k: torch.tensor(np.asarray(tree[k]))
            for k in ("embed", "final_norm", "lm_head") if k in tree}
-    if cfg.family == "ssm":
+    if cfg.family in ("dense", "ssm"):
         _layer_slices(tree["layers"], cfg.n_layers, "layers.", out)
         return out
     n_groups, tail = hybrid_layout(cfg)
@@ -121,6 +121,8 @@ def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig):
     """The port's decode cache from the reference's stacked one, as numpy
     arrays:
 
+    - dense: ``{"kv": (k, v)}``, each (L,B,T,KV,Dh), becomes ``{"kv":
+      [(k, v), ...]}``, one pair per layer;
     - ssm: ``{"wkv": (L,B,H,Dh,Dh), "tm_x": (L,B,D), "cm_x": (L,B,D)}``
       becomes one dict per layer;
     - hybrid: ``{"rg1", "rg2", "tail": {"conv": (n,B,K-1,W), "h":
@@ -128,15 +130,19 @@ def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig):
       ``{"groups": [{"rg1", "rg2", "kv"}, ...], "tail": [...]}``.
     """
     require_ported(cfg)
+    flat: Dict[str, torch.Tensor] = {}
+    if cfg.family == "dense":
+        k, v = cache["kv"]
+        _layer_slices({"k": k, "v": v}, cfg.n_layers, "", flat)
+        return {"kv": [(flat[f"{i}.k"], flat[f"{i}.v"])
+                       for i in range(cfg.n_layers)]}
     if cfg.family == "ssm":
         names = ("tm_x", "wkv", "cm_x")
-        flat: Dict[str, torch.Tensor] = {}
         _layer_slices({k: cache[k] for k in names}, cfg.n_layers, "", flat)
         return [{k: flat[f"{i}.{k}"] for k in names}
                 for i in range(cfg.n_layers)]
     n_groups, tail = hybrid_layout(cfg)
     k, v = cache["kv"]
-    flat = {}
     _layer_slices({"rg1": cache["rg1"], "rg2": cache["rg2"],
                    "k": k, "v": v}, n_groups, "", flat)
     if tail:

@@ -1,5 +1,11 @@
 """Serving entry point: batched prefill + greedy decode.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --batch 2 --prompt-len 16 --gen 4    # smollm-135m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+        --batch 4 --prompt-len 1024 --gen 32   # on cuda: 32.8 GB fp32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
+        --dtype bfloat16 --batch 4 --prompt-len 512 --gen 32  # 29.5 GB
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --batch 4 --prompt-len 512 --gen 32            # on cuda, full width
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
@@ -16,8 +22,9 @@ prompts from numpy, prefills the batch, then runs the decode loop
 through ``serve_step`` (one new token per sequence per step against the
 cache), reporting per-step latency as the JAX package's serve CLI does. The
 config is reduced with ``--reduced`` or on the CPU, as there; on cuda it
-serves at full width. Without a GPU it raises unless ``--device cpu``
-is given.
+serves at full width. ``--dtype`` picks ``DTypePolicy()`` (float32, the
+JAX package CLI's policy) or ``DTypePolicy.bf16()``. Without a GPU it
+raises unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -99,22 +106,28 @@ def generate(model: LM, prompts: torch.Tensor, gen: int) -> Dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-3b")
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: cuda (raises without a GPU)")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced or dev.type == "cpu":
         cfg = cfg.reduced()
-    model = init_model(cfg, DTypePolicy(), seed=0, torch_device=dev)
+    policy = (DTypePolicy.bf16() if args.dtype == "bfloat16"
+              else DTypePolicy())
+    model = init_model(cfg, policy, seed=0, torch_device=dev)
     prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, 1, dev)
     out = generate(model, prompts, args.gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] {cfg.name}: {n_params} parameters, {model.embed.dtype}")
     print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
           f"{args.prompt_len} in {out['prefill_ms']:.1f}ms")
     if out["decode_ms"]:

@@ -1,20 +1,23 @@
-"""Attention, forward only: grouped-query attention (GQA, MQA) with an
-optional sliding window, as the hybrid family's local-attention layers
-use it.
+"""Attention, forward only: grouped-query attention (GQA, MQA) with
+qk-norm and QKV bias, over the full causal context (the dense family)
+or a sliding window (the hybrid family's local-attention layers).
 
 The torch counterpart of the JAX package's ``models/attention.py`` for
-that path. The full-sequence path is a chunked flash-style attention:
+those paths. The full-sequence path is a chunked flash-style attention:
 an online softmax over KV chunks inside a loop over Q chunks, with the
 JAX package's additive ``NEG_INF`` mask and its causal/window chunk
 skipping, so no (S, S) score matrix is ever formed. The decode path
 attends a single query against the cache. The JAX package computes all
 of this in plain jnp (no Pallas kernel), and so does the port in plain
 torch: matrix products for the chunk products, elementwise ops for the
-softmax.
+softmax. Scores, their products with V and the softmax are float32
+whatever the input dtype, as the JAX package's
+``preferred_element_type=float32`` products are: 16-bit operands are
+widened (exactly) before each product.
 
 Shapes: x (B, S, D); q (B, S, KV, G, Dh) grouped, so KV heads are never
-repeated; caches (B, T, KV, Dh). QKV bias, qk-norm, MLA and the flash
-backward are not ported.
+repeated; caches (B, T, KV, Dh). MLA and the flash backward are not
+ported.
 """
 from __future__ import annotations
 
@@ -22,13 +25,16 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
     DTypePolicy,
     FrozenParams,
     apply_rope,
+    init_rms_norm,
     normal_init,
+    rms_norm,
 )
 
 Params = Dict[str, torch.Tensor]
@@ -41,25 +47,37 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a float32 result: 16-bit operands are widened
+    first (exactly), so the products and sums are float32 (a no-op on
+    float32 operands)."""
+    return a.float() @ b.float()
+
+
 def _attend_chunk(q, k, v, bias, scale):
     """q: (B, qc, KV, G, Dh); k/v: (B, kc, KV, Dh); bias: f32 (qc, kc)
     additive mask (0 / NEG_INF). Returns (scores_max, exp_scores@v,
-    exp_sums) for the online softmax, each (B, KV, G, qc[, Dh])."""
+    exp_sums) for the online softmax, each (B, KV, G, qc[, Dh]), all
+    float32; the probabilities meet v in v.dtype."""
     b, qc, kvh, g, dh = q.shape
     qg = q.permute(0, 2, 3, 1, 4).reshape(b, kvh, g * qc, dh)
-    s = (qg @ k.permute(0, 2, 3, 1)).float() * scale          # (B,KV,G*qc,kc)
+    s = _mm_f32(qg, k.permute(0, 2, 3, 1)) * scale            # (B,KV,G*qc,kc)
     s = s.reshape(b, kvh, g, qc, -1) + bias
     m = s.amax(dim=-1)                                        # (B,KV,G,qc)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)                                         # (B,KV,G,qc)
-    o = p.to(v.dtype).reshape(b, kvh, g * qc, -1) @ v.transpose(1, 2)
-    return m, o.float().reshape(b, kvh, g, qc, dh), l
+    o = _mm_f32(p.to(v.dtype).reshape(b, kvh, g * qc, -1),
+                v.transpose(1, 2))
+    return m, o.reshape(b, kvh, g, qc, dh), l
 
 
-def _chunk_mask(q_pos, k_pos, window, t):
+def _chunk_mask(q_pos, k_pos, causal, window, t):
     """f32 additive bias (qc, kc): 0 where attended, NEG_INF where masked
     (causal, outside the window, or kv padding)."""
-    mask = q_pos[:, None] >= k_pos[None, :]
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
     if window is not None:
         mask &= q_pos[:, None] - k_pos[None, :] < window
     mask &= k_pos[None, :] < t                     # kv padding
@@ -72,13 +90,14 @@ def chunked_attention(
     k: torch.Tensor,       # (B, T, KV, Dh)
     v: torch.Tensor,       # (B, T, KV, Dh)
     *,
+    causal: bool = True,
     window: Optional[int] = None,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
 ) -> torch.Tensor:
-    """Causal flash attention forward (online softmax over KV chunks),
-    with q and k at the same positions; returns (B, S, KV, G, Dh) in
-    v.dtype. The KV chunks a Q chunk cannot see (after its last row,
+    """Flash attention forward (online softmax over KV chunks), with q
+    and k at the same positions; returns (B, S, KV, G, Dh) in v.dtype.
+    The KV chunks a Q chunk cannot see (after its last row when causal,
     before its window) are skipped."""
     b, s, kvh, g, dh = q.shape
     t = k.shape[1]
@@ -104,7 +123,9 @@ def chunked_attention(
         l = torch.zeros_like(m)
         o = torch.zeros((b, kvh, g, q_chunk, dh), dtype=torch.float32,
                         device=q.device)
-        hi = min(nkv, ((qi + 1) * q_chunk - 1) // kv_chunk + 1)
+        hi = nkv
+        if causal:
+            hi = min(nkv, ((qi + 1) * q_chunk - 1) // kv_chunk + 1)
         lo = 0
         if window is not None:
             lo = max(lo, (qi * q_chunk - window + 1) // kv_chunk)
@@ -113,7 +134,7 @@ def chunked_attention(
             v_blk = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             q_pos = qi * q_chunk + q_pos_base
             k_pos = ki * kv_chunk + k_pos_base
-            mask = _chunk_mask(q_pos, k_pos, window, t)
+            mask = _chunk_mask(q_pos, k_pos, causal, window, t)
             mc, oc, lc = _attend_chunk(q_blk, k_blk, v_blk, mask, scale)
             m_new = torch.maximum(m, mc)
             a_old = torch.exp(m - m_new)
@@ -132,39 +153,59 @@ def decode_attention(q1, k, v, *, length):
     b, kvh, g, dh = q1.shape
     t = k.shape[1]
     scale = 1.0 / math.sqrt(dh)
-    s = (q1 @ k.permute(0, 2, 3, 1)).float() * scale          # (B,KV,G,T)
+    s = _mm_f32(q1, k.permute(0, 2, 3, 1)) * scale            # (B,KV,G,T)
     mask = torch.arange(t, device=k.device)[None] < length[:, None]
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = p.to(v.dtype) @ v.transpose(1, 2)                   # (B,KV,G,Dh)
+    out = _mm_f32(p.to(v.dtype), v.transpose(1, 2))           # (B,KV,G,Dh)
     return out.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
-# GQA layer (MHA/GQA/MQA, sliding window)
+# GQA layer (MHA/GQA/MQA, qk-norm, QKV bias, sliding window)
 # ---------------------------------------------------------------------------
 
 
 def init_gqa(cfg: ModelConfig, policy: DTypePolicy,
              generator: Optional[torch.Generator] = None,
              device=None) -> Params:
+    """The projections, drawn in the order wq, wk, wv, wo; the QKV
+    biases (zeros) when ``cfg.qkv_bias`` and the per-head q/k RMS norm
+    weights (ones) when ``cfg.qk_norm``, as the JAX package inits them."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = policy.param_dtype
 
     def normal(shape):
         return normal_init(shape, 1.0, dt, generator, device)
 
-    return {"wq": normal((d, h * dh)), "wk": normal((d, kv * dh)),
-            "wv": normal((d, kv * dh)), "wo": normal((h * dh, d))}
+    p = {"wq": normal((d, h * dh)), "wk": normal((d, kv * dh)),
+         "wv": normal((d, kv * dh)), "wo": normal((h * dh, d))}
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * dh), ("bk", kv * dh),
+                            ("bv", kv * dh)):
+            p[name] = torch.zeros((width,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms_norm(dh, dt, device)
+        p["k_norm"] = init_rms_norm(dh, dt, device)
+    return p
 
 
 def _project_qkv(p, x, cfg: ModelConfig):
+    """q (B, S, KV, G, Dh), k and v (B, S, KV, Dh): the projections, the
+    biases, then the RMS norm of each head's Dh axis, in the JAX
+    package's order (RoPE comes after)."""
     b, s, _ = x.shape
     kv, dh = cfg.n_kv_heads, cfg.d_head
     g = cfg.n_heads // kv
-    q = (x @ p.wq).reshape(b, s, kv, g, dh)
-    k = (x @ p.wk).reshape(b, s, kv, dh)
-    v = (x @ p.wv).reshape(b, s, kv, dh)
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(b, s, kv, g, dh)
+    k = k.reshape(b, s, kv, dh)
+    v = v.reshape(b, s, kv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm)
+        k = rms_norm(k, p.k_norm)
     return q, k, v
 
 
@@ -174,6 +215,54 @@ def rope_qk(q, k, positions, cfg: ModelConfig):
     q = apply_rope(q.reshape(b, s, -1, cfg.d_head), positions,
                    cfg.rope_theta).reshape(q.shape)
     return q, apply_rope(k, positions, cfg.rope_theta)
+
+
+def attend(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
+           window: Optional[int] = None, q_chunk: int = 512,
+           kv_chunk: int = 1024):
+    """The attention layer over the full sequence. Returns (y (B, S, D),
+    k, v), k and v (B, S, KV, Dh) after RoPE, for a cache."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = rope_qk(q, k, positions, cfg)
+    out = chunked_attention(q, k, v, causal=causal, window=window,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo, k, v
+
+
+def gqa_forward(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
+                window: Optional[int] = None, q_chunk: int = 512,
+                kv_chunk: int = 1024) -> torch.Tensor:
+    return attend(p, x, positions, cfg, causal=causal, window=window,
+                  q_chunk=q_chunk, kv_chunk=kv_chunk)[0]
+
+
+def gqa_prefill(p, x, positions, cfg: ModelConfig, cache_len: int, *,
+                q_chunk: int = 512, kv_chunk: int = 1024):
+    """Causal attention over the prompt; returns (y, (k, v)), the cache
+    right-padded with zeros to ``cache_len`` positions."""
+    y, k, v = attend(p, x, positions, cfg, q_chunk=q_chunk,
+                     kv_chunk=kv_chunk)
+    pad = (0, 0, 0, 0, 0, cache_len - x.shape[1])
+    return y, (F.pad(k, pad), F.pad(v, pad))
+
+
+def gqa_decode(p, x1, cache, length, cfg: ModelConfig):
+    """x1 (B, 1, D); cache k/v (B, T, KV, Dh); length (B,) the current
+    lengths, each < T. Writes each row's new k/v at its own ``length``
+    in place (the JAX package's one-hot blend, which on finite values is
+    that write) and attends positions <= length. Returns (y (B, 1, D),
+    the cache)."""
+    b = x1.shape[0]
+    q, k, v = _project_qkv(p, x1, cfg)
+    pos = length.long()
+    q, k = rope_qk(q, k, pos[:, None], cfg)
+    ck, cv = cache
+    rows = torch.arange(b, device=x1.device)
+    ck[rows, pos] = k[:, 0]
+    cv[rows, pos] = v[:, 0]
+    out = decode_attention(q[:, 0], ck, cv, length=pos + 1)
+    return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p.wo, (ck, cv)
 
 
 class GQA(FrozenParams):

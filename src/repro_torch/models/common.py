@@ -3,10 +3,10 @@ rotary position embeddings, and the module that holds a layer's
 parameters.
 
 The torch counterparts of the JAX package's ``models/common.py`` that the
-RWKV-6 and RecurrentGemma serving paths use. Parameters are created from
-an explicit ``torch.Generator`` on the device they will live on; the JAX
-package's scan helpers and cost-probe mode have no use here (layers run
-as a Python loop).
+dense, RWKV-6 and RecurrentGemma serving paths use. Parameters are
+created from an explicit ``torch.Generator`` on the device they will
+live on; the JAX package's scan helpers and cost-probe mode have no
+use here (layers run as a Python loop).
 """
 from __future__ import annotations
 
@@ -22,6 +22,10 @@ from torch import nn
 class DTypePolicy:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def bf16(cls) -> "DTypePolicy":
+        return cls(torch.bfloat16, torch.bfloat16)
 
 
 def normal_init(shape: Sequence[int], scale: float, dtype: torch.dtype,

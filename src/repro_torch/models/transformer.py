@@ -2,13 +2,11 @@
 
 The torch counterpart of the JAX package's ``models/transformer.py`` for
 
+  dense  — uniform decoder layers (GQA with qk-norm or QKV bias, SwiGLU);
   ssm    — RWKV-6 (time-mix + channel-mix), attention-free;
   hybrid — RecurrentGemma: groups of (RG-LRU, RG-LRU, local attention),
            then a tail of RG-LRU layers, each sub-layer with its own
            SwiGLU MLP.
-
-The other families (dense, vlm, audio, moe) raise ``NotImplementedError``
-until their slice of the port lands (ROADMAP, queue 1, item 12).
 
 API, as the JAX package's, with the parameters held by an :class:`LM`
 module that also carries its config:
@@ -20,9 +18,11 @@ module that also carries its config:
   decode_step(model, token, cache, length)         -> (logits (B,V), cache)
 
 Layers run as a Python loop. Submodules are named as the reference's
-parameter tree: ``layers.{l}`` (ssm); ``groups.{i}.{rg1,rg2,attn}`` and
-``tail.{j}`` (hybrid). Caches:
+parameter tree: ``layers.{l}`` (dense, ssm); ``groups.{i}.{rg1,rg2,attn}``
+and ``tail.{j}`` (hybrid). Caches:
 
+- dense: ``{"kv": [(k, v), ...]}``, one pair per layer, each
+  ``(B, cache_len, KV, Dh)`` holding position p at slot p;
 - ssm: a list with one dict per layer, ``{"tm_x": (B,D), "wkv":
   (B,H,Dh,Dh) float32, "cm_x": (B,D)}``;
 - hybrid: ``{"groups": [{"rg1": st, "rg2": st, "kv": (k, v)}, ...],
@@ -58,6 +58,20 @@ from repro_torch.models.common import (
 
 Cache = Union[List[Dict[str, torch.Tensor]], Dict[str, Any]]
 
+
+class DenseLayer(nn.Module):
+    """A decoder layer: norm, GQA, norm, MLP."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        d, dt = cfg.d_model, policy.param_dtype
+        self.ln1 = frozen(init_rms_norm(d, dt, device))
+        self.attn = attn_mod.GQA(cfg, policy, generator, device)
+        self.ln2 = frozen(init_rms_norm(d, dt, device))
+        self.mlp = moe_mod.MLP(d, cfg.d_ff, policy, generator, device)
+
+
 class RWKVLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
                  generator: Optional[torch.Generator], device):
@@ -82,19 +96,6 @@ class RGLayer(nn.Module):
         self.mlp = moe_mod.MLP(d, cfg.d_ff, policy, generator, device)
 
 
-class AttnLayer(nn.Module):
-    """A local-attention sub-layer: norm, GQA, norm, MLP."""
-
-    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
-                 generator: Optional[torch.Generator], device):
-        super().__init__()
-        d, dt = cfg.d_model, policy.param_dtype
-        self.ln1 = frozen(init_rms_norm(d, dt, device))
-        self.attn = attn_mod.GQA(cfg, policy, generator, device)
-        self.ln2 = frozen(init_rms_norm(d, dt, device))
-        self.mlp = moe_mod.MLP(d, cfg.d_ff, policy, generator, device)
-
-
 class HybridGroup(nn.Module):
     """(rglru, rglru, local attention)."""
 
@@ -103,7 +104,7 @@ class HybridGroup(nn.Module):
         super().__init__()
         self.rg1 = RGLayer(cfg, policy, generator, device)
         self.rg2 = RGLayer(cfg, policy, generator, device)
-        self.attn = AttnLayer(cfg, policy, generator, device)
+        self.attn = DenseLayer(cfg, policy, generator, device)
 
 
 class LM(nn.Module):
@@ -122,9 +123,10 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = frozen(normal_init((d, cfg.vocab), 1.0, dt,
                                                generator, device))
-        if cfg.family == "ssm":
+        if cfg.family in ("dense", "ssm"):
+            layer = DenseLayer if cfg.family == "dense" else RWKVLayer
             self.layers = nn.ModuleList(
-                RWKVLayer(cfg, policy, generator, device)
+                layer(cfg, policy, generator, device)
                 for _ in range(cfg.n_layers))
         else:
             n_groups, tail = hybrid_layout(cfg)
@@ -165,7 +167,8 @@ def _rwkv_block(layer: RWKVLayer, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _mlp_block(layer, x: torch.Tensor) -> torch.Tensor:
-    """The second half of a hybrid sub-layer: x + MLP(norm(x))."""
+    """The second half of a dense layer or a hybrid sub-layer:
+    x + MLP(norm(x))."""
     return x + moe_mod.mlp_forward(layer.mlp, rms_norm(x, layer.ln2))
 
 
@@ -193,11 +196,8 @@ def _windowed_prefill(p, x, positions, cfg: ModelConfig, win: int):
     """Sliding-window attention over the full sequence; returns the
     ring-buffer cache holding the last ``win`` positions (aligned so
     slot = pos mod win)."""
-    b, s, _ = x.shape
-    q, k, v = attn_mod._project_qkv(p, x, cfg)
-    q, k = attn_mod.rope_qk(q, k, positions, cfg)
-    out = attn_mod.chunked_attention(q, k, v, window=win)
-    y = out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo
+    b = x.shape[0]
+    y, k, v = attn_mod.attend(p, x, positions, cfg, window=win)
     # last `win` kv, placed at slots (pos mod win)
     slots = positions[:, -win:] % win
     bidx = torch.arange(b, device=x.device)[:, None]
@@ -275,7 +275,15 @@ def forward(model: LM, tokens: torch.Tensor):
     """Full-sequence forward. Returns (logits (B,S,V), aux_loss = 0)."""
     cfg = model.cfg
     require_ported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
+        x = _embed(model, tokens)
+        positions = _positions(*x.shape[:2], x.device)
+        for layer in model.layers:
+            y = attn_mod.gqa_forward(layer.attn, rms_norm(x, layer.ln1),
+                                     positions, cfg,
+                                     causal=not cfg.encoder_only)
+            x = _mlp_block(layer, x + y)
+    elif cfg.family == "ssm":
         x = _embed(model, tokens)
         for layer in model.layers:
             x, _ = _rwkv_block(layer, x, cfg)
@@ -288,9 +296,10 @@ def forward(model: LM, tokens: torch.Tensor):
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                policy: DTypePolicy = DTypePolicy(), *,
                torch_device: DeviceLike = None) -> Cache:
-    """Decode state for ``batch`` sequences. RWKV-6's state is O(1) in the
-    context, so ``cache_len`` sets no size there; the hybrid window cache
-    has ``min(local_window, cache_len)`` slots."""
+    """Decode state for ``batch`` sequences. The dense KV cache has
+    ``cache_len`` positions; RWKV-6's state is O(1) in the context, so
+    ``cache_len`` sets no size there; the hybrid window cache has
+    ``min(local_window, cache_len)`` slots."""
     require_ported(cfg)
     dev = resolve_device(torch_device)
     dt = policy.compute_dtype
@@ -298,6 +307,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    if cfg.family == "dense":
+        def kv():
+            return zeros(batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+
+        return {"kv": [(kv(), kv()) for _ in range(cfg.n_layers)]}
     if cfg.family == "ssm":
         h, dh = rwkv_mod.n_heads(cfg), rwkv_mod.HEAD_DIM
         return [{"tm_x": zeros(batch, cfg.d_model),
@@ -328,9 +342,19 @@ def prefill(model: LM, tokens: torch.Tensor, cache_len: int):
     cfg = model.cfg
     require_ported(cfg)
     b, s = tokens.shape[:2]
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
         x = _embed(model, tokens)
-        cache: Cache = []
+        positions = _positions(b, s, x.device)
+        kvs = []
+        for layer in model.layers:
+            y, kv = attn_mod.gqa_prefill(layer.attn, rms_norm(x, layer.ln1),
+                                         positions, cfg, cache_len)
+            x = _mlp_block(layer, x + y)
+            kvs.append(kv)
+        cache: Cache = {"kv": kvs}
+    elif cfg.family == "ssm":
+        x = _embed(model, tokens)
+        cache = []
         for layer in model.layers:
             x, st = _rwkv_block(layer, x, cfg)
             cache.append(st)
@@ -351,8 +375,16 @@ def decode_step(model: LM, token: torch.Tensor, cache: Cache,
     cfg = model.cfg
     require_ported(cfg)
     x = _embed(model, token)[:, None]                  # (B, 1, D)
-    if cfg.family == "ssm":
-        new_cache: Cache = []
+    if cfg.family == "dense":
+        kvs = []
+        for layer, kv in zip(model.layers, cache["kv"]):
+            y, kv = attn_mod.gqa_decode(layer.attn, rms_norm(x, layer.ln1),
+                                        kv, length, cfg)
+            x = _mlp_block(layer, x + y)
+            kvs.append(kv)
+        new_cache: Cache = {"kv": kvs}
+    elif cfg.family == "ssm":
+        new_cache = []
         for layer, st in zip(model.layers, cache):
             x, st = _rwkv_block(layer, x, cfg, st)
             new_cache.append(st)

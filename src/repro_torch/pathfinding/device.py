@@ -1900,9 +1900,14 @@ class ScenarioEngine:
         restores the newest snapshot of this grid. ``archives`` (one
         :class:`~repro_torch.pathfinding.pareto.ParetoArchive` per cell)
         are fed every evaluated design at each segment end in place of
-        returning ``.samples``. ``mesh`` (sharding the cells over several
-        devices) is a later slice of the port and raises
-        ``NotImplementedError``."""
+        returning ``.samples``. ``mesh`` (from
+        :func:`~repro_torch.distributed.scenario_mesh`) places the
+        per-cell arrays through
+        :func:`~repro_torch.distributed.shard_scenarios`: a one-device
+        mesh (this engine's device) runs bit for bit as ``mesh=None``;
+        a mesh of several devices raises ``NotImplementedError`` (the
+        split of the cells over cards is not ported, ROADMAP queue 1,
+        item 11)."""
         from repro_torch.pathfinding.resume import (
             run_segmented,
             segment_fingerprint,
@@ -1939,11 +1944,10 @@ class ScenarioEngine:
                     if name == "noc_on" else
                     "sched_on is only meaningful for window-schedule "
                     "engines")
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding the scenario cells over a device mesh is not "
-                "ported yet (ROADMAP queue 1, item 11)")
         t, dev = self._t, self.device
+        if mesh is not None and any(m.type != dev.type for m in mesh):
+            raise ValueError(f"mesh {mesh} is not on this engine's "
+                             f"device ({dev})")
         ci_a = np.asarray(ci, np.float64).reshape(S)
         price_a, embf_a, profile_a, pprofile_a = self._region_cols(
             S, ci_a, price, embf, profile, pprofile)
@@ -1953,11 +1957,18 @@ class ScenarioEngine:
             med=np.asarray(medians, np.float64).reshape(S, 6),
             w=np.asarray(weights, np.float64).reshape(S, n, 6),
             pair_ok=np.asarray(pair_mask, bool).reshape(S, max(n - 1, 1)))
-        consts = (
-            t(arrays["temps"]), t(arrays["mins"]), t(arrays["med"]),
-            t(arrays["w"]), t(arrays["pair_ok"], torch.bool), t(ci_a),
-            t(price_a), t(embf_a), t(profile_a), t(pprofile_a),
-            t(widx_a, I64), *[t(g) for g in gates])
+        placed = dict(
+            temps=t(arrays["temps"]), mins=t(arrays["mins"]),
+            med=t(arrays["med"]), w=t(arrays["w"]),
+            pair_ok=t(arrays["pair_ok"], torch.bool), ci=t(ci_a),
+            price=t(price_a), embf=t(embf_a), profile=t(profile_a),
+            pprofile=t(pprofile_a), widx=t(widx_a, I64),
+            **{f"gate{i}": t(g) for i, g in enumerate(gates)})
+        if mesh is not None:
+            from repro_torch.distributed import shard_scenarios
+
+            placed = shard_scenarios(placed, mesh)
+        consts = tuple(placed.values())
         key0 = trandom.PRNGKey(seed, dev)
 
         fp = carry_like = None

@@ -590,11 +590,10 @@ def workloads_from_configs(names: Sequence[str],
                            tokens: int = 512) -> List[GEMMWorkload]:
     """MLP up-projection GEMMs (``tokens x d_model x d_ff``) for model
     configs from :mod:`repro_torch.configs`, the dominant GEMM shape of
-    each architecture, usable anywhere a Table IV workload is. Only the
-    architectures the port serves (``rwkv6-3b``, ``recurrentgemma-9b``)
-    resolve; the JAX package's other eight raise the registry's
-    ``NotImplementedError`` until their slice of the port (ROADMAP,
-    queue 1, item 12)."""
+    each architecture, usable anywhere a Table IV workload is. The
+    architectures the port serves resolve (``ARCH_NAMES``: the dense
+    family, ``recurrentgemma-9b``, ``rwkv6-3b``); the moe, vlm and audio
+    names raise the registry's ``NotImplementedError``."""
     from repro_torch.configs import get_config
 
     out = []
@@ -705,9 +704,15 @@ class ScenarioSweep:
     ``random_system`` alone, as the reference does.
 
     ``budget`` is the *total* evaluation budget, split evenly across
-    cells (``budget // n_cells`` each). ``shard`` is ``"auto"`` or
-    ``False``, both one device; ``True`` (a device mesh over the cells,
-    ROADMAP queue 1, item 11) raises ``NotImplementedError``."""
+    cells (``budget // n_cells`` each). ``shard`` picks the device mesh
+    of the cells (:func:`~repro_torch.distributed.scenario_mesh`):
+    ``True`` runs on a mesh of every local device of the run's type, so
+    on one card (or the CPU) it gives bit for bit what ``False`` gives,
+    and on several cards raises ``NotImplementedError`` (the split of
+    the cells over cards is not ported, ROADMAP queue 1, item 11).
+    ``"auto"`` runs on one device: here it differs from the JAX
+    package, which splits the cells when two or more devices exist,
+    until that split is ported."""
 
     strategy: ScalarizationSweep = dataclasses.field(
         default_factory=lambda: ScalarizationSweep(directions=8,
@@ -778,11 +783,6 @@ class ScenarioSweep:
                 "checkpoint_dir requires the device path "
                 "(ScenarioSweep.run(device=True)); the per-cell host "
                 "fallback cannot checkpoint")
-        if device and self.shard is True:
-            raise NotImplementedError(
-                "shard=True (the scenario cells over a device mesh) is "
-                "not ported yet (ROADMAP queue 1, item 11); use "
-                "shard='auto' or False")
         dev = resolve_device(torch_device)
         if isinstance(workloads, GEMMWorkload):
             workloads = [workloads]
@@ -856,6 +856,17 @@ class ScenarioSweep:
             results[sc.key] = res
         return ScenarioFrontier(scenarios, results)
 
+    def _mesh(self, dev):
+        """The cells' mesh: every local device of ``dev``'s type for
+        ``shard=True``; none for ``False`` and for ``"auto"``, which the
+        JAX package maps to a mesh of two or more devices, whose split
+        is not ported."""
+        if self.shard is not True:
+            return None
+        from repro_torch.distributed import scenario_mesh
+
+        return scenario_mesh(min_devices=1, torch_device=dev)
+
     def _run_device(self, cells, workloads, tpl, db, space, norm_of,
                     cell_budget, base, segment, dev, checkpoint=None,
                     resume=True) -> ScenarioFrontier:
@@ -906,8 +917,8 @@ class ScenarioSweep:
             v0, temps, sweeps, strat.swap_every, seed=base, mins=mins,
             medians=medians, weights=weights, pair_mask=pair, ci=ci,
             widx=widx, price=price, embf=embf, profile=profile,
-            pprofile=pprofile, segment=segment, archives=archives,
-            checkpoint=checkpoint, resume=resume)
+            pprofile=pprofile, mesh=self._mesh(dev), segment=segment,
+            archives=archives, checkpoint=checkpoint, resume=resume)
         # best-by-template per cell: ONE stacked re-evaluation of the
         # (padded) archives, not counted against the budget
         m = max(len(a) for a in archives)

@@ -181,10 +181,8 @@ def test_host_path_matches_reference(ref):
                                atol=0)
 
 
-@pytest.mark.parametrize("what", ["checkpoint"])
-def test_later_slices_raise_not_implemented(what, tmp_path):
-    """Checkpointing, once a later slice, is ported: a checkpointed
-    search writes its snapshot and raises nothing."""
+def test_checkpointed_search_writes_its_snapshot(tmp_path):
+    """A checkpointed search writes its snapshot and raises nothing."""
     pf = Pathfinder(workload(1), norm=normalizer_from_arrays(
         np.zeros(6), np.ones(6)), torch_device="cpu")
     res = pf.search(ParallelTempering(n_chains=2, sweeps=1,

@@ -3,10 +3,10 @@ the reference: the batched threefry keys, ``fold_cell_key``,
 ``fit_region_normalizers``, ``ScenarioEngine.evaluate_cost`` (against
 the reference's plain path and its interpret-mode Pallas path),
 ``ScenarioEngine.parallel_tempering`` (whole, segmented, through
-``segment_runner`` with per-cell sweep counters, and on a mesh-NoC +
-window space with per-cell move gates), one ``prefix_select`` call and
-the same torch ops a sweep whatever the number of cells, and the
-refusals.
+``segment_runner`` with per-cell sweep counters, on a mesh-NoC + window
+space with per-cell move gates, and on a one-device scenario mesh), one
+``prefix_select`` call and the same torch ops a sweep whatever the
+number of cells, and the refusals.
 
 Exact: key words, draws, ``fold_cell_key``, encodings, samples, error
 messages. Within 1e-6 relative: costs, histories and vectors (float64 on
@@ -507,19 +507,14 @@ def test_refusals_match_reference(ref, engine, inputs, name):
 
 @pytest.mark.parametrize("kw", [
     dict(checkpoint=True, archives=None),
-    dict(checkpoint=True, collect_samples=False),
-    dict(mesh=object())], ids=["checkpoint", "checkpoint_nosamples", "mesh"])
-def test_checkpoint_and_mesh_are_not_ported(engine, inputs, kw, tmp_path):
-    """``mesh`` (ROADMAP queue 1, item 11) still raises; checkpointing
-    is ported: a checkpointed run (with per-cell archives, or without
-    samples) leaves a snapshot and returns what the plain run returns."""
+    dict(checkpoint=True, collect_samples=False)],
+    ids=["checkpoint", "checkpoint_nosamples"])
+def test_checkpointed_run_returns_the_plain_run(engine, inputs, kw,
+                                                tmp_path):
+    """A checkpointed run (with per-cell archives, or without samples)
+    leaves a snapshot and returns what the plain run returns."""
     from repro_torch.pathfinding import SearchCheckpointer
 
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError):
-            engine.parallel_tempering(inputs["v0"], inputs["temps"], 1,
-                                      SWAP, seed=SEED, **_kw(inputs), **kw)
-        return
     kw = dict(kw, checkpoint=SearchCheckpointer(str(tmp_path)))
     if "archives" in kw:
         kw["archives"] = [ParetoArchive() for _ in range(S)]
@@ -531,6 +526,38 @@ def test_checkpoint_and_mesh_are_not_ported(engine, inputs, kw, tmp_path):
     assert kw["checkpoint"].manager.all_steps() == [2]
     np.testing.assert_array_equal(got.history, plain.history)
     np.testing.assert_array_equal(got.final_enc, plain.final_enc)
+
+
+def test_one_device_mesh_equals_no_mesh(engine, inputs):
+    """``mesh=scenario_mesh(1, "cpu")`` places the cells' arrays on the
+    one device: the run is bit for bit the one without a mesh."""
+    from repro_torch.distributed import scenario_mesh
+
+    mesh = scenario_mesh(1, "cpu")
+    assert mesh == (torch.device("cpu"),)
+    got, plain = (engine.parallel_tempering(
+        inputs["v0"], inputs["temps"], 3, SWAP, seed=SEED, **_kw(inputs),
+        mesh=m) for m in (mesh, None))
+    for name in ("history", "final_enc", "final_costs", "best_enc",
+                 "best_cost"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(plain, name))
+    np.testing.assert_array_equal(got.samples["enc"], plain.samples["enc"])
+    np.testing.assert_array_equal(got.samples["vec"], plain.samples["vec"])
+
+
+def test_mesh_of_two_devices_is_not_ported(engine, inputs):
+    """Splitting the cells over two devices (ROADMAP queue 1, item 11)
+    cannot be checked on one card, so it raises; a mesh on another
+    device type than the engine's is refused."""
+    two = (torch.device("cpu"), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        engine.parallel_tempering(inputs["v0"], inputs["temps"], 1, SWAP,
+                                  seed=SEED, **_kw(inputs), mesh=two)
+    with pytest.raises(ValueError, match="not on this engine's device"):
+        engine.parallel_tempering(inputs["v0"], inputs["temps"], 1, SWAP,
+                                  seed=SEED, **_kw(inputs),
+                                  mesh=(torch.device("cuda", 0),))
 
 
 def test_engine_refuses_no_workloads_and_bad_widx(engine, inputs):

@@ -2,7 +2,8 @@
 ``ScenarioSweep.run`` on the 5 x 2 grid (the default five regions x
 workloads 1 and 6) on the device path, its host fallback, the total
 budget split across cells, ``ScenarioSpec``, ``Pathfinder.run_scenarios``
-and ``workloads_from_configs``.
+and ``workloads_from_configs`` (the ported dense, hybrid and ssm
+configs); ``shard=True`` on one device against the unsharded run.
 
 Exact: best designs, frontier encodings, evaluation counts, error
 messages. Within 1e-6 relative: best costs, histories, frontier
@@ -33,7 +34,8 @@ from repro_torch.pathfinding import (
 
 RTOL = 1e-6
 WL = workload(1)
-CONFIGS = ["rwkv6-3b", "recurrentgemma-9b"]
+CONFIGS = ["rwkv6-3b", "recurrentgemma-9b", "smollm-135m", "yi-6b",
+           "qwen3-8b", "qwen2.5-14b"]
 TWO = {"clean": 0.024, "dirty": 0.82}
 
 REF = """
@@ -190,8 +192,11 @@ def test_workloads_from_configs_match_reference(ref):
     for i, wl in enumerate(got):
         assert [wl.name, str(wl.M), str(wl.K), str(wl.N)] == \
             ref[f"cfg/{i}"].tolist()
+    assert [wl.name for wl in got[2:]] == [
+        "smollm-135m-mlp256", "yi-6b-mlp256", "qwen3-8b-mlp256",
+        "qwen2.5-14b-mlp256"]
     with pytest.raises(NotImplementedError, match="item 12"):
-        workloads_from_configs(["smollm-135m"])
+        workloads_from_configs(["deepseek-v2-236b"])
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +258,7 @@ def test_spec_replays_loose_regions_bits():
 
 
 # ---------------------------------------------------------------------------
-# run_scenarios and the refusals of what is not ported
+# run_scenarios, checkpoint_dir and shard
 # ---------------------------------------------------------------------------
 
 
@@ -276,34 +281,47 @@ def test_run_scenarios_facade():
                    torch_device="cpu").run_scenarios()
 
 
-@pytest.mark.parametrize("kw,exc", [
-    (dict(checkpoint_dir="ckpt"), None),
-    (dict(checkpoint_dir="ckpt", device=False), ValueError)],
-    ids=["device", "host"])
-def test_checkpoint_dir_is_refused(kw, exc, tmp_path):
-    """The host fallback refuses ``checkpoint_dir`` as the reference's
-    does; the device path checkpoints (a snapshot per boundary) and
-    returns what the plain run returns."""
-    kw = dict(kw, checkpoint_dir=str(tmp_path / kw["checkpoint_dir"]))
+def test_device_checkpoint_dir_snapshots_and_equals_plain_run(tmp_path):
+    """The device path checkpoints (a snapshot per boundary) and returns
+    what the plain run returns."""
+    ckpt = str(tmp_path / "ckpt")
     sweep = _sweep(regions=TWO, norm_samples=80)
-    if exc is not None:
-        with pytest.raises(exc):
-            sweep.run(WL, key=1, torch_device="cpu", **kw)
-        return
-    got = sweep.run(WL, key=1, torch_device="cpu", segment=2, **kw)
+    got = sweep.run(WL, key=1, torch_device="cpu", segment=2,
+                    checkpoint_dir=ckpt)
     plain = sweep.run(WL, key=1, torch_device="cpu")
-    assert sorted(os.listdir(kw["checkpoint_dir"])) == [
-        "step_00000002", "step_00000003"]
+    assert sorted(os.listdir(ckpt)) == ["step_00000002", "step_00000003"]
     for s in plain.scenarios:
         assert got.results[s.key].history == plain.results[s.key].history
         np.testing.assert_array_equal(got.results[s.key].frontier.encoded,
                                       plain.results[s.key].frontier.encoded)
 
 
-def test_shard_true_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _sweep(regions=TWO, norm_samples=80, shard=True).run(
-            WL, key=1, torch_device="cpu")
+def test_host_fallback_refuses_checkpoint_dir(tmp_path):
+    """The host fallback refuses ``checkpoint_dir`` as the reference's
+    does."""
+    with pytest.raises(ValueError, match="device path"):
+        _sweep(regions=TWO, norm_samples=80).run(
+            WL, key=1, torch_device="cpu", device=False,
+            checkpoint_dir=str(tmp_path / "ckpt"))
+
+
+def test_shard_true_on_one_device_equals_unsharded():
+    """``shard=True`` runs the cells on the one-device mesh of the run's
+    device (here the CPU) and gives bit for bit what ``shard=False``
+    and ``"auto"`` give."""
+    runs = {shard: _sweep(regions=TWO, norm_samples=80, shard=shard).run(
+        [WL, workload(6)], key=1, torch_device="cpu")
+        for shard in (True, False, "auto")}
+    plain = runs[False]
+    for shard in (True, "auto"):
+        for s in plain.scenarios:
+            got, want = runs[shard].results[s.key], plain.results[s.key]
+            assert got.best_cost == want.best_cost and got.best == want.best
+            assert got.history == want.history
+            np.testing.assert_array_equal(got.frontier.encoded,
+                                          want.frontier.encoded)
+            np.testing.assert_array_equal(got.frontier.vectors,
+                                          want.frontier.vectors)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ reference's ``init_model`` weights carried over by
 ``lm_params_from_reference`` and its stacked caches by
 ``cache_from_reference``, on the reduced config at one head
 (d_model 64) and four heads (d_model 256); the cache's shapes; the
-serve CLI on the CPU (RWKV-6 and RecurrentGemma, whose model tests are
-in ``test_torch_hybrid.py``); the architecture registry; and the device
+serve CLI on the CPU (RWKV-6, RecurrentGemma and the dense family in
+float32 and bfloat16, whose model tests are in ``test_torch_hybrid.py``
+and ``test_torch_dense.py``); the architecture registry; and the device
 rule of the entry points.
 
 Decoding is teacher-forced: both sides are fed the reference's greedy
@@ -217,14 +218,22 @@ def test_generate_counts_steps_and_tokens(models):
 
 
 def test_get_config_registry():
-    assert ARCH_NAMES == ("rwkv6-3b", "recurrentgemma-9b")
+    assert ARCH_NAMES == ("smollm-135m", "qwen2.5-14b", "qwen3-8b", "yi-6b",
+                          "recurrentgemma-9b", "rwkv6-3b")
     cfg = get_config("rwkv6-3b")
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == \
         (32, 2560, 8960, 65536)
     assert rwkv_mod.n_heads(cfg) == 40
     assert cfg.param_count() == 3_099_443_200
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("qwen3-8b")
+    assert cfg.sub_quadratic and get_config("recurrentgemma-9b").sub_quadratic
+    qwen3 = get_config("qwen3-8b")
+    assert (qwen3.family, qwen3.n_layers, qwen3.d_model, qwen3.qk_norm,
+            qwen3.qkv_bias) == ("dense", 36, 4096, True, False)
+    assert not qwen3.sub_quadratic
+    for name in ("deepseek-v2-236b", "llama4-maverick-400b-a17b",
+                 "internvl2-26b", "hubert-xlarge"):
+        with pytest.raises(NotImplementedError, match="queue 1"):
+            get_config(name)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -259,6 +268,26 @@ def test_serve_cli_on_cpu_recurrentgemma(capsys):
     assert rglru_launch_count() == before
 
 
+@pytest.mark.parametrize("dtype,arch", [
+    ("float32", None), ("bfloat16", "qwen2.5-14b")])
+def test_serve_cli_on_cpu_dense(capsys, dtype, arch):
+    """The CLI's default arch is the JAX package CLI's, ``smollm-135m``;
+    ``--dtype bfloat16`` serves bf16 weights and caches."""
+    argv = ["--device", "cpu", "--reduced", "--batch", "2",
+            "--prompt-len", "12", "--gen", "4", "--dtype", dtype]
+    if arch:
+        argv += ["--arch", arch]
+    before = launch_count(), rglru_launch_count()
+    rc = serve.main(argv)
+    out = capsys.readouterr().out
+    assert rc == 0
+    name = f"{arch or 'smollm-135m'}-smoke"
+    assert f"{name}: " in out and f"torch.{dtype}" in out
+    assert f"{name} on cpu: prefill 2x12" in out
+    assert "decode latency p50" in out and "sample row 0" in out
+    assert (launch_count(), rglru_launch_count()) == before
+
+
 def test_hybrid_entry_points_need_a_gpu_unless_given_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
@@ -274,7 +303,7 @@ def test_hybrid_entry_points_need_a_gpu_unless_given_cpu():
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(_cfg(64), family="dense")
+    cfg = dataclasses.replace(_cfg(64), family="moe")
     with pytest.raises(NotImplementedError):
         init_model(cfg, torch_device="cpu")
     with pytest.raises(NotImplementedError):

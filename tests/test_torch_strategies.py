@@ -313,29 +313,35 @@ def test_facade_evaluation_paths_agree(norm, systems):
     np.testing.assert_array_equal(cost2, cost)
 
 
-@pytest.mark.parametrize("device", [True, False])
-@pytest.mark.parametrize("strategy", ["pt", "sweep"])
-def test_checkpoint_dir(norm, device, strategy, tmp_path):
-    """The host fallbacks refuse ``checkpoint_dir`` as the reference's
-    do; the device engine checkpoints (one snapshot after the one
-    segment) and returns what the plain run returns."""
-    import dataclasses
-
+def _checkpointed(strategy, ckpt):
     from repro_torch.pathfinding import ParallelTempering, ScalarizationSweep
 
+    return (ParallelTempering(n_chains=2, sweeps=1, checkpoint_dir=ckpt)
+            if strategy == "pt" else
+            ScalarizationSweep(directions=2, n_chains=2, sweeps=1,
+                               checkpoint_dir=ckpt))
+
+
+@pytest.mark.parametrize("strategy", ["pt", "sweep"])
+def test_device_engine_checkpoints_like_the_plain_run(norm, strategy,
+                                                      tmp_path):
+    """The device engine checkpoints (one snapshot after the one
+    segment) and returns what the plain run returns."""
     ckpt = str(tmp_path / "x")
-    strat = (ParallelTempering(n_chains=2, sweeps=1, checkpoint_dir=ckpt)
-             if strategy == "pt" else
-             ScalarizationSweep(directions=2, n_chains=2, sweeps=1,
-                                checkpoint_dir=ckpt))
-    if not device:
-        with pytest.raises(ValueError, match="device engine"):
-            _pf(norm, device=device).search(strat, key=0)
-        return
-    got = _pf(norm, device=device).search(strat, key=0)
-    plain = _pf(norm, device=device).search(
+    strat = _checkpointed(strategy, ckpt)
+    got = _pf(norm, device=True).search(strat, key=0)
+    plain = _pf(norm, device=True).search(
         dataclasses.replace(strat, checkpoint_dir=None), key=0)
     assert os.listdir(ckpt) == ["step_00000001"]
     assert got.history == plain.history
     np.testing.assert_array_equal(got.frontier.encoded,
                                   plain.frontier.encoded)
+
+
+@pytest.mark.parametrize("strategy", ["pt", "sweep"])
+def test_host_fallback_refuses_checkpoint_dir(norm, strategy, tmp_path):
+    """The host fallbacks refuse ``checkpoint_dir`` as the reference's
+    do."""
+    with pytest.raises(ValueError, match="device engine"):
+        _pf(norm, device=False).search(
+            _checkpointed(strategy, str(tmp_path / "x")), key=0)
