@@ -154,7 +154,28 @@ one JSON line that carries the card's name and power limit:
     d_model 5120, 29.5 GB) in bfloat16 (``DTypePolicy.bf16()``; norms,
     attention scores and the softmax in float32), batch 4, prompt 512,
     32 tokens, with its bounds at the bf16 rate; the same checks.
-22. ``scenario_llm`` — ``ScenarioSweep(ScalarizationSweep(directions=2,
+22. ``moe_parity`` — ``deepseek-v2-236b`` (MLA, a leading dense layer,
+    top-2 of 8 experts and a shared one) and
+    ``llama4-maverick-400b-a17b`` (GQA, a (dense, MoE) group, top-1),
+    reduced and widened to d_model 256, every norm weight (MLA's latent
+    norms too) drawn non-default, on cuda against the CPU in float32: a
+    48-token prompt and eight teacher-forced steps under the
+    ``dense_parity`` rule; at every routing call of every step and layer
+    each token's experts equal on both devices, or differing only where
+    the CPU's k-th and (k+1)-th router logits lie within 1e-5 of the
+    row's max |logit| (the near-ties are counted).
+23. ``serve_moe`` — ``deepseek-v2-236b`` at full width in bf16, depth cut
+    60 -> 8 (the leading dense layer and 7 MoE layers, 29.2 billion
+    parameters, 58.4 GB), batch 4, prompt 512, 32 tokens, beside
+    ``moe_serve_bound`` (a decode step reads every non-expert weight and
+    only the experts it routed to, the distinct experts of each MoE
+    layer counted in one step; the all-experts bound reads all 160);
+    one decode step's routed experts a layer, host syncs (torch's sync
+    debug mode) and profile; no hand-written kernel may launch and every
+    logit must be finite.
+24. ``serve_moe_gqa`` — ``llama4-maverick-400b-a17b`` the same way, depth
+    cut 48 -> 2 (one group, 18.6 billion parameters, 37.1 GB).
+25. ``scenario_llm`` — ``ScenarioSweep(ScalarizationSweep(directions=2,
     n_chains=4, sweeps=10), shard=True)`` over
     ``workloads_from_configs(["smollm-135m", "qwen3-8b"])`` (the two
     models' MLP GEMMs x the five default regions), on the card and on
@@ -162,7 +183,7 @@ one JSON line that carries the card's name and power limit:
     of each run's device, launch ``prefix_select`` 1 + 10 + 1 times on
     the card, equal the card's ``shard=False`` run bit for bit, and
     agree with the CPU by the ``scenario`` phase's rule.
-23. ``gemm_kernel`` — the systolic GEMM path: first every case once
+26. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
     sites, and of each site's path ("simt", "wgmma"), over that run;
@@ -185,7 +206,7 @@ one JSON line that carries the card's name and power limit:
     key product at the serve cell's prefill (2048 x 2560 x 8960) under
     the five settings in float32 and under OS, OS split-K 2, WS and IS in
     bfloat16; float16 OS and WS at WL2.
-24. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
+27. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run, by kernel: the unrolled and the
     grouped kernel must both have run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -1705,19 +1726,20 @@ def _kernel_sources() -> dict:
             "systolic_gemm": (gops.SOURCE, gops.build)}
 
 
-def _serve(card: str, phase: str, arch: str, prompt_len: int,
+def _serve(card: str, phase: str, arch, prompt_len: int,
            expect: dict, batch: int = 4, gen: int = 32, policy=None,
            extra=None) -> dict:
-    """``arch`` at full width under ``policy`` (default float32) through
-    ``generate`` (prefill, then ``gen - 1`` greedy steps), after a short
-    warm-up run; the kernel launch counts of the timed run must equal
-    ``expect``. ``extra(cfg, model, prompts)`` adds to the record."""
+    """``arch`` (a name, served at its full size, or a ``ModelConfig``)
+    under ``policy`` (default float32) through ``generate`` (prefill,
+    then ``gen - 1`` greedy steps), after a short warm-up run; the kernel
+    launch counts of the timed run must equal ``expect``.
+    ``extra(cfg, model, prompts)`` adds to the record."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models.common import DTypePolicy
     from repro_torch.models.transformer import init_model
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -1762,6 +1784,9 @@ def _serve(card: str, phase: str, arch: str, prompt_len: int,
         rec["prefill_over_bound"] = rec["prefill_ms"] / rec["prefill_bound_ms"]
         rec["decode_p50_over_bound"] = (rec["decode_p50_ms"]
                                         / rec["decode_bound_ms"])
+        if "decode_bound_all_experts_ms" in rec:
+            rec["decode_p50_over_bound_all_experts"] = (
+                rec["decode_p50_ms"] / rec["decode_bound_all_experts_ms"])
     emit(rec)
     return rec
 
@@ -1909,14 +1934,16 @@ DENSE_PARITY = ("qwen3-8b", "qwen2.5-14b", "smollm-135m")
 
 
 def _nondefault_norms_and_biases(model, seed: int) -> None:
-    """Every norm weight ``1 + 0.2 N`` and every QKV bias ``0.5 N``, drawn
-    by numpy from ``seed``: the JAX package inits them to one and zero,
-    which would leave qk-norm and the biases unexercised."""
+    """Every norm weight (MLA's latent ``q_norm`` and ``kv_norm`` too)
+    ``1 + 0.2 N`` and every QKV bias ``0.5 N``, drawn by numpy from
+    ``seed``: the JAX package inits them to one and zero, which would
+    leave qk-norm, the latent norms and the biases unexercised."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+            if leaf in ("ln1", "ln2", "final_norm", "q_norm", "k_norm",
+                        "kv_norm"):
                 draw = 1.0 + 0.2 * rng.standard_normal(p.shape)
             elif leaf in ("bq", "bk", "bv"):
                 draw = 0.5 * rng.standard_normal(p.shape)
@@ -2013,6 +2040,242 @@ def phase_serve_dense_bf16(card: str) -> dict:
     return _serve(card, "serve_dense_bf16", "qwen2.5-14b", 512,
                   {name: 0 for name in _launch_counters()},
                   policy=DTypePolicy.bf16(), extra=_dense_extra)
+
+
+# ---------------------------------------------------------------------------
+# moe_parity / serve_moe / serve_moe_gqa phases: the moe family (no
+# hand-written kernel on its path)
+# ---------------------------------------------------------------------------
+
+MOE_PARITY = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+# a routed set may differ between the devices only where the CPU's k-th
+# and (k+1)-th router logits are this close, relative to the row's max
+ROUTE_TIE = 1e-5
+# the depth each serve cell keeps: deepseek's leading dense layer and 7 MoE
+# layers (58.4 GB in bf16), llama4's one (dense, MoE) group (37.1 GB)
+MOE_CUTS = {"deepseek-v2-236b": 8, "llama4-maverick-400b-a17b": 2}
+
+
+class _Routes:
+    """Records every ``repro_torch.models.moe._route`` call's router
+    logits and expert ids while the ``with`` block runs."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.real, self.calls = moe_mod, moe_mod._route, []
+
+        def route(logits, top_k):
+            gates, idx = self.real(logits, top_k)
+            self.calls.append((logits, idx))
+            return gates, idx
+
+        moe_mod._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.real
+
+
+def _same_routes(calls, top_k: int) -> dict:
+    """The CPU's and the card's routing calls, paired in order: each
+    token's set of experts equal, or differing only where the CPU's k-th
+    and (k+1)-th logits lie within ``ROUTE_TIE`` of the row's max
+    |logit| (a near-tie, counted)."""
+    cpu = [c for c in calls if c[0].device.type == "cpu"]
+    dev = [c for c in calls if c[0].device.type != "cpu"]
+    if len(cpu) != len(dev) or not cpu:
+        raise AssertionError(f"moe_parity routed {len(cpu)} times on the "
+                             f"CPU and {len(dev)} on the card")
+    tokens = ties = 0
+    for (logits, want), (_, got) in zip(cpu, dev):
+        want = want.sort(-1).values
+        got = got.cpu().sort(-1).values
+        tokens += want.shape[0]
+        for row in torch.nonzero((want != got).any(-1)).flatten().tolist():
+            top = logits[row].sort(descending=True).values
+            gap = float(top[top_k - 1] - top[top_k])
+            if gap >= ROUTE_TIE * float(logits[row].abs().max()):
+                raise AssertionError(
+                    f"moe_parity: token {row} routed to {got[row].tolist()} "
+                    f"on the card, {want[row].tolist()} on the CPU, gap {gap}")
+            ties += 1
+    return dict(routing_calls=len(cpu), tokens_routed=tokens,
+                route_near_ties=ties, route_tie_tol=ROUTE_TIE)
+
+
+def phase_moe_parity(card: str) -> dict:
+    """Both moe configs reduced, widened to d_model 256 (4 heads of 64; 8
+    experts, top-2 / top-1, one shared expert), every norm weight drawn
+    non-default, on cuda against the CPU in float32: a 48-token prompt
+    and eight teacher-forced greedy steps; every routing call's expert
+    sets equal on both devices but for counted near-ties."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for i, arch in enumerate(MOE_PARITY):
+        cfg = dataclasses.replace(get_config(arch).reduced(), d_model=256,
+                                  d_head=64)
+        with _Routes() as routes:
+            rec = _decode_parity(cfg, 48, seed=21 + i,
+                                 prepare=_nondefault_norms_and_biases)
+        out[arch] = dict(rec, mla=cfg.use_mla, experts=cfg.n_experts,
+                         top_k=cfg.top_k, moe_every=cfg.moe_every,
+                         **_same_routes(routes.calls, cfg.top_k))
+    rec = dict(phase="moe_parity", variants=out,
+               max_rel_err=max(v["max_rel_err"] for v in out.values()),
+               route_near_ties=sum(v["route_near_ties"]
+                                   for v in out.values()),
+               tol=LM_TOL, card=card)
+    emit(rec)
+    return rec
+
+
+def _host_syncs(fn) -> dict:
+    """Device-to-host synchronisations one call of ``fn`` makes, counted
+    by torch's sync debug mode (one warning each), with the source line
+    each warning names and its count."""
+    import collections
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return dict(host_syncs_per_step=sum(sites.values()),
+                host_sync_sites=dict(sites))
+
+
+def moe_serve_bound(cfg, model, batch: int, prompt_len: int,
+                    routed: list) -> dict:
+    """Least times of a MoE serve cell, each the larger of its bytes over
+    ``HBM_BYTES_PER_S`` and its operations over the card's rate for the
+    weights' dtype. A decode step reads every weight but the embedding
+    table (it gathers a row a sequence) and the routed experts, then the
+    experts it routed to (``routed``: the distinct experts of each MoE
+    layer, from a measured step) and the prompt's cache (the latent pair
+    under MLA, K and V under GQA); it does 2 operations an active weight
+    a sequence (everything but the embedding table and the routed
+    experts, plus ``top_k`` experts a MoE layer). ``decode_bound_all_
+    experts_ms`` reads every expert, as the JAX package's dispatch does.
+    The prefill reads those weights and every expert and writes the
+    cache; it does 2 operations an active weight a prompt token, the
+    causal attention's two products and the LM head at the last
+    position of each sequence."""
+    from repro_torch.models.transformer import MoELayer, _moe_layers
+
+    elt = model.embed.element_size()
+    rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
+        else FP32_OPS_PER_S
+
+    def nbytes(ps):
+        return sum(p.numel() * p.element_size() for p in ps)
+
+    moes = [layer.moe for layer, _ in _moe_layers(model)
+            if isinstance(layer, MoELayer)]
+    experts = [w for m in moes for w in (m.w_gate, m.w_up, m.w_down)]
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    table = 0 if cfg.tie_embeddings else model.embed.numel()
+    n_params = sum(p.numel() for p in model.parameters())
+    base_params = n_params - sum(w.numel() for w in experts) - table
+    base_bytes = (nbytes(model.parameters()) - nbytes(experts)
+                  - table * elt)
+    active = base_params + len(moes) * cfg.top_k * per_expert
+    layer_active = active - head.numel() - model.final_norm.numel()
+    tokens = batch * prompt_len
+    if cfg.use_mla:
+        cache = cfg.n_layers * tokens * (cfg.kv_lora_rank
+                                         + cfg.qk_rope_head_dim) * elt
+        qk, pv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    else:
+        cache = cfg.n_layers * 2 * tokens * cfg.n_kv_heads * cfg.d_head * elt
+        qk = pv = cfg.d_head
+    attn_ops = (cfg.n_layers * 2 * batch * cfg.n_heads * (qk + pv)
+                * prompt_len * (prompt_len + 1) / 2)
+    decode_ops = 2 * active * batch
+    out = {}
+    for name, nb, ops in (
+            ("decode", base_bytes + batch * cfg.d_model * elt
+             + sum(routed) * per_expert * elt + cache, decode_ops),
+            ("decode_all_experts", base_bytes + batch * cfg.d_model * elt
+             + nbytes(experts) + cache, decode_ops),
+            ("prefill", base_bytes + tokens * cfg.d_model * elt
+             + nbytes(experts) + cache,
+             2 * layer_active * tokens + attn_ops + 2 * head.numel() * batch)):
+        by_bytes = nb / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / rate * 1e3
+        key = "decode_bound_all_experts" if name == "decode_all_experts" \
+            else f"{name}_bound"
+        out[f"{key}_ms"] = max(by_bytes, by_ops)
+        out[f"{key}_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        out[f"{name}_bytes"], out[f"{name}_ops"] = nb, ops
+    out["ops_per_s"] = rate
+    out["active_params_per_token"] = active
+    return out
+
+
+def _moe_extra(cfg, model, prompts) -> dict:
+    """The MoE serve cell's depth cut, one decode step after a prefill of
+    ``prompts`` with its routed experts and host syncs, its profile
+    (device busy share, kernels) and the cell's least times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import decode_step, prefill
+
+    batch, prompt_len = prompts.shape
+    logits, cache, length = prefill(model, prompts, prompt_len + 1)
+    token = logits.argmax(-1).to(torch.int32)
+
+    def step():   # writes position ``length`` in place: repeatable
+        return decode_step(model, token, cache, length)
+
+    step()                                            # warm
+    _host_syncs(step)           # the first count carries torch.cuda's own
+    with _Routes() as routes:   # one-time setup (a sync in its __init__)
+        syncs = _host_syncs(step)      # one a MoE layer: the run lengths
+    routed = [int(torch.unique(idx).numel()) for _, idx in routes.calls]
+    prof = _profiled(step)
+    bound = moe_serve_bound(cfg, model, batch, prompt_len, routed)
+    full = get_config(cfg.name).n_layers
+    return dict(bound, decode_step_profile=prof,
+                reduced={"n_layers": [full, cfg.n_layers],
+                         "note": "depth cut to fit one 80 GB card, every "
+                                 "width and expert kept; fewer layers raise "
+                                 "the host's share of a step"},
+                experts_routed_per_layer=routed, moe_layers=len(routed),
+                **syncs)
+
+
+def _serve_moe(card: str, phase: str, arch: str) -> dict:
+    """``arch`` at full width in bf16, depth cut to ``MOE_CUTS``, batch 4,
+    prompt 512, 32 tokens: no hand-written kernel may launch (the moe
+    path has none); the decode step's ratio to the all-experts bound
+    beside the routed one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import DTypePolicy
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_CUTS[arch])
+    return _serve(card, phase, cfg, 512,
+                  {name: 0 for name in _launch_counters()},
+                  policy=DTypePolicy.bf16(), extra=_moe_extra)
+
+
+def phase_serve_moe(card: str) -> dict:
+    """``deepseek-v2-236b``: MLA, 2 shared and 160 routed experts, top-6,
+    8 of 60 layers."""
+    return _serve_moe(card, "serve_moe", "deepseek-v2-236b")
+
+
+def phase_serve_moe_gqa(card: str) -> dict:
+    """``llama4-maverick-400b-a17b``: GQA, 1 shared and 128 routed
+    experts, top-1, one (dense, MoE) group of 48 layers."""
+    return _serve_moe(card, "serve_moe_gqa", "llama4-maverick-400b-a17b")
 
 
 def phase_scenario_llm(card: str) -> dict:
@@ -2494,6 +2757,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_dense_bf16(card)
     gc.collect()                          # free qwen2.5-14b's 29.5 GB
+    torch.cuda.empty_cache()
+    phase_moe_parity(card)
+    phase_serve_moe(card)
+    gc.collect()                          # free deepseek's 58.4 GB
+    torch.cuda.empty_cache()
+    phase_serve_moe_gqa(card)
+    gc.collect()                          # free llama4's 37.1 GB
     torch.cuda.empty_cache()
     scen_llm = phase_scenario_llm(card)
     gmain = phase_gemm(card)

@@ -1,11 +1,12 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
 It holds the architectures whose serving path is ported: the dense
-family (``smollm-135m``, ``qwen2.5-14b``, ``qwen3-8b``, ``yi-6b``),
+family (``smollm-135m``, ``qwen2.5-14b``, ``qwen3-8b``, ``yi-6b``), the
+moe family (``deepseek-v2-236b``, ``llama4-maverick-400b-a17b``),
 RecurrentGemma (``recurrentgemma-9b``) and RWKV-6 (``rwkv6-3b``). The
-JAX package's moe, vlm and audio architectures are known by name and
-raise ``NotImplementedError`` until their slice of the port lands
-(ROADMAP, queue 1, item 12).
+JAX package's vlm and audio architectures are known by name and raise
+``NotImplementedError`` until their slice of the port lands (ROADMAP,
+queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -22,13 +23,12 @@ _MODULES: Dict[str, str] = {
     "yi-6b": "repro_torch.configs.yi_6b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
 }
 
 # architectures of the JAX package that the port does not serve yet
-_NOT_PORTED: Tuple[str, ...] = (
-    "internvl2-26b", "deepseek-v2-236b", "llama4-maverick-400b-a17b",
-    "hubert-xlarge",
-)
+_NOT_PORTED: Tuple[str, ...] = ("internvl2-26b", "hubert-xlarge")
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
 

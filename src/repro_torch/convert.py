@@ -100,7 +100,9 @@ def lm_params_from_reference(tree: Mapping[str, Any],
                              cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of :class:`repro_torch.models.transformer.LM`
     from the reference's ``init_model`` pytree as numpy arrays, unstacked
-    per layer: ``layers`` (dense and ssm, stacked on L) or ``groups`` and
+    per layer: ``layers`` (dense and ssm, stacked on L); ``groups`` of
+    ``{dense, moe}`` (Llama-4) or ``dense_layers`` and ``moe_layers``
+    (DeepSeek-V2), the experts stacked (L, E, D, F); or ``groups`` and
     ``tail`` (hybrid, stacked on the group and tail counts). Load it with
     ``model.load_state_dict(...)``, which rejects missing or extra
     names (a tied model has no ``lm_head``)."""
@@ -109,6 +111,15 @@ def lm_params_from_reference(tree: Mapping[str, Any],
            for k in ("embed", "final_norm", "lm_head") if k in tree}
     if cfg.family in ("dense", "ssm"):
         _layer_slices(tree["layers"], cfg.n_layers, "layers.", out)
+        return out
+    if cfg.family == "moe":
+        n_moe, n_dense = cfg.moe_layout()
+        if cfg.moe_every > 1:
+            _layer_slices(tree["groups"], n_moe, "groups.", out)
+            return out
+        for key, n in (("dense_layers", n_dense), ("moe_layers", n_moe)):
+            if n:
+                _layer_slices(tree[key], n, f"{key}.", out)
         return out
     n_groups, tail = hybrid_layout(cfg)
     _layer_slices(tree["groups"], n_groups, "groups.", out)
@@ -125,17 +136,35 @@ def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig):
       [(k, v), ...]}``, one pair per layer;
     - ssm: ``{"wkv": (L,B,H,Dh,Dh), "tm_x": (L,B,D), "cm_x": (L,B,D)}``
       becomes one dict per layer;
+    - moe: ``{"kv_dense", "kv_moe": (k, v) each (G,B,T,KV,Dh)}``
+      (Llama-4) and ``{"latent_dense", "latent": (c_kv (n,B,T,r_kv),
+      k_rope (n,B,T,dr))}`` (DeepSeek-V2) become one list of pairs per
+      key;
     - hybrid: ``{"rg1", "rg2", "tail": {"conv": (n,B,K-1,W), "h":
       (n,B,W)}, "kv": (k, v) each (G,B,win,KV,Dh)}`` becomes
       ``{"groups": [{"rg1", "rg2", "kv"}, ...], "tail": [...]}``.
     """
     require_ported(cfg)
     flat: Dict[str, torch.Tensor] = {}
-    if cfg.family == "dense":
-        k, v = cache["kv"]
-        _layer_slices({"k": k, "v": v}, cfg.n_layers, "", flat)
-        return {"kv": [(flat[f"{i}.k"], flat[f"{i}.v"])
-                       for i in range(cfg.n_layers)]}
+    if cfg.family in ("dense", "moe"):
+        if cfg.family == "dense":
+            layers = {"kv": cfg.n_layers}
+        else:
+            n_moe, n_dense = cfg.moe_layout()
+            layers = ({"kv_dense": n_moe, "kv_moe": n_moe}
+                      if cfg.moe_every > 1 else
+                      {"latent_dense": n_dense, "latent": n_moe})
+        unknown = set(cache) - set(layers)
+        if unknown:
+            raise ValueError(f"{cfg.name}'s cache has no {sorted(unknown)}")
+        out = {}
+        for key, pair in cache.items():
+            a, b = pair
+            n = layers[key]
+            _layer_slices({"a": a, "b": b}, n, f"{key}.", flat)
+            out[key] = [(flat[f"{key}.{i}.a"], flat[f"{key}.{i}.b"])
+                        for i in range(n)]
+        return out
     if cfg.family == "ssm":
         names = ("tm_x", "wkv", "cm_x")
         _layer_slices({k: cache[k] for k in names}, cfg.n_layers, "", flat)

@@ -16,6 +16,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --device cpu --reduced --batch 2 \
         --prompt-len 40 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --reduced --device cpu --batch 2 \
+        --prompt-len 16 --gen 4             # MLA, shared + routed experts
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-maverick-400b-a17b --reduced --device cpu \
+        --batch 2 --prompt-len 16 --gen 4   # GQA, interleaved experts
 
 Draws the model's weights from a seeded ``torch.Generator`` and the
 prompts from numpy, prefills the batch, then runs the decode loop
@@ -24,7 +30,11 @@ cache), reporting per-step latency as the JAX package's serve CLI does. The
 config is reduced with ``--reduced`` or on the CPU, as there; on cuda it
 serves at full width. ``--dtype`` picks ``DTypePolicy()`` (float32, the
 JAX package CLI's policy) or ``DTypePolicy.bf16()``. Without a GPU it
-raises unless ``--device cpu`` is given.
+raises unless ``--device cpu`` is given. On cuda it refuses, before
+drawing a weight, a config whose weights exceed the card's free memory:
+the two MoE configs at full depth (471.5 GB and 795.4 GB in bf16) fit
+no single card, and, as in the JAX package's CLI, there is no depth
+flag.
 """
 from __future__ import annotations
 
@@ -40,6 +50,23 @@ from repro_torch.configs import get_config
 from repro_torch.launch.steps import serve_step
 from repro_torch.models.common import DTypePolicy
 from repro_torch.models.transformer import LM, init_model, prefill
+
+
+def weight_bytes(cfg, policy: DTypePolicy) -> int:
+    """The bytes of ``cfg``'s weights under ``policy``: the model built
+    on the meta device, which allocates nothing."""
+    model = LM(cfg, policy, None, torch.device("meta"))
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def require_fits(cfg, policy: DTypePolicy, free_bytes: int) -> None:
+    """Raise when ``cfg``'s weights alone exceed ``free_bytes``."""
+    need = weight_bytes(cfg, policy)
+    if need > free_bytes:
+        raise RuntimeError(
+            f"{cfg.name}: its weights take {need} bytes under "
+            f"{policy.param_dtype}, more than the card's {free_bytes} free "
+            "bytes; serve it with --reduced")
 
 
 def make_prompts(vocab: int, batch: int, prompt_len: int, seed: int,
@@ -123,6 +150,8 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     policy = (DTypePolicy.bf16() if args.dtype == "bfloat16"
               else DTypePolicy())
+    if dev.type == "cuda":
+        require_fits(cfg, policy, torch.cuda.mem_get_info(dev)[0])
     model = init_model(cfg, policy, seed=0, torch_device=dev)
     prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, 1, dev)
     out = generate(model, prompts, args.gen)

@@ -1,6 +1,8 @@
 """Attention, forward only: grouped-query attention (GQA, MQA) with
-qk-norm and QKV bias, over the full causal context (the dense family)
-or a sliding window (the hybrid family's local-attention layers).
+qk-norm and QKV bias, over the full causal context (the dense and
+Llama-4 layers) or a sliding window (the hybrid family's
+local-attention layers), and DeepSeek-V2's multi-head latent attention
+(MLA).
 
 The torch counterpart of the JAX package's ``models/attention.py`` for
 those paths. The full-sequence path is a chunked flash-style attention:
@@ -16,8 +18,11 @@ whatever the input dtype, as the JAX package's
 widened (exactly) before each product.
 
 Shapes: x (B, S, D); q (B, S, KV, G, Dh) grouped, so KV heads are never
-repeated; caches (B, T, KV, Dh). MLA and the flash backward are not
-ported.
+repeated; caches (B, T, KV, Dh). MLA's cache is the latent pair
+(c_kv (B, T, kv_lora_rank), k_rope (B, T, qk_rope_head_dim)); its
+absorbed decode rounds its products to the cache dtype as the JAX
+package's (which gives them no ``preferred_element_type``). The flash
+backward is not ported.
 """
 from __future__ import annotations
 
@@ -269,3 +274,116 @@ class GQA(FrozenParams):
     def __init__(self, cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(),
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__(init_gqa(cfg, policy, generator, device))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ModelConfig, policy: DTypePolicy,
+             generator: Optional[torch.Generator] = None,
+             device=None) -> Params:
+    """The projections, drawn in the order w_dq, w_uq, w_dkv, w_uk, w_uv,
+    wo; the latent RMS norm weights (ones) ``kv_norm`` and ``q_norm``."""
+    d, h = cfg.d_model, cfg.n_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = policy.param_dtype
+
+    def normal(shape):
+        return normal_init(shape, 1.0, dt, generator, device)
+
+    return {"w_dq": normal((d, r_q)), "w_uq": normal((r_q, h * (dn + dr))),
+            "w_dkv": normal((d, r_kv + dr)), "w_uk": normal((r_kv, h * dn)),
+            "w_uv": normal((r_kv, h * dv)), "wo": normal((h * dv, d)),
+            "kv_norm": init_rms_norm(r_kv, dt, device),
+            "q_norm": init_rms_norm(r_q, dt, device)}
+
+
+def _mla_qkv(p, x, positions, cfg: ModelConfig):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr) after RoPE, c_kv (B,S,r_kv)
+    after its norm, k_rope (B,S,dr) after RoPE)."""
+    b, s, _ = x.shape
+    h, dn, r_kv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    cq = rms_norm(x @ p.w_dq, p.q_norm)
+    q = (cq @ p.w_uq).reshape(b, s, h, -1)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_full = x @ p.w_dkv
+    ckv = rms_norm(ckv_full[..., :r_kv], p.kv_norm)
+    k_rope = apply_rope(ckv_full[..., None, r_kv:], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope[:, :, 0]
+
+
+def _mla_attend(p, x, positions, cfg: ModelConfig, q_chunk: int,
+                kv_chunk: int):
+    """The full-sequence MLA layer: per-head K/V materialised from the
+    latent, chunked attention with the [nope | rope] key and V
+    zero-padded to the key width (one query group per head), V's width
+    sliced after. Returns (y (B, S, D), c_kv, k_rope)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
+    k_nope = (ckv @ p.w_uk).reshape(b, s, h, dn)
+    v = (ckv @ p.w_uv).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1)
+    vp = F.pad(v, (0, dn + dr - dv))
+    out = chunked_attention(q[:, :, :, None, :], k, vp, causal=True,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = out.reshape(b, s, h, dn + dr)[..., :dv]
+    return out.reshape(b, s, h * dv) @ p.wo, ckv, k_rope
+
+
+def mla_forward(p, x, positions, cfg: ModelConfig, *, q_chunk: int = 256,
+                kv_chunk: int = 512) -> torch.Tensor:
+    return _mla_attend(p, x, positions, cfg, q_chunk, kv_chunk)[0]
+
+
+def mla_prefill(p, x, positions, cfg: ModelConfig, cache_len: int, *,
+                q_chunk: int = 256, kv_chunk: int = 512):
+    """The forward output and the latent cache (c_kv (B, T, r_kv),
+    k_rope (B, T, dr)), right-padded with zeros to ``cache_len``."""
+    y, ckv, k_rope = _mla_attend(p, x, positions, cfg, q_chunk, kv_chunk)
+    pad = (0, 0, 0, cache_len - x.shape[1])
+    return y, (F.pad(ckv, pad), F.pad(k_rope, pad))
+
+
+def mla_decode(p, x1, cache, length, cfg: ModelConfig):
+    """Absorbed decode: the queries are mapped into the latent space
+    (q_nope @ W_uk per head), so attention runs on the latent cache.
+    x1 (B, 1, D); cache (c_kv (B, T, r_kv), k_rope (B, T, dr)); length
+    (B,) each < T. Writes each row's new latent at its own ``length`` in
+    place and attends positions <= length. Scores are rounded to the
+    cache dtype before their sum and the widening, the probabilities
+    are cast to it, as the JAX package's einsums do."""
+    b = x1.shape[0]
+    h, r_kv = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    pos = length.long()
+    q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(p, x1, pos[:, None], cfg)
+    c_cache, r_cache = cache
+    rows = torch.arange(b, device=x1.device)
+    c_cache[rows, pos] = ckv_new[:, 0]
+    r_cache[rows, pos] = k_rope_new[:, 0]
+    t = c_cache.shape[1]
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
+                         p.w_uk.reshape(r_kv, h, dn))
+    s_lat = torch.einsum("bhr,btr->bht", q_lat, c_cache)
+    s_rope = torch.einsum("bhd,btd->bht", q_rope[:, 0], r_cache)
+    scores = (s_lat + s_rope).float() * (1.0 / (dn + dr) ** 0.5)
+    mask = torch.arange(t, device=x1.device)[None] <= pos[:, None]
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(c_cache.dtype)
+    ctx = torch.einsum("bht,btr->bhr", probs, c_cache)        # latent ctx
+    out = torch.einsum("bhr,rhd->bhd", ctx, p.w_uv.reshape(r_kv, h, dv))
+    return out.reshape(b, 1, h * dv) @ p.wo, (c_cache, r_cache)
+
+
+class MLA(FrozenParams):
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(),
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(init_mla(cfg, policy, generator, device))

@@ -1,19 +1,42 @@
-"""Feed-forward layers: the dense SwiGLU MLP.
+"""Feed-forward layers: the dense SwiGLU MLP and the capacity-based
+top-k mixture of experts.
 
-The torch counterpart of the dense half of the JAX package's
-``models/moe.py``; the experts come with the slice that serves a
-mixture-of-experts architecture.
+The torch counterpart of the JAX package's ``models/moe.py``. Routing is
+the same: top-k over the float32 router logits (ties to the lower
+index), a softmax over the selected logits, the (token, k) pairs sorted
+stably by expert, and a pair kept when its slot in its expert's run is
+under the capacity. The JAX package then fills an (E, capacity, D)
+buffer and runs every expert over it; here only the routed pairs are
+computed: one gather of the tokens in expert order, then for each
+expert that holds a pair, its three products on its contiguous run,
+reading ``w_gate[e]``, ``w_up[e]`` and ``w_down[e]`` only. An empty slot
+of the reference's buffer is a zero row and SwiGLU without bias maps
+zero to zero, so the result is the same function. The run lengths come
+to the host to slice the runs: one device-to-host sync a MoE layer a
+call. Each token's k weighted contributions are gathered into (T, k, D)
+and summed by one reduction (a fixed order, where a scatter-add on the
+card adds in the order the threads arrive).
+
+The JAX package's expert-parallel dispatch (``moe_forward_ep``, experts
+split over a ``model`` mesh axis) is not ported: one H100 cannot check
+it, and ``moe_forward`` refuses a mesh of several devices.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTypePolicy, FrozenParams, normal_init
 
 Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Dense SwiGLU MLP
+# ---------------------------------------------------------------------------
 
 
 def init_mlp(d_model: int, d_ff: int, policy: DTypePolicy,
@@ -37,3 +60,132 @@ class MLP(FrozenParams):
                  policy: DTypePolicy = DTypePolicy(),
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__(init_mlp(d_model, d_ff, policy, generator, device))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts
+# ---------------------------------------------------------------------------
+
+
+def _experts_init(shape, dtype, generator, device) -> torch.Tensor:
+    """(E, fan_in, fan_out) expert weights. In a 16-bit dtype they are
+    drawn one expert at a time, so a full-width layer never holds a
+    float32 copy of all its experts (llama4's would be 21.5 GB); a
+    float32 draw is the result itself, and a meta tensor holds no data,
+    so those are one draw."""
+    if dtype == torch.float32 or torch.device(device or "cpu").type == "meta":
+        return normal_init(shape, 1.0, dtype, generator, device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for e in range(shape[0]):
+        out[e] = normal_init(shape[1:], 1.0, dtype, generator, device)
+    return out
+
+
+def init_moe(cfg: ModelConfig, policy: DTypePolicy,
+             generator: Optional[torch.Generator] = None,
+             device=None) -> Params:
+    """The router (float32 whatever the policy, as the JAX package's),
+    then the experts' ``w_gate``, ``w_up`` (E, D, F) and ``w_down``
+    (E, F, D)."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    dt = policy.param_dtype
+    return {
+        "router": normal_init((d, e), 1.0, torch.float32, generator, device),
+        "w_gate": _experts_init((e, d, f), dt, generator, device),
+        "w_up": _experts_init((e, d, f), dt, generator, device),
+        "w_down": _experts_init((e, f, d), dt, generator, device),
+    }
+
+
+class MoE(FrozenParams):
+    """Router and routed experts, plus ``shared`` (an MLP of
+    ``moe_d_ff * n_shared_experts``) when the config has shared
+    experts."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(),
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(init_moe(cfg, policy, generator, device))
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg.d_model,
+                              cfg.moe_d_ff * cfg.n_shared_experts, policy,
+                              generator, device)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """The k largest of each row, largest first, ties to the lower index
+    (``jax.lax.top_k``'s order; a stable descending sort keeps it)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(router_logits: torch.Tensor, top_k: int):
+    """Top-k routing with softmax over the selected experts' logits:
+    (gates (T, k) float32, expert ids (T, k))."""
+    gates, idx = _top_k(router_logits, top_k)
+    return torch.softmax(gates, dim=-1), idx
+
+
+def _router_logits(p, xf: torch.Tensor) -> torch.Tensor:
+    return xf.float() @ p.router
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                capacity: Optional[int] = None, exact: bool = False,
+                mesh: Optional[Sequence[torch.device]] = None
+                ) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D). Pairs over an expert's capacity are
+    dropped (their token keeps the shared experts and the residual);
+    ``exact=True`` (prefill and decode) sizes the capacity so nothing
+    drops. The capacity is the JAX package's: ``T * k`` when exact, else
+    ``int(T * k / E * capacity_factor) + 1``. A ``mesh`` of more than
+    one device, where the JAX package would split the experts over its
+    ``model`` axis (``moe_forward_ep``), raises ``NotImplementedError``:
+    that dispatch is not ported, since one H100 cannot check it."""
+    if mesh is not None and len(mesh) > 1:
+        raise NotImplementedError(
+            f"expert-parallel MoE over {len(mesh)} devices is not ported "
+            "(ROADMAP, queue 1, item 12); the experts run on one device")
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    gates, expert_idx = _route(_router_logits(p, xf), k)   # (T,k), (T,k)
+    if capacity is None:
+        capacity = t * k if exact else int(t * k / e * cfg.capacity_factor) + 1
+
+    # (token, k) pairs sorted stably by expert: each expert's pairs form a
+    # contiguous run, in token order, and the first `capacity` are kept
+    flat_expert = expert_idx.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    runs = torch.searchsorted(flat_expert[order],
+                              torch.arange(e + 1, device=x.device))
+    runs = runs.tolist()                    # the one host sync of the call
+    xs = xf[order // k]                                     # (T*k, D)
+    hs = x.new_zeros((t * k, d))
+    for ex in range(e):
+        start = runs[ex]
+        kept = min(runs[ex + 1] - start, capacity)
+        if kept:
+            xe = xs[start:start + kept]
+            h = F.silu(xe @ p.w_gate[ex]) * (xe @ p.w_up[ex])
+            torch.mm(h, p.w_down[ex], out=hs[start:start + kept])
+    weighted = hs * gates.reshape(-1)[order, None].to(x.dtype)
+    contrib = torch.empty_like(hs).index_copy_(0, order, weighted)
+    y = contrib.reshape(t, k, d).sum(dim=1)
+    if cfg.n_shared_experts:
+        y = y + mlp_forward(p.shared, xf)
+    return y.reshape(b, s, d)
+
+
+def moe_aux_loss(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style: E * sum(f_e * p_e)),
+    float32."""
+    b, s, d = x.shape
+    logits = _router_logits(p, x.reshape(b * s, d))
+    probs = torch.softmax(logits, dim=-1)
+    idx = _top_k(logits, cfg.top_k)[1].reshape(-1)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int64, device=x.device)
+    counts = counts.scatter_add_(0, idx, torch.ones_like(idx)).float()
+    frac_tokens = counts / counts.sum()
+    frac_probs = probs.mean(dim=0)
+    return cfg.n_experts * torch.sum(frac_tokens * frac_probs)

@@ -3,6 +3,9 @@
 The torch counterpart of the JAX package's ``models/transformer.py`` for
 
   dense  — uniform decoder layers (GQA with qk-norm or QKV bias, SwiGLU);
+  moe    — DeepSeek-V2 (MLA attention, leading dense layers, then layers
+           of shared and routed top-k experts) or Llama-4 (GQA, groups of
+           a dense layer and a MoE layer, ``moe_every`` = 2);
   ssm    — RWKV-6 (time-mix + channel-mix), attention-free;
   hybrid — RecurrentGemma: groups of (RG-LRU, RG-LRU, local attention),
            then a tail of RG-LRU layers, each sub-layer with its own
@@ -18,11 +21,16 @@ module that also carries its config:
   decode_step(model, token, cache, length)         -> (logits (B,V), cache)
 
 Layers run as a Python loop. Submodules are named as the reference's
-parameter tree: ``layers.{l}`` (dense, ssm); ``groups.{i}.{rg1,rg2,attn}``
-and ``tail.{j}`` (hybrid). Caches:
+parameter tree: ``layers.{l}`` (dense, ssm); ``groups.{i}.{dense,moe}``
+(Llama-4) or ``dense_layers.{j}`` and ``moe_layers.{l}`` (DeepSeek-V2);
+``groups.{i}.{rg1,rg2,attn}`` and ``tail.{j}`` (hybrid). Caches:
 
 - dense: ``{"kv": [(k, v), ...]}``, one pair per layer, each
   ``(B, cache_len, KV, Dh)`` holding position p at slot p;
+- moe: Llama-4 ``{"kv_dense": [...], "kv_moe": [...]}``, one (k, v)
+  pair per group in each; DeepSeek-V2 ``{"latent_dense": [...],
+  "latent": [...]}``, one latent pair ``(c_kv (B, cache_len, r_kv),
+  k_rope (B, cache_len, dr))`` per dense and per MoE layer;
 - ssm: a list with one dict per layer, ``{"tm_x": (B,D), "wkv":
   (B,H,Dh,Dh) float32, "cm_x": (B,D)}``;
 - hybrid: ``{"groups": [{"rg1": st, "rg2": st, "kv": (k, v)}, ...],
@@ -30,9 +38,13 @@ and ``tail.{j}`` (hybrid). Caches:
   float32}`` and a ring-buffer window cache ``k, v (B,win,KV,Dh)`` that
   holds position p at slot ``p % win``.
 
-:func:`decode_step` updates the ``wkv``, ``h`` and KV slabs in place. The
-JAX package's sharding constraints do nothing on one device and are left
-out. Entry points take ``torch_device``: ``None`` means cuda and raises
+:func:`forward` runs the experts with the capacity drops and returns
+their summed load-balancing loss; ``prefill`` and ``decode_step`` run
+them exact (nothing drops), as the JAX package's do.
+
+:func:`decode_step` updates the ``wkv``, ``h``, KV and latent slabs in
+place. The JAX package's sharding constraints do nothing on one device
+and are left out. Entry points take ``torch_device``: ``None`` means cuda and raises
 without a GPU; the CPU runs only when asked for.
 """
 from __future__ import annotations
@@ -107,6 +119,45 @@ class HybridGroup(nn.Module):
         self.attn = DenseLayer(cfg, policy, generator, device)
 
 
+class MoELayer(nn.Module):
+    """A MoE layer: norm, MLA (``use_mla``) or GQA, norm, experts."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        d, dt = cfg.d_model, policy.param_dtype
+        self.ln1 = frozen(init_rms_norm(d, dt, device))
+        attn = attn_mod.MLA if cfg.use_mla else attn_mod.GQA
+        self.attn = attn(cfg, policy, generator, device)
+        self.ln2 = frozen(init_rms_norm(d, dt, device))
+        self.moe = moe_mod.MoE(cfg, policy, generator, device)
+
+
+class DeepseekDenseLayer(nn.Module):
+    """DeepSeek-V2's leading dense layer: norm, MLA, norm, an MLP of
+    ``dense_d_ff`` (or ``d_ff``)."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        d, dt = cfg.d_model, policy.param_dtype
+        self.ln1 = frozen(init_rms_norm(d, dt, device))
+        self.attn = attn_mod.MLA(cfg, policy, generator, device)
+        self.ln2 = frozen(init_rms_norm(d, dt, device))
+        self.mlp = moe_mod.MLP(d, cfg.dense_d_ff or cfg.d_ff, policy,
+                               generator, device)
+
+
+class MoEGroup(nn.Module):
+    """Llama-4's period: a dense layer, then a MoE layer."""
+
+    def __init__(self, cfg: ModelConfig, policy: DTypePolicy,
+                 generator: Optional[torch.Generator], device):
+        super().__init__()
+        self.dense = DenseLayer(cfg, policy, generator, device)
+        self.moe = MoELayer(cfg, policy, generator, device)
+
+
 class LM(nn.Module):
     """Embedding, the family's layers, final norm, LM head (``embed.T``
     when the embeddings are tied)."""
@@ -128,6 +179,19 @@ class LM(nn.Module):
             self.layers = nn.ModuleList(
                 layer(cfg, policy, generator, device)
                 for _ in range(cfg.n_layers))
+        elif cfg.family == "moe":
+            n_moe, n_dense = cfg.moe_layout()
+            if cfg.moe_every > 1:
+                self.groups = nn.ModuleList(
+                    MoEGroup(cfg, policy, generator, device)
+                    for _ in range(n_moe))
+            else:
+                self.dense_layers = nn.ModuleList(
+                    DeepseekDenseLayer(cfg, policy, generator, device)
+                    for _ in range(n_dense))
+                self.moe_layers = nn.ModuleList(
+                    MoELayer(cfg, policy, generator, device)
+                    for _ in range(n_moe))
         else:
             n_groups, tail = hybrid_layout(cfg)
             self.groups = nn.ModuleList(
@@ -170,6 +234,83 @@ def _mlp_block(layer, x: torch.Tensor) -> torch.Tensor:
     """The second half of a dense layer or a hybrid sub-layer:
     x + MLP(norm(x))."""
     return x + moe_mod.mlp_forward(layer.mlp, rms_norm(x, layer.ln2))
+
+
+def _moe_layers(model: LM):
+    """The moe family's layers in run order, each with its cache's key:
+    Llama-4's groups (dense, then MoE), or DeepSeek-V2's leading dense
+    layers, then its MoE layers."""
+    if model.cfg.moe_every > 1:
+        for grp in model.groups:
+            yield grp.dense, "kv_dense"
+            yield grp.moe, "kv_moe"
+    else:
+        for layer in model.dense_layers:
+            yield layer, "latent_dense"
+        for layer in model.moe_layers:
+            yield layer, "latent"
+
+
+def _is_mla(layer) -> bool:
+    return isinstance(layer.attn, attn_mod.MLA)
+
+
+def _ffn_block(layer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x + FFN(norm(x)): the experts exact (prefill and decode) in a MoE
+    layer, else the MLP."""
+    if isinstance(layer, MoELayer):
+        return x + moe_mod.moe_forward(layer.moe, rms_norm(x, layer.ln2),
+                                       cfg, exact=True)
+    return _mlp_block(layer, x)
+
+
+def _moe_forward(model: LM, tokens: torch.Tensor):
+    """The moe family's full-sequence pass with the capacity drops.
+    Returns (x, the summed load-balancing loss of the MoE layers)."""
+    cfg = model.cfg
+    x = _embed(model, tokens)
+    positions = _positions(*x.shape[:2], x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer, _ in _moe_layers(model):
+        attend = attn_mod.mla_forward if _is_mla(layer) else \
+            attn_mod.gqa_forward
+        x = x + attend(layer.attn, rms_norm(x, layer.ln1), positions, cfg)
+        if isinstance(layer, MoELayer):
+            h = rms_norm(x, layer.ln2)
+            aux = aux + moe_mod.moe_aux_loss(layer.moe, h, cfg)
+            x = x + moe_mod.moe_forward(layer.moe, h, cfg)
+        else:
+            x = _mlp_block(layer, x)
+    return x, aux
+
+
+def _moe_prefill(model: LM, tokens: torch.Tensor, cache_len: int):
+    cfg = model.cfg
+    x = _embed(model, tokens)
+    positions = _positions(*x.shape[:2], x.device)
+    cache: Dict[str, list] = {}
+    for layer, key in _moe_layers(model):
+        attend = attn_mod.mla_prefill if _is_mla(layer) else \
+            attn_mod.gqa_prefill
+        y, c = attend(layer.attn, rms_norm(x, layer.ln1), positions, cfg,
+                      cache_len)
+        x = _ffn_block(layer, x + y, cfg)
+        cache.setdefault(key, []).append(c)
+    return x, cache
+
+
+def _moe_decode(model: LM, x: torch.Tensor, cache, length: torch.Tensor):
+    cfg = model.cfg
+    pending = {key: iter(slabs) for key, slabs in cache.items()}
+    new_cache: Dict[str, list] = {}
+    for layer, key in _moe_layers(model):
+        attend = attn_mod.mla_decode if _is_mla(layer) else \
+            attn_mod.gqa_decode
+        y, c = attend(layer.attn, rms_norm(x, layer.ln1), next(pending[key]),
+                      length, cfg)
+        x = _ffn_block(layer, x + y, cfg)
+        new_cache.setdefault(key, []).append(c)
+    return x, new_cache
 
 
 def _rg_sub_block(layer: RGLayer, x: torch.Tensor, cfg: ModelConfig,
@@ -272,10 +413,15 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 @torch.inference_mode()
 def forward(model: LM, tokens: torch.Tensor):
-    """Full-sequence forward. Returns (logits (B,S,V), aux_loss = 0)."""
+    """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the
+    MoE layers' summed load-balancing loss (float32), 0 for the other
+    families."""
     cfg = model.cfg
     require_ported(cfg)
-    if cfg.family == "dense":
+    aux = None
+    if cfg.family == "moe":
+        x, aux = _moe_forward(model, tokens)
+    elif cfg.family == "dense":
         x = _embed(model, tokens)
         positions = _positions(*x.shape[:2], x.device)
         for layer in model.layers:
@@ -289,17 +435,18 @@ def forward(model: LM, tokens: torch.Tensor):
             x, _ = _rwkv_block(layer, x, cfg)
     else:
         x, _ = _hybrid_prefill(model, tokens, cfg.local_window)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(model, x), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                policy: DTypePolicy = DTypePolicy(), *,
                torch_device: DeviceLike = None) -> Cache:
-    """Decode state for ``batch`` sequences. The dense KV cache has
-    ``cache_len`` positions; RWKV-6's state is O(1) in the context, so
-    ``cache_len`` sets no size there; the hybrid window cache has
-    ``min(local_window, cache_len)`` slots."""
+    """Decode state for ``batch`` sequences. The dense and moe KV and
+    latent caches have ``cache_len`` positions; RWKV-6's state is O(1)
+    in the context, so ``cache_len`` sets no size there; the hybrid
+    window cache has ``min(local_window, cache_len)`` slots."""
     require_ported(cfg)
     dev = resolve_device(torch_device)
     dt = policy.compute_dtype
@@ -312,6 +459,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             return zeros(batch, cache_len, cfg.n_kv_heads, cfg.d_head)
 
         return {"kv": [(kv(), kv()) for _ in range(cfg.n_layers)]}
+    if cfg.family == "moe":
+        n_moe, n_dense = cfg.moe_layout()
+        if cfg.moe_every > 1:
+            def kv():
+                return zeros(batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+
+            return {"kv_dense": [(kv(), kv()) for _ in range(n_moe)],
+                    "kv_moe": [(kv(), kv()) for _ in range(n_moe)]}
+
+        def lat():
+            return (zeros(batch, cache_len, cfg.kv_lora_rank),
+                    zeros(batch, cache_len, cfg.qk_rope_head_dim))
+
+        return {"latent_dense": [lat() for _ in range(n_dense)],
+                "latent": [lat() for _ in range(n_moe)]}
     if cfg.family == "ssm":
         h, dh = rwkv_mod.n_heads(cfg), rwkv_mod.HEAD_DIM
         return [{"tm_x": zeros(batch, cfg.d_model),
@@ -342,7 +504,9 @@ def prefill(model: LM, tokens: torch.Tensor, cache_len: int):
     cfg = model.cfg
     require_ported(cfg)
     b, s = tokens.shape[:2]
-    if cfg.family == "dense":
+    if cfg.family == "moe":
+        x, cache = _moe_prefill(model, tokens, cache_len)
+    elif cfg.family == "dense":
         x = _embed(model, tokens)
         positions = _positions(b, s, x.device)
         kvs = []
@@ -375,7 +539,9 @@ def decode_step(model: LM, token: torch.Tensor, cache: Cache,
     cfg = model.cfg
     require_ported(cfg)
     x = _embed(model, token)[:, None]                  # (B, 1, D)
-    if cfg.family == "dense":
+    if cfg.family == "moe":
+        x, new_cache = _moe_decode(model, x, cache, length)
+    elif cfg.family == "dense":
         kvs = []
         for layer, kv in zip(model.layers, cache["kv"]):
             y, kv = attn_mod.gqa_decode(layer.attn, rms_norm(x, layer.ln1),

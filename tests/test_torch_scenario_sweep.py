@@ -2,7 +2,7 @@
 ``ScenarioSweep.run`` on the 5 x 2 grid (the default five regions x
 workloads 1 and 6) on the device path, its host fallback, the total
 budget split across cells, ``ScenarioSpec``, ``Pathfinder.run_scenarios``
-and ``workloads_from_configs`` (the ported dense, hybrid and ssm
+and ``workloads_from_configs`` (the ported dense, moe, hybrid and ssm
 configs); ``shard=True`` on one device against the unsharded run.
 
 Exact: best designs, frontier encodings, evaluation counts, error
@@ -35,7 +35,8 @@ from repro_torch.pathfinding import (
 RTOL = 1e-6
 WL = workload(1)
 CONFIGS = ["rwkv6-3b", "recurrentgemma-9b", "smollm-135m", "yi-6b",
-           "qwen3-8b", "qwen2.5-14b"]
+           "qwen3-8b", "qwen2.5-14b", "deepseek-v2-236b",
+           "llama4-maverick-400b-a17b"]
 TWO = {"clean": 0.024, "dirty": 0.82}
 
 REF = """
@@ -194,9 +195,12 @@ def test_workloads_from_configs_match_reference(ref):
             ref[f"cfg/{i}"].tolist()
     assert [wl.name for wl in got[2:]] == [
         "smollm-135m-mlp256", "yi-6b-mlp256", "qwen3-8b-mlp256",
-        "qwen2.5-14b-mlp256"]
+        "qwen2.5-14b-mlp256", "deepseek-v2-236b-mlp256",
+        "llama4-maverick-400b-a17b-mlp256"]
+    # the moe configs' d_ff is the per-expert width, as in the reference
+    assert [(wl.K, wl.N) for wl in got[6:]] == [(5120, 1536), (5120, 8192)]
     with pytest.raises(NotImplementedError, match="item 12"):
-        workloads_from_configs(["deepseek-v2-236b"])
+        workloads_from_configs(["internvl2-26b"])
 
 
 # ---------------------------------------------------------------------------
