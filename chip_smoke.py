@@ -183,7 +183,47 @@ one JSON line that carries the card's name and power limit:
     of each run's device, launch ``prefix_select`` 1 + 10 + 1 times on
     the card, equal the card's ``shard=False`` run bit for bit, and
     agree with the CPU by the ``scenario`` phase's rule.
-26. ``gemm_kernel`` — the systolic GEMM path: first every case once
+26. ``train_parity`` — the reduced ``smollm-135m`` widened to d_model
+    256 (4 heads of 64, 2 layers) on cuda against the same weights and
+    batches on the CPU: the first step's gradients within 1e-5 of each
+    leaf's max; five ``train_step``s (AdamW, warmup 2), each step's
+    loss, grad norm and lr within 1e-5 relative, the pipelines' tokens
+    equal; the parameters after them within 2e-3 of each leaf's max with
+    at most 0.1 % of a leaf's elements beyond 1e-5 (Adam moves an element
+    whose gradient lies at the float32 noise by ~lr either way); then
+    ``chunked_attention``'s output and gradients (causal, non-causal, a
+    window of 100; S = 300 in chunks of 128, G = 2) within 1e-5.
+27. ``train`` — ``smollm-135m`` at full width and depth in float32
+    through ``repro_torch.launch.train.train`` (batch 8, seq 256, 30
+    steps, remat), once with checkpoints every 10 steps and fault seed 11
+    at rate 0.12 (step 19 fails once and replays from step 10) and once
+    fault-free, both under ``torch.use_deterministic_algorithms(True)``:
+    the loss must fall, a restart must happen, and the two runs must end
+    with equal parameters and moments; step p50 and p90, tokens/s, peak
+    memory, one profiled step (device busy time, idle share, kernels)
+    and its AdamW update profiled alone, and the step's least time (``lm_step_bound``: 6 operations a matrix
+    weight a token and the causal attention's products, at the float32
+    rate, TF32 off) with the share of it reached. No hand-written kernel
+    may launch.
+28. ``vlm_audio_parity`` — the reduced ``internvl2-26b`` and
+    ``hubert-xlarge`` widened to d_model 256, every norm weight drawn
+    non-default, on cuda against the CPU in float32: ``forward`` on a
+    4-row patch prefix and 48 tokens (vlm) and on 64 frame embeddings
+    (audio, bidirectional) within 1e-4 of max |logit|, and the vlm
+    backbone's prefill and eight teacher-forced steps under the
+    ``dense_parity`` rule.
+29. ``vlm`` — ``internvl2-26b`` at full width and depth in bf16
+    (19,861,260,288 parameters, 39.7 GB): ``prefill_step`` on the token
+    stream (batch 4, prompt 512), 32 ``serve_step``s, then ``forward`` of
+    one sequence of a 256-row stub patch prefix drawn by numpy and 512
+    tokens; times beside ``dense_serve_bound`` and ``lm_step_bound``,
+    peak memory, every logit finite, no hand-written kernel launched.
+30. ``audio`` — ``hubert-xlarge`` at full width in float32, built to
+    train: ``eval_step`` on 4 x 2048 stub frame embeddings, then two
+    ``train_step``s on 2 x 1024 frames with frame labels; times beside
+    ``lm_step_bound``, peak memory, outputs, loss and grad norm finite,
+    no hand-written kernel launched.
+31. ``gemm_kernel`` — the systolic GEMM path: first every case once
     through ``systolic_gemm`` (its output within tolerance of
     ``gemm_plain``), with the launch count of each of the four kernel
     sites, and of each site's path ("simt", "wgmma"), over that run;
@@ -206,7 +246,7 @@ one JSON line that carries the card's name and power limit:
     key product at the serve cell's prefill (2048 x 2560 x 8960) under
     the five settings in float32 and under OS, OS split-K 2, WS and IS in
     bfloat16; float16 OS and WS at WL2.
-27. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
+32. ``prefix_segment_kernel`` — ``prefix_segment_gather`` once per case
     (the launch count of that run, by kernel: the unrolled and the
     grouped kernel must both have run), bitwise against its plain version
     on the card: the workload-1 int64 cycles plane and its float64 copy
@@ -2353,6 +2393,472 @@ def phase_scenario_llm(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_parity / train / vlm_audio_parity / vlm / audio phases: the training
+# path and the vlm and audio families (no hand-written kernel on their
+# paths)
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-5          # relative: a step's loss, grad norm, lr, cuda vs CPU
+GRAD_TOL = 1e-5           # of max |value|: first-step gradients, attention's
+# The parameters after five steps, cuda vs CPU, of each leaf's max |value|.
+# Adam moves an element by about lr * sign(g) whatever |g|, so an element
+# whose gradient lies at the float32 summation noise (~2e-6 of the leaf's
+# max here) can move the other way on the other device: up to 2 lr = 3e-3
+# absolute at step 1. Such elements must stay rare (TRAIN_PARAM_SHARE of a
+# leaf beyond GRAD_TOL) and within TRAIN_PARAM_TOL.
+TRAIN_PARAM_TOL = 2e-3
+TRAIN_PARAM_SHARE = 1e-3
+# smollm-135m at full width: fault seed 11 at rate 0.12 fails step 19 once,
+# which replays from the step-10 checkpoint
+TRAIN_RUN = dict(batch=8, seq=256, steps=30, ckpt_every=10, fail_rate=0.12)
+
+
+def _widened(name: str):
+    """``name`` reduced, then widened to d_model 256 in heads of 64."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name).reduced(), d_model=256,
+                               d_head=64)
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over max |want|, on the CPU in float32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def _no_kernel_launched(phase: str, counters: dict) -> dict:
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"{phase} launched hand-written kernels "
+                             f"{launches}; its path has none")
+    return launches
+
+
+def lm_step_bound(cfg, model, batch: int, seq: int, train: bool) -> dict:
+    """Least time of one forward (``train=False``) or train step over
+    ``batch`` x ``seq`` tokens, the larger of its bytes over
+    ``HBM_BYTES_PER_S`` and its operations over the card's rate for the
+    weights' dtype (``FP32_OPS_PER_S``, TF32 off, or ``BF16_OPS_PER_S``).
+    Operations: 2 a matrix weight a token forward and 4 more backward
+    (the layers' weights and the LM head; the embedding gather does
+    none), and the attention's two products (S (S + 1) / 2 positions a
+    head when causal, S^2 when not), again twice that backward. The
+    recomputation of remat is not work the step needs and is not
+    counted. Bytes: every weight read once (a train step also reads its
+    two moments and writes the three back) and the logits written once
+    (forward; a train step writes none)."""
+    elt = model.embed.element_size()
+    rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
+        else FP32_OPS_PER_S
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    mm = sum(p.numel() for p in model.layers.parameters() if p.dim() == 2) \
+        + head.numel()
+    n = sum(p.numel() for p in model.parameters())
+    tokens = batch * seq
+    pairs = seq * (seq + 1) / 2 if not cfg.encoder_only else seq * seq
+    attn = cfg.n_layers * 2 * 2 * batch * cfg.n_heads * cfg.d_head * pairs
+    mult = 3 if train else 1
+    ops = mult * (2 * mm * tokens + attn)
+    nbytes = (6 * n * 4 if train else n * elt + tokens * cfg.vocab * elt)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / rate * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_ops=ops, bound_bytes=nbytes, ops_per_s=rate)
+
+
+def phase_train_parity(card: str) -> dict:
+    """The reduced ``smollm-135m`` widened to d_model 256 on cuda against
+    the same weights and batches on the CPU: the first step's gradients,
+    then five ``train_step``s; then ``chunked_attention``'s gradients on
+    both devices (causal, non-causal, a window of 100) at S = 300 in
+    chunks of 128 (a ragged last chunk), G = 2."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.transformer import init_model, loss_fn
+    from repro_torch.optim import adamw
+
+    cfg = _widened("smollm-135m")
+    opt_cfg = adamw.AdamWConfig(lr_peak=3e-3, warmup_steps=2, total_steps=5)
+    models = {"cpu": init_model(cfg, seed=21, torch_device="cpu",
+                                trainable=True)}
+    models[DEV] = init_model(cfg, seed=21, torch_device=DEV, trainable=True)
+    models[DEV].load_state_dict(models["cpu"].state_dict())
+    states = {d: adamw.init(dict(m.named_parameters()), opt_cfg)
+              for d, m in models.items()}
+    pipes = {d: SyntheticTokenPipeline(DataConfig(cfg.vocab, 64, 4),
+                                       torch_device=d) for d in models}
+    grads = {}
+    for d, m in models.items():
+        params = dict(m.named_parameters())
+        loss = loss_fn(m, pipes[d].batch(0))
+        grads[d] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+    grad_err = max(_max_rel(grads[DEV][k], g) for k, g in grads["cpu"].items())
+    if grad_err > GRAD_TOL:
+        raise AssertionError(f"train_parity first-step gradients: {grad_err} "
+                             f"> {GRAD_TOL}")
+    steps = []
+    for i in range(5):
+        batches = {d: p.batch(i) for d, p in pipes.items()}
+        if not torch.equal(batches[DEV]["tokens"].cpu(),
+                           batches["cpu"]["tokens"]):
+            raise AssertionError(f"train_parity step {i}: the pipelines' "
+                                 "tokens differ")
+        metrics = {}
+        for d, m in models.items():
+            states[d], metrics[d] = train_step(m, states[d], batches[d],
+                                               opt_cfg)
+        errs = {k: abs(float(metrics[DEV][k]) - float(metrics["cpu"][k]))
+                / abs(float(metrics["cpu"][k])) for k in
+                ("loss", "grad_norm", "lr")}
+        if max(errs.values()) > TRAIN_TOL:
+            raise AssertionError(f"train_parity step {i}: {errs} > "
+                                 f"{TRAIN_TOL}")
+        steps.append(dict(loss=float(metrics["cpu"]["loss"]),
+                          grad_norm=float(metrics["cpu"]["grad_norm"]),
+                          **{f"{k}_rel_err": v for k, v in errs.items()}))
+    param_err, share = 0.0, 0.0
+    for p, q in zip(models[DEV].parameters(), models["cpu"].parameters()):
+        diff = (p.detach().cpu() - q.detach()).abs()
+        scale = q.detach().abs().max()
+        param_err = max(param_err, float(diff.max() / scale))
+        share = max(share, float((diff > GRAD_TOL * scale).float().mean()))
+    if param_err > TRAIN_PARAM_TOL or share > TRAIN_PARAM_SHARE:
+        raise AssertionError(f"train_parity parameters after 5 steps: "
+                             f"{param_err} > {TRAIN_PARAM_TOL} or a share "
+                             f"{share} > {TRAIN_PARAM_SHARE} beyond {GRAD_TOL}")
+    rng = np.random.default_rng(5)
+    b, s, kv, g, dh = 2, 300, 2, 2, 64
+    arrays = [rng.standard_normal(shape).astype(np.float32) for shape in (
+        (b, s, kv, g, dh), (b, s, kv, dh), (b, s, kv, dh), (b, s, kv, g, dh))]
+    attn = {}
+    for name, causal, window in (("causal", True, None),
+                                 ("noncausal", False, None),
+                                 ("window", True, 100)):
+        out = {}
+        for d in (DEV, "cpu"):
+            q, k, v, do = (torch.tensor(a, device=d) for a in arrays)
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+            o = chunked_attention(q, k, v, causal=causal, window=window,
+                                  q_chunk=128, kv_chunk=128)
+            out[d] = (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+        errs = dict(zip(("out", "dq", "dk", "dv"), (
+            _max_rel(a, c) for a, c in zip(out[DEV], out["cpu"]))))
+        if max(errs.values()) > GRAD_TOL:
+            raise AssertionError(f"train_parity attention {name}: {errs} > "
+                                 f"{GRAD_TOL}")
+        attn[name] = errs
+    rec = dict(phase="train_parity", d_model=cfg.d_model,
+               layers=cfg.n_layers, batch=4, seq=64, steps=steps,
+               tol=TRAIN_TOL, first_grads_max_rel_err=grad_err,
+               grad_tol=GRAD_TOL, param_max_rel_err=param_err,
+               param_tol=TRAIN_PARAM_TOL, param_share_beyond_grad_tol=share,
+               param_share_tol=TRAIN_PARAM_SHARE, attention_grads=attn,
+               attention_shape=[b, s, kv, g, dh],
+               card=card)
+    emit(rec)
+    return rec
+
+
+def phase_train(card: str) -> dict:
+    """``smollm-135m`` at full width and depth in float32 through
+    ``repro_torch.launch.train.train``: once with an injected failure
+    (checkpoints every 10 steps) and once fault-free, both under
+    ``torch.use_deterministic_algorithms(True)``, which must end with
+    equal parameters and moments; then one profiled step and, apart,
+    its AdamW update."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import train_step
+    from repro_torch.optim import adamw
+
+    cfg, run = get_config("smollm-135m"), TRAIN_RUN
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"   # read at each call
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        for tag, rate, every in (("faulty", run["fail_rate"],
+                                  run["ckpt_every"]),
+                                 ("clean", 0.0, run["steps"])):
+            t = time.perf_counter()
+            out[tag] = train_mod.train(
+                cfg, steps=run["steps"], batch=run["batch"], seq=run["seq"],
+                ckpt_every=every, fail_rate=rate, torch_device=DEV,
+                log=lambda line: None)
+            torch.cuda.synchronize()
+            out[tag]["run_s"] = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+    launches = _no_kernel_launched("train", counters)
+    faulty, clean = out["faulty"], out["clean"]
+    if faulty["stats"].restarts < 1:
+        raise AssertionError("train: no failure was injected")
+    losses = faulty["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: the loss did not fall "
+                             f"({losses[0]} -> {losses[-1]})")
+    pairs = list(zip(faulty["model"].parameters(), clean["model"].parameters()))
+    for moments in ("mu", "nu"):
+        pairs += [(getattr(faulty["opt_state"], moments)[k], m)
+                  for k, m in getattr(clean["opt_state"], moments).items()]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(
+            "train: the run with a restart differs from the fault-free run "
+            f"(max rel diff {max(_max_rel(a, b) for a, b in pairs)})")
+    model, opt_state = clean["model"], clean["opt_state"]
+    steady = clean["step_s"][2:]
+    p50_ms = float(np.median(steady)) * 1e3
+    tokens = run["batch"] * run["seq"]
+    bound = lm_step_bound(cfg, model, run["batch"], run["seq"], train=True)
+    batch = SyntheticTokenPipeline(DataConfig(
+        cfg.vocab, run["seq"], run["batch"]), torch_device=DEV).batch(0)
+    opt_cfg = adamw.AdamWConfig(lr_peak=3e-3, warmup_steps=10,
+                                total_steps=run["steps"])
+    prof = _profiled(lambda: train_step(model, opt_state, batch, opt_cfg))
+    params = dict(model.named_parameters())
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    opt_prof = _profiled(lambda: adamw.apply_updates(params, grads,
+                                                     opt_state, opt_cfg))
+    stats = faulty["stats"]
+    rec = dict(phase="train", arch=cfg.name, dtype="float32",
+               params=sum(p.numel() for p in model.parameters()),
+               batch=run["batch"], seq=run["seq"], steps=run["steps"],
+               ckpt_every=run["ckpt_every"], fail_rate=run["fail_rate"],
+               fault_seed=train_mod.FAULT_SEED, loss_first=losses[0],
+               loss_last=losses[-1], restarts=stats.restarts,
+               replayed_steps=stats.replayed_steps,
+               executed_steps=len(losses), params_equal_fault_free=True,
+               deterministic=True, faulty_run_s=faulty["run_s"],
+               clean_run_s=clean["run_s"], step_p50_ms=p50_ms,
+               step_p90_ms=float(np.percentile(steady, 90)) * 1e3,
+               first_step_ms=clean["step_s"][0] * 1e3,
+               tokens_per_s=tokens / p50_ms * 1e3, peak_mem_bytes=peak,
+               **bound, bound_share=bound["bound_ms"] / p50_ms,
+               step_profile=prof, optimizer_profile=opt_prof,
+               launches=launches, card=card)
+    emit(rec)
+    return rec
+
+
+def phase_vlm_audio_parity(card: str) -> dict:
+    """The reduced ``internvl2-26b`` and ``hubert-xlarge`` widened to
+    d_model 256, every norm weight drawn non-default, on cuda against the
+    CPU in float32: ``forward`` on a 4-row patch prefix and 48 tokens
+    (vlm) and on 64 frame embeddings (audio), within ``LM_TOL`` of max
+    |logit|; the vlm backbone's 48-token prefill and eight teacher-forced
+    steps by ``_decode_parity``."""
+    from repro_torch.models.transformer import forward, init_model
+
+    out = {}
+    for arch, seed in (("internvl2-26b", 31), ("hubert-xlarge", 33)):
+        cfg = _widened(arch)
+        cpu = init_model(cfg, seed=seed, torch_device="cpu")
+        _nondefault_norms_and_biases(cpu, seed)
+        gpu = init_model(cfg, seed=seed, torch_device=DEV)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(seed)
+        if cfg.family == "vlm":
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)))
+            embeds = torch.as_tensor(rng.standard_normal(
+                (2, cfg.frontend_prefix, cfg.d_model)).astype(np.float32))
+        else:
+            tokens = None
+            embeds = torch.as_tensor(rng.standard_normal(
+                (2, 64, cfg.d_model)).astype(np.float32))
+        want = forward(cpu, tokens, embeds)[0]
+        got = forward(gpu, None if tokens is None else tokens.to(DEV),
+                      embeds.to(DEV))[0]
+        err = _max_rel(got, want)
+        if not (torch.isfinite(got).all() and err <= LM_TOL):
+            raise AssertionError(f"vlm_audio_parity {arch} forward: {err} > "
+                                 f"{LM_TOL}")
+        out[arch] = dict(family=cfg.family, forward_shape=list(want.shape),
+                         forward_max_rel_err=err)
+    out["internvl2-26b"]["decode"] = _decode_parity(
+        _widened("internvl2-26b"), 48, seed=35,
+        prepare=_nondefault_norms_and_biases)
+    rec = dict(phase="vlm_audio_parity", families=out, tol=LM_TOL, card=card)
+    emit(rec)
+    return rec
+
+
+def phase_vlm(card: str) -> dict:
+    """``internvl2-26b`` at full width and depth in bf16 (39.7 GB;
+    whether ``require_fits`` takes its 79.4 GB of float32 weights on the
+    card's free memory is recorded): ``prefill_step`` of 4 x 512 tokens,
+    32 ``serve_step``s, then ``forward`` of one sequence of a 256-row
+    stub patch prefix (numpy draws) and 512 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, require_fits
+    from repro_torch.launch.steps import prefill_step, serve_step
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.models.transformer import forward, init_model
+
+    cfg, batch, prompt_len, gen = get_config("internvl2-26b"), 4, 512, 32
+    free = torch.cuda.mem_get_info()[0] if DEV == "cuda" else 1 << 62
+    try:
+        require_fits(cfg, DTypePolicy(), free)
+        fp32_fits = True
+    except RuntimeError:
+        fp32_fits = False
+    policy = DTypePolicy.bf16()
+    require_fits(cfg, policy, free)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = init_model(cfg, policy, seed=0, torch_device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    prompts = make_prompts(cfg.vocab, batch, prompt_len, seed=1, device=DEV)
+    logits, cache, length = prefill_step(model, {"tokens": prompts[:, :16]},
+                                         18)                  # warm-up
+    serve_step(model, cache, logits.argmax(-1).to(torch.int32), length)
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache, length = prefill_step(model, {"tokens": prompts},
+                                         prompt_len + gen)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    finite = torch.isfinite(logits).all()
+    token, times, tokens = logits.argmax(-1).to(torch.int32), [], []
+    for _ in range(gen):
+        t = time.perf_counter()
+        token, logits, cache, length = serve_step(model, cache, token, length)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        finite &= torch.isfinite(logits).all()
+        tokens.append(token)
+    rng = np.random.default_rng(2)
+    embeds = torch.as_tensor(rng.standard_normal(
+        (1, cfg.frontend_prefix, cfg.d_model)).astype(np.float32),
+        device=DEV).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    full, _ = forward(model, prompts[:1], embeds)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t) * 1e3
+    launches = _no_kernel_launched("vlm", counters)
+    want_shape = (1, cfg.frontend_prefix + prompt_len, cfg.vocab)
+    if not (bool(finite) and torch.isfinite(full).all()
+            and tuple(full.shape) == want_shape):
+        raise AssertionError(f"vlm output malformed: finite={bool(finite)}, "
+                             f"forward {tuple(full.shape)}")
+    steady = times[1:]
+    p50_ms = float(np.median(steady)) * 1e3
+    bound = dense_serve_bound(cfg, model, batch, prompt_len)
+    fwd = lm_step_bound(cfg, model, 1, cfg.frontend_prefix + prompt_len,
+                        train=False)
+    rec = dict(phase="vlm", arch=cfg.name, dtype="bfloat16",
+               params=sum(p.numel() for p in model.parameters()),
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+               free_bytes_before=free, fp32_weights_fit=fp32_fits,
+               init_s=init_s, batch=batch,
+               prompt_len=prompt_len, gen=gen, prefill_ms=prefill_ms,
+               prefill_tokens_per_s=batch * prompt_len / prefill_ms * 1e3,
+               decode_first_ms=times[0] * 1e3, decode_p50_ms=p50_ms,
+               decode_p90_ms=float(np.percentile(steady, 90)) * 1e3,
+               decode_tokens_per_s=batch / p50_ms * 1e3, **bound,
+               prefill_over_bound=prefill_ms / bound["prefill_bound_ms"],
+               decode_p50_over_bound=p50_ms / bound["decode_bound_ms"],
+               forward_prefix=cfg.frontend_prefix,
+               forward_tokens=prompt_len, forward_ms=forward_ms,
+               forward_bound_ms=fwd["bound_ms"],
+               forward_bound_by=fwd["bound_by"],
+               sample_row0=torch.stack(tokens, 1)[0][:16].tolist(),
+               all_finite=True, launches=launches,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    emit(rec)
+    return rec
+
+
+def phase_audio(card: str) -> dict:
+    """``hubert-xlarge`` at full width in float32, built to train:
+    ``eval_step`` on 4 x 2048 stub frame embeddings, then two
+    ``train_step``s on 2 x 1024 frames with frame labels (numpy draws)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import eval_step, train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw
+
+    cfg = get_config("hubert-xlarge")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, seed=0, torch_device=DEV, trainable=True)
+    rng = np.random.default_rng(4)
+
+    def frames(b, s):
+        return torch.as_tensor(rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32), device=DEV)
+
+    eval_step(model, {"embeds": frames(1, 128)})            # warm-up
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    embeds = frames(4, 2048)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = eval_step(model, {"embeds": embeds})
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t) * 1e3
+    if not (tuple(logits.shape) == (4, 2048, cfg.vocab)
+            and torch.isfinite(logits).all()):
+        raise AssertionError(f"audio eval output malformed: "
+                             f"{tuple(logits.shape)}")
+    del logits, embeds
+    opt_cfg = adamw.AdamWConfig()
+    state = adamw.init(dict(model.named_parameters()), opt_cfg)
+    batch = {"embeds": frames(2, 1024), "labels": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (2, 1024)), device=DEV)}
+    steps = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = train_step(model, state, batch, opt_cfg)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                          loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"])))
+    launches = _no_kernel_launched("audio", counters)
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+               for s in steps):
+        raise AssertionError(f"audio train steps not finite: {steps}")
+    ev = lm_step_bound(cfg, model, 4, 2048, train=False)
+    tr = lm_step_bound(cfg, model, 2, 1024, train=True)
+    rec = dict(phase="audio", arch=cfg.name, dtype="float32",
+               params=sum(p.numel() for p in model.parameters()),
+               eval_batch=4, eval_frames=2048, eval_ms=eval_ms,
+               eval_bound_ms=ev["bound_ms"], eval_bound_by=ev["bound_by"],
+               eval_frames_per_s=4 * 2048 / eval_ms * 1e3,
+               train_batch=2, train_frames=1024, train_steps=steps,
+               train_bound_ms=tr["bound_ms"], train_bound_by=tr["bound_by"],
+               train_second_over_bound=steps[1]["ms"] / tr["bound_ms"],
+               all_finite=True, launches=launches,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # gemm_kernel phase: the systolic GEMM's four kernels against their plain
 # versions, and systolic_gemm against torch.matmul
 # ---------------------------------------------------------------------------
@@ -2766,6 +3272,17 @@ def main() -> int:
     gc.collect()                          # free llama4's 37.1 GB
     torch.cuda.empty_cache()
     scen_llm = phase_scenario_llm(card)
+    phase_train_parity(card)
+    phase_train(card)
+    gc.collect()                          # free the two trained smollms
+    torch.cuda.empty_cache()
+    phase_vlm_audio_parity(card)
+    phase_vlm(card)
+    gc.collect()                          # free internvl2-26b's 39.7 GB
+    torch.cuda.empty_cache()
+    phase_audio(card)
+    gc.collect()                          # free hubert-xlarge's train state
+    torch.cuda.empty_cache()
     gmain = phase_gemm(card)
     smain = phase_prefix_segment(card)
 

@@ -1,12 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-It holds the architectures whose serving path is ported: the dense
-family (``smollm-135m``, ``qwen2.5-14b``, ``qwen3-8b``, ``yi-6b``), the
-moe family (``deepseek-v2-236b``, ``llama4-maverick-400b-a17b``),
-RecurrentGemma (``recurrentgemma-9b``) and RWKV-6 (``rwkv6-3b``). The
-JAX package's vlm and audio architectures are known by name and raise
-``NotImplementedError`` until their slice of the port lands (ROADMAP,
-queue 1, item 12).
+It holds every architecture of the JAX package: the dense family
+(``smollm-135m``, ``qwen2.5-14b``, ``qwen3-8b``, ``yi-6b``), the vlm
+(``internvl2-26b``) and audio (``hubert-xlarge``) families, the moe
+family (``deepseek-v2-236b``, ``llama4-maverick-400b-a17b``),
+RecurrentGemma (``recurrentgemma-9b``) and RWKV-6 (``rwkv6-3b``).
 """
 from __future__ import annotations
 
@@ -25,10 +23,12 @@ _MODULES: Dict[str, str] = {
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 
-# architectures of the JAX package that the port does not serve yet
-_NOT_PORTED: Tuple[str, ...] = ("internvl2-26b", "hubert-xlarge")
+# architectures of the JAX package that the port does not hold yet
+_NOT_PORTED: Tuple[str, ...] = ()
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
 

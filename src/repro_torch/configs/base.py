@@ -2,10 +2,13 @@
 ``configs/base.py``, which imports no framework).
 
 It keeps the fields, the ``param_count`` branches and the ``reduced()``
-entries that the served families read: ``dense`` (GQA with qk-norm or
-QKV bias, SwiGLU), ``moe`` (MLA or GQA attention and routed top-k
-experts with shared ones: DeepSeek-V2, Llama-4), ``ssm`` (RWKV-6) and
-``hybrid`` (RecurrentGemma: RG-LRU and local-attention layers).
+entries that the port's families read: ``dense`` (GQA with qk-norm or
+QKV bias, SwiGLU), ``vlm`` (the dense backbone behind a prefix of stub
+patch embeddings), ``audio`` (bidirectional dense layers over stub frame
+embeddings), ``moe`` (MLA or GQA attention and routed top-k experts with
+shared ones: DeepSeek-V2, Llama-4), ``ssm`` (RWKV-6) and ``hybrid``
+(RecurrentGemma: RG-LRU and local-attention layers). The JAX package's
+``unroll_layers`` (its cost-probe mode) has no use here.
 
 One :class:`ModelConfig` per ported architecture lives in
 ``repro_torch/configs/<id>.py``; ``repro_torch.configs.get_config(name)``
@@ -17,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +66,9 @@ class ModelConfig:
     rg_lru_width: Optional[int] = None    # defaults to d_model
 
     # structure
-    encoder_only: bool = False            # bidirectional, no decode
+    encoder_only: bool = False            # hubert: bidirectional, no decode
+    frontend: Optional[str] = None        # None | "audio" | "vision"
+    frontend_prefix: int = 0              # prefix embeddings length (vlm)
     tie_embeddings: bool = False
 
     # runtime
@@ -113,7 +118,7 @@ class ModelConfig:
                          + 9 * d) + (2 * d * self.d_ff + d * d + 2 * d)
         elif self.moe:
             return self._moe_count(self.n_experts)
-        elif self.family == "dense":
+        elif self.family in ("dense", "vlm", "audio"):
             per_layer = self._attn_params() + 3 * d * self.d_ff  # swiglu
         else:
             # mixture of rglru + local-attn layers; approximate with the
@@ -171,6 +176,7 @@ class ModelConfig:
             dense_d_ff=128 if self.dense_d_ff else 0,
             local_window=32,
             rg_lru_width=64 if self.rg_lru_width else None,
+            frontend_prefix=min(4, self.frontend_prefix),
             max_seq=512,
         )
 
@@ -178,9 +184,8 @@ class ModelConfig:
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet (ROADMAP, queue 1, item 12); ported: "
-            f"{PORTED_FAMILIES}")
+            f"family {cfg.family!r} ({cfg.name}) is not one of the JAX "
+            f"package's families that repro_torch holds: {PORTED_FAMILIES}")
     if cfg.family == "moe" and cfg.moe_every == 1 and not cfg.use_mla:
         # the JAX package builds ``moe_layers`` for this combination but
         # its prefill/decode_step read ``layers`` (ROADMAP, R10)

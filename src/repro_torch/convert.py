@@ -3,10 +3,13 @@
 The reference's state leaves it as plain data: ``dataclasses.asdict`` of
 its ``TechDB`` (possibly through JSON, which turns int keys into strings
 and tuples into lists), a fitted normalizer's ``(mins, medians)``
-arrays, a Pareto archive's ``checkpoint_arrays()`` dict, and a language
+arrays, a Pareto archive's ``checkpoint_arrays()`` dict, a language
 model's parameter and decode-cache pytrees (nested dicts of arrays with
-the layers stacked on a leading axis). Encoded populations are int32
-arrays and pass unchanged. Nothing here imports the reference.
+the layers stacked on a leading axis) and its AdamW state. Encoded
+populations are int32 arrays and pass unchanged. A model's parameters
+also go back to the reference's tree (:func:`lm_params_to_reference`),
+the layout ``launch/train.py`` checkpoints in. Nothing here imports the
+reference.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, hybrid_layout, require_ported
 from repro_torch.core.techdb import MemorySpec, PackageSpec, ProtocolSpec, TechDB
 from repro_torch.core.templates import METRIC_FIELDS, Normalizer
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.pathfinding.pareto import ParetoArchive
 
 _SPECS = {"memories": MemorySpec, "packages": PackageSpec,
@@ -103,13 +107,14 @@ def lm_params_from_reference(tree: Mapping[str, Any],
     per layer: ``layers`` (dense and ssm, stacked on L); ``groups`` of
     ``{dense, moe}`` (Llama-4) or ``dense_layers`` and ``moe_layers``
     (DeepSeek-V2), the experts stacked (L, E, D, F); or ``groups`` and
-    ``tail`` (hybrid, stacked on the group and tail counts). Load it with
+    ``tail`` (hybrid, stacked on the group and tail counts); vlm and
+    audio have the dense ``layers``. Load it with
     ``model.load_state_dict(...)``, which rejects missing or extra
     names (a tied model has no ``lm_head``)."""
     require_ported(cfg)
     out = {k: torch.tensor(np.asarray(tree[k]))
            for k in ("embed", "final_norm", "lm_head") if k in tree}
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "vlm", "audio", "ssm"):
         _layer_slices(tree["layers"], cfg.n_layers, "layers.", out)
         return out
     if cfg.family == "moe":
@@ -128,11 +133,54 @@ def lm_params_from_reference(tree: Mapping[str, Any],
     return out
 
 
+def lm_params_to_reference(params: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, Any]:
+    """The reference's parameter tree, as numpy arrays, from a dict named
+    as :class:`repro_torch.models.transformer.LM`'s ``named_parameters()``
+    (or ``state_dict()``): each per-layer list's entries ``{list}.{l}.
+    {path}`` stacked on a leading axis into ``{list}/{path}``, the other
+    leaves as they are. The inverse of :func:`lm_params_from_reference`.
+    bfloat16 leaves come out as float32 (exactly; numpy has no bfloat16),
+    and a copy back into the model rounds them to what they were."""
+    tree: Dict[str, Any] = {}
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, t in params.items():
+        t = t.detach()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        first, *rest = name.split(".")
+        if rest and rest[0].isdigit():
+            stacks.setdefault((first, *rest[1:]), {})[int(rest[0])] = arr
+        else:
+            tree[name] = arr
+    for (first, *path), rows in stacks.items():
+        node = tree.setdefault(first, {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.stack([rows[i] for i in range(len(rows))])
+    return tree
+
+
+def adamw_state_from_reference(step, mu: Mapping[str, Any],
+                               nu: Mapping[str, Any], cfg: ModelConfig,
+                               device=None):
+    """The port's :class:`repro_torch.optim.AdamWState` from the
+    reference's ``AdamWState`` fields as numpy (``step`` a 0-d int32,
+    ``mu`` and ``nu`` parameter-shaped trees), its moments named as the
+    model's parameters, on ``device``."""
+    def moments(tree):
+        return {k: v.to(device)
+                for k, v in lm_params_from_reference(tree, cfg).items()}
+
+    return AdamWState(
+        torch.as_tensor(np.asarray(step, dtype=np.int32), device=device),
+        moments(mu), moments(nu))
+
+
 def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig):
     """The port's decode cache from the reference's stacked one, as numpy
     arrays:
 
-    - dense: ``{"kv": (k, v)}``, each (L,B,T,KV,Dh), becomes ``{"kv":
+    - dense and vlm: ``{"kv": (k, v)}``, each (L,B,T,KV,Dh), becomes ``{"kv":
       [(k, v), ...]}``, one pair per layer;
     - ssm: ``{"wkv": (L,B,H,Dh,Dh), "tm_x": (L,B,D), "cm_x": (L,B,D)}``
       becomes one dict per layer;
@@ -146,8 +194,8 @@ def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig):
     """
     require_ported(cfg)
     flat: Dict[str, torch.Tensor] = {}
-    if cfg.family in ("dense", "moe"):
-        if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "moe"):
+        if cfg.family != "moe":
             layers = {"kv": cfg.n_layers}
         else:
             n_moe, n_dense = cfg.moe_layout()

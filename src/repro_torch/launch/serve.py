@@ -28,7 +28,10 @@ prompts from numpy, prefills the batch, then runs the decode loop
 through ``serve_step`` (one new token per sequence per step against the
 cache), reporting per-step latency as the JAX package's serve CLI does. The
 config is reduced with ``--reduced`` or on the CPU, as there; on cuda it
-serves at full width. ``--dtype`` picks ``DTypePolicy()`` (float32, the
+serves at full width. It refuses the audio (encoder-only) and vlm
+families with the JAX CLI's messages (their steps are
+``repro_torch.launch.steps``' ``eval_step``, ``prefill_step`` and
+``serve_step``). ``--dtype`` picks ``DTypePolicy()`` (float32, the
 JAX package CLI's policy) or ``DTypePolicy.bf16()``. Without a GPU it
 raises unless ``--device cpu`` is given. On cuda it refuses, before
 drawing a weight, a config whose weights exceed the card's free memory:
@@ -148,6 +151,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced or dev.type == "cpu":
         cfg = cfg.reduced()
+    if cfg.encoder_only:
+        raise SystemExit("encoder-only architectures have no decode step")
+    if cfg.family == "vlm":
+        raise SystemExit("vlm serving runs via the dry-run decode cells")
     policy = (DTypePolicy.bf16() if args.dtype == "bfloat16"
               else DTypePolicy())
     if dev.type == "cuda":

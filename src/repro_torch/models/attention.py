@@ -1,4 +1,4 @@
-"""Attention, forward only: grouped-query attention (GQA, MQA) with
+"""Attention: grouped-query attention (GQA, MQA) with
 qk-norm and QKV bias, over the full causal context (the dense and
 Llama-4 layers) or a sliding window (the hybrid family's
 local-attention layers), and DeepSeek-V2's multi-head latent attention
@@ -22,7 +22,9 @@ repeated; caches (B, T, KV, Dh). MLA's cache is the latent pair
 (c_kv (B, T, kv_lora_rank), k_rope (B, T, qk_rope_head_dim)); its
 absorbed decode rounds its products to the cache dtype as the JAX
 package's (which gives them no ``preferred_element_type``). The flash
-backward is not ported.
+backward is the JAX package's custom VJP, as a
+``torch.autograd.Function`` (plain torch too: no kernel of either
+package has a backward).
 """
 from __future__ import annotations
 
@@ -90,37 +92,32 @@ def _chunk_mask(q_pos, k_pos, causal, window, t):
     return torch.where(mask, zero, NEG_INF)
 
 
-def chunked_attention(
-    q: torch.Tensor,       # (B, S, KV, G, Dh)
-    k: torch.Tensor,       # (B, T, KV, Dh)
-    v: torch.Tensor,       # (B, T, KV, Dh)
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    q_chunk: int = 512,
-    kv_chunk: int = 1024,
-) -> torch.Tensor:
-    """Flash attention forward (online softmax over KV chunks), with q
-    and k at the same positions; returns (B, S, KV, G, Dh) in v.dtype.
-    The KV chunks a Q chunk cannot see (after its last row when causal,
-    before its window) are skipped."""
-    b, s, kvh, g, dh = q.shape
-    t = k.shape[1]
+def _kv_range(qi: int, q_chunk: int, kv_chunk: int, nkv: int, causal,
+              window):
+    """The KV chunks Q chunk ``qi`` can see: none after its last row when
+    causal, none before its window's start."""
+    hi = nkv
+    if causal:
+        hi = min(nkv, ((qi + 1) * q_chunk - 1) // kv_chunk + 1)
+    lo = 0
+    if window is not None:
+        lo = max(lo, (qi * q_chunk - window + 1) // kv_chunk)
+    return lo, hi
+
+
+def _flash_fwd(q, k, v, causal, window, q_chunk, kv_chunk, t,
+               with_lse: bool = False):
+    """The online-softmax forward on chunk-padded operands: q (B, NQ*qc,
+    KV, G, Dh), k and v (B, NK*kc, KV, Dh), the kv positions >= ``t``
+    padding. Returns (out float32 of q's shape, the log-sum-exp of each
+    row (B, KV, G, NQ*qc) when ``with_lse``, else None)."""
+    b, sp, kvh, g, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
-    q_chunk = min(q_chunk, s)
-    kv_chunk = min(kv_chunk, t)
-    nq = -(-s // q_chunk)
-    nkv = -(-t // kv_chunk)
-    qp = nq * q_chunk - s
-    kp = nkv * kv_chunk - t
-    if qp:
-        q = torch.cat([q, q.new_zeros((b, qp) + q.shape[2:])], dim=1)
-    if kp:
-        k = torch.cat([k, k.new_zeros((b, kp) + k.shape[2:])], dim=1)
-        v = torch.cat([v, v.new_zeros((b, kp) + v.shape[2:])], dim=1)
+    nq = sp // q_chunk
+    nkv = k.shape[1] // kv_chunk
     q_pos_base = torch.arange(q_chunk, device=q.device)
     k_pos_base = torch.arange(kv_chunk, device=q.device)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
         m = torch.full((b, kvh, g, q_chunk), NEG_INF, dtype=torch.float32,
@@ -128,12 +125,7 @@ def chunked_attention(
         l = torch.zeros_like(m)
         o = torch.zeros((b, kvh, g, q_chunk, dh), dtype=torch.float32,
                         device=q.device)
-        hi = nkv
-        if causal:
-            hi = min(nkv, ((qi + 1) * q_chunk - 1) // kv_chunk + 1)
-        lo = 0
-        if window is not None:
-            lo = max(lo, (qi * q_chunk - window + 1) // kv_chunk)
+        lo, hi = _kv_range(qi, q_chunk, kv_chunk, nkv, causal, window)
         for ki in range(lo, hi):
             k_blk = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             v_blk = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
@@ -149,7 +141,119 @@ def chunked_attention(
             m = m_new
         out = o / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4))       # (B, qc, KV, G, Dh)
-    return torch.cat(outs, dim=1)[:, :s].to(v.dtype)
+        if with_lse:
+            lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    return (torch.cat(outs, dim=1),
+            torch.cat(lses, dim=-1) if with_lse else None)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, q_chunk, kv_chunk,
+               t):
+    """The JAX package's ``_flash_bwd``: each chunk pair's probabilities
+    recomputed from the row's log-sum-exp, so no (S, T) matrix is held.
+    ``p`` and ``ds`` are rounded to v.dtype before their products, as
+    there; every product and accumulator is float32. The chunks the
+    forward skips are skipped here too: the JAX package sweeps them, and
+    they add exact zeros there (every score is NEG_INF, so p = 0)."""
+    b, sp, kvh, g, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    nq = sp // q_chunk
+    nkv = k.shape[1] // kv_chunk
+    delta = (dout.float() * out.float()).sum(-1)          # (B, sp, KV, G)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    q_pos_base = torch.arange(q_chunk, device=q.device)
+    k_pos_base = torch.arange(kv_chunk, device=q.device)
+
+    def rows(x, qi):           # (B, qc, KV, G, ...) -> (B, KV, G*qc, ...)
+        x = x[:, qi * q_chunk:(qi + 1) * q_chunk].movedim(1, 3)
+        return x.reshape(b, kvh, g * q_chunk, *x.shape[4:])
+
+    dqs = []
+    for qi in range(nq):
+        qg, dog = rows(q, qi), rows(dout, qi)
+        dl = rows(delta, qi)[..., None]
+        lse_q = lse[..., qi * q_chunk:(qi + 1) * q_chunk].reshape(
+            b, kvh, g * q_chunk, 1)
+        dq_c = torch.zeros((b, kvh, g * q_chunk, dh), dtype=torch.float32,
+                           device=q.device)
+        lo, hi = _kv_range(qi, q_chunk, kv_chunk, nkv, causal, window)
+        for ki in range(lo, hi):
+            cols = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            k_t = k[:, cols].transpose(1, 2)               # (B, KV, kc, Dh)
+            v_t = v[:, cols].transpose(1, 2)
+            bias = _chunk_mask(qi * q_chunk + q_pos_base,
+                               ki * kv_chunk + k_pos_base, causal, window, t)
+            s = _mm_f32(qg, k_t.transpose(2, 3)) * scale  # (B,KV,G*qc,kc)
+            s = (s.reshape(b, kvh, g, q_chunk, -1) + bias).reshape(s.shape)
+            p = torch.exp(s - lse_q)
+            dv_blk = _mm_f32(p.to(v.dtype).transpose(2, 3), dog)
+            dp = _mm_f32(dog, v_t.transpose(2, 3))
+            ds = (p * (dp - dl) * scale).to(v.dtype)
+            dq_c += _mm_f32(ds, k_t)
+            dk_blk = _mm_f32(ds.transpose(2, 3), qg)       # (B, KV, kc, Dh)
+            dk[:, cols] += dk_blk.transpose(1, 2)
+            dv[:, cols] += dv_blk.transpose(1, 2)
+        dq_c = dq_c.reshape(b, kvh, g, q_chunk, dh).movedim(3, 1)
+        dqs.append(dq_c.to(q.dtype))
+    return torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the JAX package's custom VJP: the forward
+    saves (q, k, v, out, lse) and the backward recomputes each chunk's
+    probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk, t):
+        out, lse = _flash_fwd(q, k, v, causal, window, q_chunk, kv_chunk,
+                              t, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_chunk, kv_chunk, t)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def chunked_attention(
+    q: torch.Tensor,       # (B, S, KV, G, Dh)
+    k: torch.Tensor,       # (B, T, KV, Dh)
+    v: torch.Tensor,       # (B, T, KV, Dh)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash attention (online softmax over KV chunks), with q and k at
+    the same positions; returns (B, S, KV, G, Dh) in v.dtype. The KV
+    chunks a Q chunk cannot see (after its last row when causal, before
+    its window) are skipped. When grad is enabled and an operand takes
+    one, it runs through :class:`_Flash`, whose backward recomputes the
+    chunk probabilities; otherwise it only runs the forward."""
+    b, s, kvh, g, dh = q.shape
+    t = k.shape[1]
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, t)
+    nq = -(-s // q_chunk)
+    nkv = -(-t // kv_chunk)
+    qp = nq * q_chunk - s
+    kp = nkv * kv_chunk - t
+    if qp:
+        q = torch.cat([q, q.new_zeros((b, qp) + q.shape[2:])], dim=1)
+    if kp:
+        k = torch.cat([k, k.new_zeros((b, kp) + k.shape[2:])], dim=1)
+        v = torch.cat([v, v.new_zeros((b, kp) + v.shape[2:])], dim=1)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = _Flash.apply(q, k, v, causal, window, q_chunk, kv_chunk, t)
+    else:
+        out, _ = _flash_fwd(q, k, v, causal, window, q_chunk, kv_chunk, t)
+    return out[:, :s].to(v.dtype)
 
 
 def decode_attention(q1, k, v, *, length):

@@ -56,14 +56,16 @@ def init_rms_norm(d: int, dtype: torch.dtype, device=None) -> torch.Tensor:
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter that takes no gradient (the port only serves)."""
+    """A parameter that takes no gradient: models are built for serving,
+    and one built for training turns grads on with ``requires_grad_``
+    (``transformer.init_model(..., trainable=True)``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
 class FrozenParams(nn.Module):
-    """A module holding a dict of tensors as parameters without grads,
-    under the JAX package's parameter names; the ``*_forward`` functions
-    read them as attributes."""
+    """A module holding a dict of tensors as parameters, built without
+    grads (:func:`frozen`), under the JAX package's parameter names; the
+    ``*_forward`` functions read them as attributes."""
 
     def __init__(self, params: Dict[str, torch.Tensor]):
         super().__init__()

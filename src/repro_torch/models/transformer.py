@@ -1,8 +1,11 @@
-"""Model assembly: the families the port serves.
+"""Model assembly for all architecture families.
 
 The torch counterpart of the JAX package's ``models/transformer.py`` for
 
   dense  — uniform decoder layers (GQA with qk-norm or QKV bias, SwiGLU);
+  vlm    — the dense backbone consuming stub patch embeddings as a prefix;
+  audio  — encoder-only (bidirectional) dense layers over stub frame
+           embeddings;
   moe    — DeepSeek-V2 (MLA attention, leading dense layers, then layers
            of shared and routed top-k experts) or Llama-4 (GQA, groups of
            a dense layer and a MoE layer, ``moe_every`` = 2);
@@ -14,18 +17,20 @@ The torch counterpart of the JAX package's ``models/transformer.py`` for
 API, as the JAX package's, with the parameters held by an :class:`LM`
 module that also carries its config:
 
-  init_model(cfg, policy, seed=, torch_device=)    -> LM
-  forward(model, tokens)                           -> (logits (B,S,V), aux)
+  init_model(cfg, policy, seed=, torch_device=, trainable=) -> LM
+  forward(model, tokens | embeds, ...)             -> (logits (B,S,V), aux)
+  loss_fn(model, batch)                            -> scalar (chunked CE)
   init_cache(cfg, batch, cache_len, policy, torch_device=) -> cache
   prefill(model, tokens, cache_len)                -> (last logits (B,V), cache, lengths)
   decode_step(model, token, cache, length)         -> (logits (B,V), cache)
 
 Layers run as a Python loop. Submodules are named as the reference's
-parameter tree: ``layers.{l}`` (dense, ssm); ``groups.{i}.{dense,moe}``
+parameter tree: ``layers.{l}`` (dense, vlm, audio, ssm);
+``groups.{i}.{dense,moe}``
 (Llama-4) or ``dense_layers.{j}`` and ``moe_layers.{l}`` (DeepSeek-V2);
 ``groups.{i}.{rg1,rg2,attn}`` and ``tail.{j}`` (hybrid). Caches:
 
-- dense: ``{"kv": [(k, v), ...]}``, one pair per layer, each
+- dense and vlm: ``{"kv": [(k, v), ...]}``, one pair per layer, each
   ``(B, cache_len, KV, Dh)`` holding position p at slot p;
 - moe: Llama-4 ``{"kv_dense": [...], "kv_moe": [...]}``, one (k, v)
   pair per group in each; DeepSeek-V2 ``{"latent_dense": [...],
@@ -36,7 +41,18 @@ parameter tree: ``layers.{l}`` (dense, ssm); ``groups.{i}.{dense,moe}``
 - hybrid: ``{"groups": [{"rg1": st, "rg2": st, "kv": (k, v)}, ...],
   "tail": [st, ...]}`` with ``st = {"conv": (B,K-1,W), "h": (B,W)
   float32}`` and a ring-buffer window cache ``k, v (B,win,KV,Dh)`` that
-  holds position p at slot ``p % win``.
+  holds position p at slot ``p % win``;
+- audio: none (encoder-only: ``init_cache`` and ``prefill`` raise
+  ``ValueError``).
+
+A model is built for serving, its parameters without grads, unless
+``init_model(..., trainable=True)``. :func:`forward` and :func:`loss_fn`
+build the autograd graph when grad is enabled and the model trains, and
+run under ``inference_mode`` otherwise; ``prefill`` and ``decode_step``
+always run under it. ``remat=True`` recomputes each layer of the dense,
+vlm and audio stacks in the backward (``torch.utils.checkpoint``, the
+JAX package's ``jax.checkpoint`` of its scan body), and the loss
+recomputes each chunk's logits.
 
 :func:`forward` runs the experts with the capacity drops and returns
 their summed load-balancing loss; ``prefill`` and ``decode_step`` run
@@ -52,7 +68,9 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, hybrid_layout, require_ported
@@ -69,6 +87,9 @@ from repro_torch.models.common import (
 )
 
 Cache = Union[List[Dict[str, torch.Tensor]], Dict[str, Any]]
+
+MOE_AUX_WEIGHT = 0.01
+LOSS_CHUNK = 1024
 
 
 class DenseLayer(nn.Module):
@@ -174,8 +195,8 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = frozen(normal_init((d, cfg.vocab), 1.0, dt,
                                                generator, device))
-        if cfg.family in ("dense", "ssm"):
-            layer = DenseLayer if cfg.family == "dense" else RWKVLayer
+        if cfg.family in ("dense", "vlm", "audio", "ssm"):
+            layer = RWKVLayer if cfg.family == "ssm" else DenseLayer
             self.layers = nn.ModuleList(
                 layer(cfg, policy, generator, device)
                 for _ in range(cfg.n_layers))
@@ -203,14 +224,17 @@ class LM(nn.Module):
 
 
 def init_model(cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(), *,
-               seed: int = 0, torch_device: DeviceLike = None) -> LM:
+               seed: int = 0, torch_device: DeviceLike = None,
+               trainable: bool = False) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
-    the target device (so a full-width model is drawn where it lives)."""
+    the target device (so a full-width model is drawn where it lives);
+    the parameters take grads when ``trainable``."""
     require_ported(cfg)
     dev = resolve_device(torch_device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        return LM(cfg, policy, gen, dev)
+        model = LM(cfg, policy, gen, dev)
+    return model.requires_grad_(trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -392,8 +416,22 @@ def _windowed_decode(p, x1, cache, length, cfg: ModelConfig):
     return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p.wo, (ck, cv)
 
 
-def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[torch.as_tensor(tokens, device=model.embed.device)]
+def _embed(model: LM, tokens: Optional[torch.Tensor],
+           embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings, behind the ``embeds`` prefix when both are
+    given (vlm), or ``embeds`` alone (audio). Embeddings are cast to the
+    parameters' dtype: the JAX package casts a vlm prefix so and lets
+    jnp's promotion widen audio frames at their first product. The
+    lookup is ``F.embedding``, whose backward sums a row's gradients in
+    a fixed order on the CPU too (an index's backward adds them in the
+    order its threads arrive)."""
+    if tokens is None:
+        return embeds.to(model.embed.dtype)
+    x = F.embedding(torch.as_tensor(tokens, device=model.embed.device),
+                    model.embed)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _unembed(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -411,33 +449,103 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@torch.inference_mode()
-def forward(model: LM, tokens: torch.Tensor):
-    """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the
-    MoE layers' summed load-balancing loss (float32), 0 for the other
-    families."""
+def _trains(model: LM) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in model.parameters())
+
+
+def _dense_block(layer: DenseLayer, x: torch.Tensor, positions,
+                 cfg: ModelConfig) -> torch.Tensor:
+    y = attn_mod.gqa_forward(layer.attn, rms_norm(x, layer.ln1), positions,
+                             cfg, causal=not cfg.encoder_only)
+    return _mlp_block(layer, x + y)
+
+
+def forward(model: LM, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            return_hidden: bool = False, remat: bool = False):
+    """Full-sequence forward over ``tokens`` (B, S), the ``embeds``
+    prefix (B, P, D) and ``tokens`` (vlm), or ``embeds`` alone (audio).
+    Returns (logits (B, S, V), or the hidden states before the final
+    norm when ``return_hidden``; aux_loss): the MoE layers' summed
+    load-balancing loss (float32), 0 for the other families. It builds
+    the autograd graph when grad is enabled and the model trains, with
+    each dense-stack layer recomputed in the backward when ``remat``."""
     cfg = model.cfg
     require_ported(cfg)
-    aux = None
-    if cfg.family == "moe":
-        x, aux = _moe_forward(model, tokens)
-    elif cfg.family == "dense":
-        x = _embed(model, tokens)
-        positions = _positions(*x.shape[:2], x.device)
-        for layer in model.layers:
-            y = attn_mod.gqa_forward(layer.attn, rms_norm(x, layer.ln1),
-                                     positions, cfg,
-                                     causal=not cfg.encoder_only)
-            x = _mlp_block(layer, x + y)
-    elif cfg.family == "ssm":
-        x = _embed(model, tokens)
-        for layer in model.layers:
-            x, _ = _rwkv_block(layer, x, cfg)
-    else:
-        x, _ = _hybrid_prefill(model, tokens, cfg.local_window)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _unembed(model, x), aux
+    with torch.inference_mode(not _trains(model)):
+        aux = None
+        if cfg.family == "moe":
+            x, aux = _moe_forward(model, tokens)
+        elif cfg.family in ("dense", "vlm", "audio"):
+            x = _embed(model, tokens, embeds)
+            positions = _positions(*x.shape[:2], x.device)
+            for layer in model.layers:
+                if remat and torch.is_grad_enabled():
+                    x = checkpoint(_dense_block, layer, x, positions, cfg,
+                                   use_reentrant=False)
+                else:
+                    x = _dense_block(layer, x, positions, cfg)
+        elif cfg.family == "ssm":
+            x = _embed(model, tokens)
+            for layer in model.layers:
+                x, _ = _rwkv_block(layer, x, cfg)
+        else:
+            x, _ = _hybrid_prefill(model, tokens, cfg.local_window)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return (x if return_hidden else _unembed(model, x)), aux
+
+
+def _chunk_loss(h, labels, norm_w, head):
+    """The summed cross-entropy of one chunk's rows with label >= 0, and
+    their count: the final norm and the logits of the chunk alone."""
+    logits = (rms_norm(h, norm_w) @ head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor],
+            loss_chunk: int = LOSS_CHUNK, remat: bool = False):
+    """Chunked cross-entropy, never holding the (B, S, V) logits.
+
+    batch: {"tokens": (B, S) int, "labels": (B, S) int, optional
+    "embeds": (B, P, D)}; labels already shifted, label -100 masked. The
+    loss is taken on the text positions of a vlm batch. The sequence is
+    padded to whole chunks of ``loss_chunk`` (labels -100); each chunk's
+    final norm and logits are recomputed in the backward. Returns the
+    mean over unmasked labels plus ``MOE_AUX_WEIGHT`` times the MoE
+    load-balancing loss."""
+    tokens, embeds = batch.get("tokens"), batch.get("embeds")
+    with torch.inference_mode(not _trains(model)):
+        hidden, aux = forward(model, tokens, embeds, return_hidden=True,
+                              remat=remat)
+        labels = torch.as_tensor(batch["labels"], device=hidden.device)
+        if embeds is not None and tokens is not None:
+            hidden = hidden[:, embeds.shape[1]:]   # loss on text positions
+        s = hidden.shape[1]
+        chunk = min(loss_chunk, s)
+        pad = (-s) % chunk
+        if pad:
+            hidden = F.pad(hidden, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-100)
+        head = model.embed.T if model.cfg.tie_embeddings else model.lm_head
+        sums, counts = [], []
+        for c in range(hidden.shape[1] // chunk):
+            args = (hidden[:, c * chunk:(c + 1) * chunk],
+                    labels[:, c * chunk:(c + 1) * chunk].long(),
+                    model.final_norm, head)
+            if torch.is_grad_enabled():
+                total, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+            else:
+                total, n = _chunk_loss(*args)
+            sums.append(total)
+            counts.append(n)
+        ce = torch.stack(sums).sum() / torch.clamp(torch.stack(counts).sum(),
+                                                   min=1.0)
+        return ce + MOE_AUX_WEIGHT * aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -448,13 +556,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     in the context, so ``cache_len`` sets no size there; the hybrid
     window cache has ``min(local_window, cache_len)`` slots."""
     require_ported(cfg)
+    if cfg.encoder_only:
+        raise ValueError("encoder-only architectures have no decode step")
     dev = resolve_device(torch_device)
     dt = policy.compute_dtype
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         def kv():
             return zeros(batch, cache_len, cfg.n_kv_heads, cfg.d_head)
 
@@ -500,13 +610,16 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 def prefill(model: LM, tokens: torch.Tensor, cache_len: int):
     """Run the full prompt, build the decode cache. Returns
     (last-position logits (B, V), cache, lengths (B,) int32). The hybrid
-    window is ``min(local_window, cache_len)``."""
+    window is ``min(local_window, cache_len)``. A vlm prefills its token
+    stream alone (no image prefix), as the JAX package does."""
     cfg = model.cfg
     require_ported(cfg)
+    if cfg.encoder_only:
+        raise ValueError("encoder-only architectures have no decode step")
     b, s = tokens.shape[:2]
     if cfg.family == "moe":
         x, cache = _moe_prefill(model, tokens, cache_len)
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "vlm"):
         x = _embed(model, tokens)
         positions = _positions(b, s, x.device)
         kvs = []
@@ -538,10 +651,12 @@ def decode_step(model: LM, token: torch.Tensor, cache: Cache,
     cache); the cache's state and KV slabs are updated in place."""
     cfg = model.cfg
     require_ported(cfg)
+    if cfg.encoder_only:
+        raise ValueError("encoder-only architectures have no decode step")
     x = _embed(model, token)[:, None]                  # (B, 1, D)
     if cfg.family == "moe":
         x, new_cache = _moe_decode(model, x, cache, length)
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "vlm"):
         kvs = []
         for layer, kv in zip(model.layers, cache["kv"]):
             y, kv = attn_mod.gqa_decode(layer.attn, rms_norm(x, layer.ln1),

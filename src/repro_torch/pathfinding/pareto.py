@@ -590,11 +590,9 @@ def workloads_from_configs(names: Sequence[str],
                            tokens: int = 512) -> List[GEMMWorkload]:
     """MLP up-projection GEMMs (``tokens x d_model x d_ff``) for model
     configs from :mod:`repro_torch.configs`, the dominant GEMM shape of
-    each architecture, usable anywhere a Table IV workload is. The
-    architectures the port serves resolve (``ARCH_NAMES``: the dense and
-    moe families, ``recurrentgemma-9b``, ``rwkv6-3b``; a moe config's
-    ``d_ff`` is its per-expert width); the vlm and audio names raise the
-    registry's ``NotImplementedError``."""
+    each architecture, usable anywhere a Table IV workload is. Every name
+    of ``ARCH_NAMES`` resolves (a moe config's ``d_ff`` is its per-expert
+    width)."""
     from repro_torch.configs import get_config
 
     out = []

@@ -9,6 +9,7 @@ the same bits, not just the same distribution. This module reproduces
 * ``split(key, n)``   -> ``[n, 2]`` keys,
 * ``fold_in(key, d)`` -> ``[2]`` key,
 * ``uniform(key, shape)`` -> float64 in ``[0, 1)``,
+* ``randint(key, shape, minval, maxval)`` -> int32,
 
 exactly as ``jax.random`` computes them with
 ``jax_threefry_partitionable=False``.
@@ -73,13 +74,15 @@ def threefry_2x32(key: torch.Tensor, x0: torch.Tensor,
 
 
 def _hash_counts(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``threefry_2x32(key, iota(n))`` for even ``n``: the counter array
-    is cut into halves, hashed pairwise and the halves concatenated
-    (``[n]``, or ``[S, n]`` for a key batch)."""
-    half = n // 2
-    cnt = torch.arange(n, dtype=torch.int64, device=key.device)
+    """``threefry_2x32(key, iota(n))``: the counter array (an odd one
+    padded with a zero) is cut into halves, hashed pairwise and the
+    halves concatenated, the pad's word dropped (``[n]``, or ``[S, n]``
+    for a key batch)."""
+    half = (n + 1) // 2
+    cnt = torch.arange(2 * half, dtype=torch.int64, device=key.device)
+    cnt[n:] = 0
     y0, y1 = threefry_2x32(key, cnt[:half], cnt[half:])
-    return torch.cat([y0, y1], dim=-1)
+    return torch.cat([y0, y1], dim=-1)[..., :n]
 
 
 def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
@@ -129,6 +132,31 @@ def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     hi, lo = bits[..., :size], bits[..., size:]
     mant = (hi << 20) | (lo >> 12)
     return (mant.to(torch.float64) * 2.0 ** -52).reshape(shape)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)`` for
+    a ``[2]`` key and ``minval < maxval`` within int32.
+
+    jax splits the key in two and draws 32 bits a value from each (the
+    higher and the lower bits), then reduces the 64-bit number modulo
+    the span as ``(hi % span) * m + lo % span`` with ``m = (2**16 %
+    span)**2 % span``, every product and sum wrapping at 32 bits as its
+    uint32 arithmetic does (so ``m`` is 0 once the span exceeds
+    2**16)."""
+    if not minval < maxval:
+        raise ValueError(f"randint needs minval < maxval, got "
+                         f"[{minval}, {maxval})")
+    shape = tuple(int(s) for s in shape)
+    size = math.prod(shape)
+    k1, k2 = split(key)
+    hi, lo = _hash_counts(k1, size), _hash_counts(k2, size)
+    span = maxval - minval
+    mult = (2 ** 16 % span) ** 2 % span if span <= 2 ** 16 else 0
+    off = (((hi % span) * mult) & _M32) + lo % span
+    off = (off & _M32) % span
+    return (off + minval).to(torch.int32).reshape(shape)
 
 
 def uniform_cells(keys: torch.Tensor, rows: int, n: int) -> torch.Tensor:

@@ -199,8 +199,11 @@ def test_workloads_from_configs_match_reference(ref):
         "llama4-maverick-400b-a17b-mlp256"]
     # the moe configs' d_ff is the per-expert width, as in the reference
     assert [(wl.K, wl.N) for wl in got[6:]] == [(5120, 1536), (5120, 8192)]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        workloads_from_configs(["internvl2-26b"])
+    # the vlm and audio configs resolve too, to their own MLP GEMMs
+    assert [(wl.name, wl.M, wl.K, wl.N) for wl in workloads_from_configs(
+        ["internvl2-26b", "hubert-xlarge"], tokens=256)] == [
+        ("internvl2-26b-mlp256", 256, 6144, 16384),
+        ("hubert-xlarge-mlp256", 256, 1280, 5120)]
 
 
 # ---------------------------------------------------------------------------
