@@ -257,15 +257,65 @@ one JSON line that carries the card's name and power limit:
     the whole public call, the bound, the launch geometry and the
     ``ptxas`` registers and spills (a spill fails the phase).
 
+33. ``train_grad_kernels`` — the autograd nodes of ``rglru`` (backward:
+    the adjoint recurrence, the same kernel over the reversed sequence)
+    and ``wkv6`` (backward: the plain recurrence recomputed under
+    autograd) on the card against autograd through their plain versions
+    on the card, at (B, T, C) = (8, 256, 4096) and (B, T, H, D) = (8,
+    256, 40, 64), with and without a start state, under cotangents of
+    the sequence and of the final state: every gradient within 1e-5 of
+    its max |value|; forward and backward times, the memory the ``wkv6``
+    backward adds, and ``rglru``'s reverse launch alone in a CUDA graph
+    beside its bound.
+34. ``train_families_parity`` — the reduced ``deepseek-v2-236b``,
+    ``llama4-maverick-400b-a17b`` and ``rwkv6-3b`` widened to d_model
+    256, and ``recurrentgemma-9b`` widened to 256 at 5 layers (one
+    group and the 2-layer tail), every norm weight and bias drawn
+    non-default, on cuda against the CPU in float32 (batch 4 x 64): the
+    first step's gradients (remat on) within 1e-5 of each leaf's max,
+    one ``train_step``'s loss, grad norm and lr within 1e-5 relative;
+    routing by ``moe_parity``'s near-tie rule with at least one pair over
+    the experts' capacity; ``wkv6`` / ``rglru`` launched.
+35. ``train_ssm`` — ``rwkv6-3b`` at full width and depth in float32
+    (batch 8 x 256, 4 steps) through ``launch/train.py``'s ``train``,
+    its checkpoints kept in host memory by a stand-in for its
+    ``CheckpointManager`` (a 37.2 GB save to disk took 64 s and the
+    card's disk had 80.2 GB free): once with fault seed 11 at rate 0.7
+    and a checkpoint every 2 steps (steps 1, 2 and 3 fail once each;
+    step 1 restarts from the initial weights, steps 2 and 3 restore the
+    step-2 checkpoint, and step 3's restart replays step 2), once
+    fault-free, both under deterministic algorithms: a restart must
+    restore a checkpoint after step 0 and replay a step, the loss must
+    fall, the fault-free run's parameters, moments and step must equal
+    the faulty run's last checkpoint to the bit, and ``wkv6`` must
+    launch twice a layer an executed step (the forward and remat's
+    recompute); step p50 and p90, tokens/s, peak memory, the extended
+    ``lm_step_bound`` and one profiled step of a 2-layer cut.
+36. ``train_hybrid`` — ``recurrentgemma-9b`` at full width cut to 6
+    layers (two whole groups) the same way at a peak lr of 3e-4 (at 3e-3
+    it diverges, ROADMAP R12); ``rglru`` must launch three
+    times a recurrent layer an executed step (forward, recompute, the
+    backward's reverse launch); one profiled step of the 6 layers.
+37. ``train_moe`` — both moe configs at ``_widened`` width (d_model
+    256) the same way (batch 8 x 256, 30 steps, checkpoints every 10,
+    rate 0.12: step 19 fails once and replays from the step-10
+    checkpoint): the capacity drops are counted (at least one); no
+    hand-written kernel may launch; then the table of train-state sizes
+    against the card that sets this width and ``train_hybrid``'s depth.
+    A ``train_time`` line gives the seconds of phases 33-37.
+
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line (the
 ``prefix_select`` launches are those of the search, pareto, strategies,
-scenario, resume, service and scenario_llm phases) and, last,
+scenario, resume, service and scenario_llm phases; the ``wkv6`` and
+``rglru`` launches those of ``serve`` and ``train_ssm``, of
+``serve_hybrid`` and ``train_hybrid``) and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero without that last line. Without CUDA, or outside a
 checkout of the repository, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2436,31 +2486,77 @@ def _no_kernel_launched(phase: str, counters: dict) -> dict:
     return launches
 
 
-def lm_step_bound(cfg, model, batch: int, seq: int, train: bool) -> dict:
+def _attention_pairs(seq: int, causal: bool, window=None) -> float:
+    """Query-key pairs a head scores over ``seq`` positions: S^2, or
+    S (S + 1) / 2 when causal, each query seeing at most ``window``."""
+    if not causal:
+        return seq * seq
+    if window is None or window >= seq:
+        return seq * (seq + 1) / 2
+    return window * (window + 1) / 2 + (seq - window) * window
+
+
+def lm_step_bound(cfg, model, batch: int, seq: int, train: bool,
+                  routed_pairs=None) -> dict:
     """Least time of one forward (``train=False``) or train step over
     ``batch`` x ``seq`` tokens, the larger of its bytes over
     ``HBM_BYTES_PER_S`` and its operations over the card's rate for the
     weights' dtype (``FP32_OPS_PER_S``, TF32 off, or ``BF16_OPS_PER_S``).
     Operations: 2 a matrix weight a token forward and 4 more backward
-    (the layers' weights and the LM head; the embedding gather does
-    none), and the attention's two products (S (S + 1) / 2 positions a
-    head when causal, S^2 when not), again twice that backward. The
-    recomputation of remat is not work the step needs and is not
-    counted. Bytes: every weight read once (a train step also reads its
-    two moments and writes the three back) and the logits written once
-    (forward; a train step writes none)."""
+    (every weight of rank 2 or more but the embedding, the element-wise
+    ``mu``, ``u`` and ``conv_w``, and the experts; the LM head; the
+    embedding gather does none); the experts 2 x 3 D F a routed (token,
+    expert) pair (``routed_pairs`` of one forward summed over the MoE
+    layers, or every token's top-k when None); the attention's two
+    products over the pairs a head scores (causal, windowed or not), at
+    MLA's key and value widths; and the recurrences, a forward of
+    ``wkv6`` 5 D^2 + 5 D a row and step, of ``rglru`` 2 an element, all
+    again twice that backward. The recomputation of remat is not work
+    the step needs and is not counted. Bytes: every weight read once (a
+    train step also reads its two moments and writes the three back) and
+    the logits written once (forward; a train step writes none)."""
+    from repro_torch.models.attention import GQA, MLA
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.rglru import RGBlock
+    from repro_torch.models.rwkv6 import HEAD_DIM, TimeMix
+
     elt = model.embed.element_size()
     rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
         else FP32_OPS_PER_S
     head = model.embed if cfg.tie_embeddings else model.lm_head
-    mm = sum(p.numel() for p in model.layers.parameters() if p.dim() == 2) \
-        + head.numel()
+    # not matrix products a token: the embedding (a gather), the head
+    # (counted once), the experts (counted by routed pair below) and the
+    # element-wise TimeMix mixes and bonus and RG-LRU convolution
+    skip = {id(model.embed), id(head)}
+    for m in model.modules():
+        if isinstance(m, MoE):
+            skip.update(map(id, (m.w_gate, m.w_up, m.w_down)))
+        elif isinstance(m, TimeMix):
+            skip.update(map(id, (m.mu, m.u)))
+        elif isinstance(m, RGBlock):
+            skip.add(id(m.conv_w))
+    mm = head.numel() + sum(p.numel() for p in model.parameters()
+                            if p.dim() >= 2 and id(p) not in skip)
     n = sum(p.numel() for p in model.parameters())
     tokens = batch * seq
-    pairs = seq * (seq + 1) / 2 if not cfg.encoder_only else seq * seq
-    attn = cfg.n_layers * 2 * 2 * batch * cfg.n_heads * cfg.d_head * pairs
-    mult = 3 if train else 1
-    ops = mult * (2 * mm * tokens + attn)
+    ops = 2 * mm * tokens
+    if cfg.moe:
+        if routed_pairs is None:
+            routed_pairs = tokens * cfg.top_k * cfg.moe_layout()[0]
+        ops += 2 * 3 * cfg.d_model * cfg.moe_d_ff * routed_pairs
+    window = cfg.local_window if cfg.family == "hybrid" else None
+    pairs = _attention_pairs(seq, not cfg.encoder_only, window)
+    for m in model.modules():
+        if isinstance(m, GQA):
+            ops += 2 * 2 * batch * cfg.n_heads * cfg.d_head * pairs
+        elif isinstance(m, MLA):
+            ops += 2 * batch * cfg.n_heads * pairs * (
+                cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+        elif isinstance(m, TimeMix):
+            ops += tokens * m.u.shape[0] * (5 * HEAD_DIM ** 2 + 5 * HEAD_DIM)
+        elif isinstance(m, RGBlock):
+            ops += 2 * tokens * m.lam.numel()
+    ops *= 3 if train else 1
     nbytes = (6 * n * 4 if train else n * elt + tokens * cfg.vocab * elt)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / rate * 1e3
@@ -2854,6 +2950,555 @@ def phase_audio(card: str) -> dict:
                train_second_over_bound=steps[1]["ms"] / tr["bound_ms"],
                all_finite=True, launches=launches,
                peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# train_grad_kernels / train_families_parity / train_ssm / train_hybrid /
+# train_moe phases: training of the moe, ssm and hybrid families, with
+# gradients through the wkv6 and rglru kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = ("deepseek-v2-236b", "llama4-maverick-400b-a17b", "rwkv6-3b",
+                  "recurrentgemma-9b")
+# (B, T, C) of rglru and (B, T, H, D) of wkv6 at the train phases' shapes
+# (batch 8 x 256 of recurrentgemma-9b's 4096-wide RG-LRU and of rwkv6-3b's
+# 40 heads)
+GRAD_KERNEL_SHAPES = {"rglru": (8, 256, 4096), "wkv6": (8, 256, 40, 64)}
+# rwkv6-3b and recurrentgemma-9b at full width, the reference CLI's batch,
+# 4 steps with a checkpoint every 2: fault seed 11 draws 0.898, 0.249,
+# 0.172 and 0.663 for steps 0-3 (0-based), so rate 0.7 fails steps 1, 2
+# and 3 once each. Step 1 restarts from the initial weights, step 2 from
+# the step-2 checkpoint just taken, and step 3 from that checkpoint too,
+# which replays step 2. The checkpoints live in host memory
+# (_HostCheckpoints)
+RECURRENT_RUN = dict(batch=8, seq=256, steps=4, ckpt_every=2, fail_rate=0.7,
+                     lr=3e-3)
+# recurrentgemma-9b at full width diverges at train's peak lr of 3e-3: its
+# loss went 9.85 -> 19.75 at step 5 and the gradients turned NaN where an
+# RG-LRU decay rounded to 1 (ROADMAP, R12), alike through the kernel and
+# its plain version; AdamW's default peak of 3e-4 keeps it stable. At that
+# lr it takes 8 steps, with a checkpoint every 4 and rate 0.5 (steps 1, 2
+# and 6 fail; step 6 restores the step-4 checkpoint and replays steps 4
+# and 5)
+HYBRID_RUN = dict(RECURRENT_RUN, steps=8, ckpt_every=4, fail_rate=0.5,
+                  lr=3e-4)
+# recurrentgemma-9b cut 38 -> 6 layers: two whole (RG-LRU, RG-LRU, local
+# attention) groups, a 65.75 GB peak on the card; a third group (9 layers)
+# adds 0.59 billion parameters, 11.8 GB of train state, past 75 GB
+HYBRID_TRAIN_LAYERS = 6
+# train_ssm profiles a step of rwkv6-3b cut to this depth at full width:
+# the profiler took 210 s to read the 312,203 kernels of a 32-layer step
+# (scripts/train_state_probe.py)
+SSM_PROFILE_LAYERS = 2
+# the train state of each config and depth cut, against the card (the
+# reason for train_hybrid's depth and train_moe's width)
+TRAIN_FIT = (("rwkv6-3b", None), ("recurrentgemma-9b", None),
+             ("recurrentgemma-9b", 6), ("recurrentgemma-9b", 8),
+             ("deepseek-v2-236b", 2), ("llama4-maverick-400b-a17b", 2))
+TRAIN_STATE_BYTES = 20     # a fp32 parameter, its gradient, the clipped
+#                           gradient and two fp32 moments
+
+
+def _train_cfg(arch: str):
+    """The train_families_parity config of ``arch``: reduced and widened
+    to d_model 256 in heads of 64; the hybrid at 5 layers (one group and
+    the 2-layer tail) with a 256-wide RG-LRU."""
+    if arch == "recurrentgemma-9b":
+        from repro_torch.configs import get_config
+
+        return dataclasses.replace(get_config(arch).reduced(), d_model=256,
+                                   d_head=64, rg_lru_width=256, n_layers=5)
+    return _widened(arch)
+
+
+def _drops(calls, cfg) -> int:
+    """Pairs over their expert's capacity in the recorded routing calls
+    of one device (``_Routes``), as ``moe_forward`` sizes it in
+    training."""
+    total = 0
+    for _, idx in calls:
+        t, k = idx.shape
+        cap = int(t * k / cfg.n_experts * cfg.capacity_factor) + 1
+        counts = torch.bincount(idx.reshape(-1).cpu(),
+                                minlength=cfg.n_experts)
+        total += int((counts - cap).clamp(min=0).sum())
+    return total
+
+
+def _grad_err(got, want) -> float:
+    return max(_max_rel(g, w) for g, w in zip(got, want))
+
+
+def phase_train_grad_kernels(card: str) -> dict:
+    """The two recurrences' autograd nodes on the card against autograd
+    through their plain versions on the card, at the train phases'
+    shapes, with and without a start state, under random cotangents of
+    the sequence and of the final state: every gradient within
+    ``GRAD_TOL`` of its max |value|; forward and backward times (CUDA
+    events, eager), the peak memory the backward adds, and for
+    ``rglru`` the backward's reverse launch alone in a CUDA graph with
+    its bound."""
+    from repro_torch.kernels.rglru import ops as rops
+    from repro_torch.kernels.rglru import rglru_plain
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    out = {}
+    B, T, C = GRAD_KERNEL_SHAPES["rglru"]
+    for with_state in (False, True):
+        a, b, h0 = rglru_inputs(B, T, C, with_state, seed=T + 7)
+        args = [x.requires_grad_() for x in (a, b, h0) if x is not None]
+        g, g_fin = torch.randn_like(a), torch.randn_like(a[:, 0])
+        before = rops.launch_count()
+        got = torch.autograd.grad(rops.rglru(*args), args, (g, g_fin))
+        launches = rops.launch_count() - before
+        want = torch.autograd.grad(rglru_plain(*args), args, (g, g_fin))
+        err = _grad_err(got, want)
+        if launches != 2 or err > GRAD_TOL:
+            raise AssertionError(f"train_grad_kernels rglru h0={with_state}: "
+                                 f"{launches} launches, grad err {err}")
+        fwd_ms = cuda_ms(lambda: rops.rglru(*args), iters=20)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(
+            rops.rglru(*args), args, (g, g_fin)), iters=20)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            rglru_plain(*args), args, (g, g_fin)), iters=3, warmup=1)
+        rec = dict(kernel="rglru", B=B, T=T, C=C, h0=with_state,
+                   launches=launches, grad_max_rel_err=err, tol=GRAD_TOL,
+                   forward_ms=fwd_ms, backward_ms=both_ms - fwd_ms,
+                   plain_forward_backward_ms=plain_ms)
+        if with_state:                   # the reverse launch alone
+            lib = rops.build()
+            a_rev = torch.cat([torch.ones_like(a[:, :1]),
+                               a.detach()[:, 1:].flip(1)], dim=1)
+            g_rev, lam = g.flip(1), torch.empty_like(a)
+            lam_t = torch.empty_like(g_fin)
+
+            def reverse():
+                stream = torch.cuda.current_stream().cuda_stream
+                rc = lib.rglru_launch(a_rev.data_ptr(), g_rev.data_ptr(),
+                                      g_fin.data_ptr(), lam.data_ptr(),
+                                      lam_t.data_ptr(), B, T, C, stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+            rev = rglru_bound(a_rev, g_fin)
+            rec.update(reverse_ms=graph_ms(reverse),
+                       reverse_bound_ms=rev["bound_ms"],
+                       reverse_bound_by=rev["bound_by"])
+        out[f"rglru_h0={with_state}"] = rec
+    B, T, H, D = GRAD_KERNEL_SHAPES["wkv6"]
+    for with_state in (False, True):
+        rows = wkv6_inputs(B * H, T, H, with_state, seed=T + 8)
+        r, k, v, w = (x.reshape(B, H, T, D).transpose(1, 2).contiguous()
+                      for x in rows[:4])
+        u, s0 = rows[4], rows[5]
+        s0 = None if s0 is None else s0.reshape(B, H, D, D)
+        args = [x.requires_grad_() for x in (r, k, v, w, u, s0)
+                if x is not None]
+        gy = torch.randn_like(r)
+        gs = torch.randn((B, H, D, D), device=DEV)
+        before = wops.launch_count()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = torch.autograd.grad(wops.wkv6(*args), args, (gy, gs))
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        launches = wops.launch_count() - before
+        want = torch.autograd.grad(wkv6_plain(*args), args, (gy, gs))
+        err = _grad_err(got, want)
+        if launches != 1 or err > GRAD_TOL:
+            raise AssertionError(f"train_grad_kernels wkv6 s0={with_state}: "
+                                 f"{launches} launches, grad err {err}")
+        fwd_ms = cuda_ms(lambda: wops.wkv6(*args), iters=20)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(
+            wops.wkv6(*args), args, (gy, gs)), iters=3, warmup=1)
+        out[f"wkv6_s0={with_state}"] = dict(
+            kernel="wkv6", B=B, T=T, H=H, D=D, s0=with_state,
+            launches=launches, grad_max_rel_err=err, tol=GRAD_TOL,
+            forward_ms=fwd_ms, backward_ms=both_ms - fwd_ms,
+            backward_peak_extra_bytes=extra)
+    rec = dict(phase="train_grad_kernels", cases=out, card=card)
+    emit(rec)
+    return rec
+
+
+def phase_train_families_parity(card: str) -> dict:
+    """The four families (``_train_cfg``), every norm weight and bias
+    drawn non-default, on cuda against the same weights and batch (4 x
+    64) on the CPU in float32: the first step's gradients (remat on)
+    within ``GRAD_TOL`` of each leaf's max, then one ``train_step``'s
+    loss, grad norm and lr within ``TRAIN_TOL`` relative; MoE routing
+    by ``moe_parity``'s near-tie rule, with at least one pair over the
+    capacity; ``wkv6`` / ``rglru`` launched on the card."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.transformer import init_model, loss_fn
+    from repro_torch.optim import adamw
+
+    opt_cfg = adamw.AdamWConfig(lr_peak=3e-3, warmup_steps=2, total_steps=5)
+    counters = _launch_counters()
+    out = {}
+    for i, arch in enumerate(TRAIN_FAMILIES):
+        cfg, seed = _train_cfg(arch), 51 + i
+        models = {"cpu": init_model(cfg, seed=seed, torch_device="cpu",
+                                    trainable=True)}
+        _nondefault_norms_and_biases(models["cpu"], seed)
+        models[DEV] = init_model(cfg, seed=seed, torch_device=DEV,
+                                 trainable=True)
+        models[DEV].load_state_dict(models["cpu"].state_dict())
+        for fn in counters.values():
+            fn.launches = 0
+        grads, metrics = {}, {}
+        with _Routes() as routes:
+            for d, m in models.items():
+                batch = SyntheticTokenPipeline(DataConfig(cfg.vocab, 64, 4),
+                                               torch_device=d).batch(0)
+                params = dict(m.named_parameters())
+                loss = loss_fn(m, batch, remat=True)
+                grads[d] = dict(zip(params, torch.autograd.grad(
+                    loss, list(params.values()))))
+                _, metrics[d] = train_step(
+                    m, adamw.init(params, opt_cfg), batch, opt_cfg)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        grad_err = max(_max_rel(grads[DEV][k], g)
+                       for k, g in grads["cpu"].items())
+        errs = {k: abs(float(metrics[DEV][k]) - float(metrics["cpu"][k]))
+                / abs(float(metrics["cpu"][k])) for k in
+                ("loss", "grad_norm", "lr")}
+        if grad_err > GRAD_TOL or max(errs.values()) > TRAIN_TOL:
+            raise AssertionError(f"train_families_parity {arch}: grads "
+                                 f"{grad_err}, step {errs}")
+        rec = dict(family=cfg.family, d_model=cfg.d_model,
+                   layers=cfg.n_layers, loss=float(metrics["cpu"]["loss"]),
+                   grad_norm=float(metrics["cpu"]["grad_norm"]),
+                   first_grads_max_rel_err=grad_err,
+                   **{f"{k}_rel_err": v for k, v in errs.items()},
+                   launches={k: v for k, v in launches.items() if v})
+        if cfg.moe:
+            cpu_calls = [c for c in routes.calls if c[0].device.type == "cpu"]
+            rec.update(_same_routes(routes.calls, cfg.top_k),
+                       capacity_drops=_drops(cpu_calls, cfg))
+            if rec["capacity_drops"] < 1:
+                raise AssertionError(f"train_families_parity {arch}: no "
+                                     "pair over capacity")
+        else:
+            kernel = "wkv6" if cfg.family == "ssm" else "rglru"
+            if launches[kernel] < 1:
+                raise AssertionError(f"train_families_parity {arch}: "
+                                     f"{kernel} never launched")
+        out[arch] = rec
+    rec = dict(phase="train_families_parity", families=out, batch=4, seq=64,
+               grad_tol=GRAD_TOL, tol=TRAIN_TOL, card=card)
+    emit(rec)
+    return rec
+
+
+class _HostCheckpoints:
+    """The part of ``CheckpointManager`` that ``launch/train.py``'s
+    ``train`` calls (``latest``, ``save``, ``restore``), keeping the
+    newest checkpoint tree (the JAX package's keys, as numpy) in host
+    memory instead of on disk: rwkv6-3b's train state is 37.2 GB on
+    disk, a save of it took 64 s and a restore 106 s on the card's
+    machine, whose disk had 80.2 GB free (scripts/train_state_probe.py).
+    It keeps a tree only when ``hold``."""
+
+    directory = "<host memory>"
+
+    def __init__(self, hold: bool):
+        self.hold, self.step, self.tree = hold, None, None
+
+    def latest(self):
+        return None if self.tree is None else f"step {self.step}"
+
+    def save(self, step: int, tree: dict) -> str:
+        self.step, self.tree = step, tree
+        return self.latest()
+
+    def restore(self, like):
+        if self.tree is None:
+            raise FileNotFoundError("no checkpoint in host memory")
+        return self.step, self.tree
+
+
+@contextlib.contextmanager
+def _host_checkpoints(hold: bool):
+    """One run of ``train`` with its checkpoints in a
+    ``_HostCheckpoints``: its ``CheckpointManager`` is the store, its
+    ``save_state`` frees the store's last tree before it builds the next
+    (host memory holds one train state at a time) and builds none when
+    the store does not hold, and its ``restore_state`` records the step
+    it restores. Yields (the store, the restored steps)."""
+    from repro_torch.launch import train as train_mod
+
+    store, restored = _HostCheckpoints(hold), []
+    prior = (train_mod.CheckpointManager, train_mod.save_state,
+             train_mod.restore_state)
+
+    def save_state(mgr, step, model, opt_state):
+        mgr.tree = None
+        if mgr.hold:
+            return prior[1](mgr, step, model, opt_state)
+
+    def restore_state(mgr, model):
+        step, opt_state = prior[2](mgr, model)
+        restored.append(step)
+        return step, opt_state
+
+    train_mod.CheckpointManager = lambda directory, keep: store
+    train_mod.save_state, train_mod.restore_state = save_state, restore_state
+    try:
+        yield store, restored
+    finally:
+        (train_mod.CheckpointManager, train_mod.save_state,
+         train_mod.restore_state) = prior
+
+
+def _same_as_checkpoint(phase: str, tree: dict, model, opt_state) -> int:
+    """``model``'s parameters and ``opt_state``'s moments and step equal
+    to ``tree``'s (a ``_HostCheckpoints`` tree, the layers stacked as
+    ``lm_params_to_reference`` stacks them), each leaf copied to the
+    card and compared there. Returns the bytes compared."""
+    if int(opt_state.step) != int(tree["opt_step"]):
+        raise AssertionError(f"{phase}: step {int(opt_state.step)} against "
+                             f"the checkpoint's {int(tree['opt_step'])}")
+    nbytes = 0
+    for key, got in (("params", dict(model.named_parameters())),
+                     ("opt_mu", opt_state.mu), ("opt_nu", opt_state.nu)):
+        for name, x in got.items():
+            first, *path = name.split(".")
+            layer = int(path.pop(0)) if path and path[0].isdigit() else None
+            want = tree[key][first]
+            for part in path:
+                want = want[part]
+            want = torch.from_numpy(want if layer is None else want[layer])
+            if not torch.equal(x.detach(), want.to(x.device)):
+                raise AssertionError(f"{phase}: {key} {name} differs from "
+                                     "the faulty run's")
+            nbytes += x.numel() * x.element_size()
+    held = sum(x.nbytes for x in _leaves(tree)) - tree["opt_step"].nbytes
+    if nbytes != held:
+        raise AssertionError(f"{phase}: the checkpoint holds other leaves")
+    return nbytes
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _train_twice(card: str, phase: str, cfg, run: dict, kernel=None,
+                 per_step: int = 0, profile_cfg=None) -> dict:
+    """``cfg`` trained twice by ``repro_torch.launch.train.train`` under
+    ``torch.use_deterministic_algorithms(True)``, its checkpoints in host
+    memory (``_host_checkpoints``): once with fault seed 11 at
+    ``run["fail_rate"]`` and a checkpoint every ``run["ckpt_every"]``
+    steps, once fault-free; the faulty run's model is freed before the
+    clean one starts. A restart must restore a checkpoint taken after
+    step 0 and replay at least one step; the clean run's parameters,
+    moments and step must equal the faulty run's last checkpoint to the
+    bit, and the loss must fall. ``kernel`` must launch ``per_step``
+    times an executed step (no hand-written kernel may launch when
+    None). A moe config's capacity drops are counted over the clean
+    run's forwards. Then step times against ``lm_step_bound``, peak
+    memory and one profiled step, of ``profile_cfg`` when given (a depth
+    cut)."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw
+
+    lr = run.get("lr", 3e-3)
+    counters = _launch_counters()
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"   # read at each call
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        for tag, rate, every in (("faulty", run["fail_rate"],
+                                  run["ckpt_every"]),
+                                 ("clean", 0.0, run["steps"])):
+            for fn in counters.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            with _Routes() as routes, \
+                    _host_checkpoints(hold=tag == "faulty") as (store, back):
+                res = train_mod.train(
+                    cfg, steps=run["steps"], batch=run["batch"],
+                    seq=run["seq"], lr=lr, ckpt_dir=store.directory,
+                    ckpt_every=every, fail_rate=rate, torch_device=DEV,
+                    log=lambda line: None)
+                torch.cuda.synchronize()
+            res.update(run_s=time.perf_counter() - t, restored=back,
+                       checkpoint=store.tree, routes=routes.calls,
+                       launches={n: fn.launches
+                                 for n, fn in counters.items()})
+            if tag == "faulty":
+                del res["model"], res["opt_state"], res["routes"]
+                gc.collect()
+                torch.cuda.empty_cache()
+            out[tag] = res
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+    faulty, clean = out["faulty"], out["clean"]
+    stats = faulty["stats"]
+    if not (faulty["restored"] and min(faulty["restored"]) > 0
+            and stats.replayed_steps > 0):
+        raise AssertionError(f"{phase}: no restart restored a checkpoint and "
+                             f"replayed a step (restored "
+                             f"{faulty['restored']}, replayed "
+                             f"{stats.replayed_steps})")
+    losses = faulty["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{phase}: the loss did not fall "
+                             f"({losses[0]} -> {losses[-1]})")
+    model = clean["model"]
+    t = time.perf_counter()
+    compared = _same_as_checkpoint(phase, faulty.pop("checkpoint"), model,
+                                   clean["opt_state"])
+    compare_s = time.perf_counter() - t
+    launches = {}
+    for tag, res in out.items():
+        executed = len(res["losses"])
+        launches[tag] = {n: c for n, c in res["launches"].items() if c}
+        got = res["launches"][kernel] if kernel else sum(
+            res["launches"].values())
+        if got != executed * per_step or (kernel and per_step < 1):
+            raise AssertionError(f"{phase} {tag}: {kernel} launched {got} "
+                                 f"times in {executed} steps, expected "
+                                 f"{per_step} a step")
+    steady = clean["step_s"][2:]
+    p50_ms = float(np.median(steady)) * 1e3
+    tokens = run["batch"] * run["seq"]
+    rec = dict(phase=phase, arch=cfg.name, layers=cfg.n_layers,
+               dtype="float32", params=sum(p.numel() for p in
+                                           model.parameters()),
+               batch=run["batch"], seq=run["seq"], steps=run["steps"],
+               ckpt_every=run["ckpt_every"], lr_peak=lr,
+               checkpoints="host memory", fail_rate=run["fail_rate"],
+               fault_seed=train_mod.FAULT_SEED, loss_first=losses[0],
+               loss_last=losses[-1], restarts=stats.restarts,
+               restored_steps=faulty["restored"],
+               replayed_steps=stats.replayed_steps,
+               executed_steps=len(losses), equal_to_fault_free=True,
+               bytes_compared=compared, compare_s=compare_s,
+               deterministic=True, faulty_run_s=faulty["run_s"],
+               clean_run_s=clean["run_s"], step_p50_ms=p50_ms,
+               step_p90_ms=float(np.percentile(steady, 90)) * 1e3,
+               first_step_ms=clean["step_s"][0] * 1e3,
+               tokens_per_s=tokens / p50_ms * 1e3, peak_mem_bytes=peak,
+               launches=launches, kernel_launches_per_step=per_step,
+               card=card)
+    routed = None
+    if cfg.moe:
+        # each step routes a MoE layer twice: its forward and remat's
+        # recompute, which drops the same pairs
+        drops = _drops(clean["routes"], cfg) // 2
+        routed = (tokens * cfg.top_k * cfg.moe_layout()[0]
+                  - drops / run["steps"])
+        rec.update(capacity_drops=drops, routed_pairs_per_step=routed)
+        if drops < 1:
+            raise AssertionError(f"{phase} {cfg.name}: no pair over "
+                                 "capacity")
+    bound = lm_step_bound(cfg, model, run["batch"], run["seq"], train=True,
+                          routed_pairs=routed)
+    rec.update(bound, bound_share=bound["bound_ms"] / p50_ms)
+    batch = SyntheticTokenPipeline(DataConfig(
+        cfg.vocab, run["seq"], run["batch"]), torch_device=DEV).batch(0)
+    opt_cfg = adamw.AdamWConfig(lr_peak=lr, warmup_steps=10,
+                                total_steps=run["steps"])
+    opt_state = clean["opt_state"]
+    if profile_cfg is not None:
+        del model, clean, out, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = init_model(profile_cfg, seed=0, torch_device=DEV,
+                           trainable=True)
+        opt_state = adamw.init(dict(model.named_parameters()), opt_cfg)
+        rec["profile_layers"] = profile_cfg.n_layers
+    rec["step_profile"] = _profiled(
+        lambda: train_step(model, opt_state, batch, opt_cfg))
+    emit(rec)
+    return rec
+
+
+def phase_train_ssm(card: str) -> dict:
+    """``rwkv6-3b`` at full width and depth in float32 by
+    ``_train_twice`` (``RECURRENT_RUN``); ``wkv6`` launches twice a layer a step (the forward and remat's
+    recompute; the backward is the plain recompute, no launch). The
+    profiled step is of a ``SSM_PROFILE_LAYERS``-layer cut at full
+    width."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("rwkv6-3b")
+    return _train_twice(
+        card, "train_ssm", cfg, RECURRENT_RUN, "wkv6", 2 * cfg.n_layers,
+        profile_cfg=dataclasses.replace(cfg, n_layers=SSM_PROFILE_LAYERS))
+
+
+def phase_train_hybrid(card: str) -> dict:
+    """``recurrentgemma-9b`` at full width cut to ``HYBRID_TRAIN_LAYERS``
+    (whole groups) in float32 by ``_train_twice`` (``HYBRID_RUN``: peak
+    lr 3e-4); ``rglru`` launches three times a recurrent layer a step (the
+    forward, remat's recompute and the backward's reverse launch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import hybrid_layout
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              n_layers=HYBRID_TRAIN_LAYERS)
+    n_groups, tail = hybrid_layout(cfg)
+    return _train_twice(card, "train_hybrid", cfg, HYBRID_RUN, "rglru",
+                        3 * (2 * n_groups + tail))
+
+
+def _fit_table() -> list:
+    """``TRAIN_FIT``'s rows: parameters, the train state at
+    ``TRAIN_STATE_BYTES`` a parameter, the largest leaf in fp32, and
+    whether the state and five fp32 temporaries of that leaf fit the
+    card's memory."""
+    from repro_torch.configs import get_config
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows = []
+    for arch, depth in TRAIN_FIT:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        n = cfg.param_count()
+        leaf = 4 * max(cfg.vocab * cfg.d_model,
+                       cfg.n_experts * cfg.d_model * cfg.moe_d_ff)
+        state = TRAIN_STATE_BYTES * n
+        rows.append(dict(arch=arch, layers=cfg.n_layers, params=n,
+                         train_state_bytes=state, largest_leaf_bytes=leaf,
+                         fits=state + 5 * leaf < total))
+    return rows
+
+
+def phase_train_moe(card: str) -> dict:
+    """The two moe configs at ``_widened`` width (d_model 256; the fit
+    table says why no published width trains on one card) by
+    ``_train_twice`` with ``TRAIN_RUN`` (30 steps, checkpoints every 10,
+    step 19 fails once), the capacity drops counted. No hand-written
+    kernel may launch."""
+    out = {arch: _train_twice(card, "train_moe", _widened(arch), TRAIN_RUN)
+           for arch in MOE_PARITY}
+    rec = dict(phase="train_moe", configs={a: dict(
+        step_p50_ms=r["step_p50_ms"], loss_first=r["loss_first"],
+        loss_last=r["loss_last"], capacity_drops=r["capacity_drops"])
+        for a, r in out.items()}, fit=_fit_table(), card=card)
     emit(rec)
     return rec
 
@@ -3283,6 +3928,22 @@ def main() -> int:
     phase_audio(card)
     gc.collect()                          # free hubert-xlarge's train state
     torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    phase_train_grad_kernels(card)
+    phase_train_families_parity(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tssm = phase_train_ssm(card)
+    gc.collect()                          # free rwkv6-3b's train state
+    torch.cuda.empty_cache()
+    thyb = phase_train_hybrid(card)
+    gc.collect()                          # free recurrentgemma's train state
+    torch.cuda.empty_cache()
+    phase_train_moe(card)
+    emit(dict(phase="train_time", seconds=time.perf_counter() - t_train,
+              card=card))
+    gc.collect()
+    torch.cuda.empty_cache()
     gmain = phase_gemm(card)
     smain = phase_prefix_segment(card)
 
@@ -3301,14 +3962,16 @@ def main() -> int:
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:28",
-        "launches": serve["launches"]["wkv6"],
+        "launches": serve["launches"]["wkv6"] + sum(
+            run.get("wkv6", 0) for run in tssm["launches"].values()),
         "max_abs_err": wmain["max_abs_err"], "ms": wmain["ms"],
         "plain_ms": wmain["plain_ms"], "bound_ms": wmain["bound_ms"],
         "bound_by": wmain["bound_by"], "library_ms": None}, {
         "name": "rglru", "route": "cuda",
         "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
         "replaces": "src/repro/kernels/rglru/kernel.py:23",
-        "launches": serve_h["launches"]["rglru"],
+        "launches": serve_h["launches"]["rglru"] + sum(
+            run.get("rglru", 0) for run in thyb["launches"].values()),
         "max_abs_err": rmain["max_abs_err"], "ms": rmain["ms"],
         "plain_ms": rmain["plain_ms"], "bound_ms": rmain["bound_ms"],
         "bound_by": rmain["bound_by"], "library_ms": None}, {

@@ -43,5 +43,9 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(_MODULES[name]).CONFIG
 
 
+def all_configs() -> Dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_NAMES}
+
+
 __all__ = ["ModelConfig", "ShapeCell", "SHAPES", "ARCH_NAMES",
-           "get_config", "get_shape", "applicable"]
+           "get_config", "all_configs", "get_shape", "applicable"]

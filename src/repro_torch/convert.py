@@ -82,10 +82,18 @@ def archive_from_arrays(arrays: Mapping[str, np.ndarray],
         {"enc": arrays["enc"], "vec": arrays["vec"]})
 
 
+def _tensor(arr: np.ndarray, copy: bool) -> torch.Tensor:
+    """``arr`` as a tensor: a copy, or a view of its memory when ``copy``
+    is false and ``arr`` is writable."""
+    if copy or not arr.flags.writeable:
+        return torch.tensor(arr)
+    return torch.from_numpy(arr)
+
+
 def _layer_slices(tree: Mapping[str, Any], n_layers: int, prefix: str,
-                  out: Dict[str, torch.Tensor]) -> None:
+                  out: Dict[str, torch.Tensor], copy: bool = True) -> None:
     """Split each leaf of a layer-stacked subtree into ``n_layers``
-    entries ``{prefix}{l}.{path}``."""
+    entries ``{prefix}{l}.{path}`` (views of it unless ``copy``)."""
     def walk(node, path):
         if isinstance(node, Mapping):
             for k, v in node.items():
@@ -96,12 +104,12 @@ def _layer_slices(tree: Mapping[str, Any], n_layers: int, prefix: str,
             raise ValueError(f"{path}: expected a leading axis of "
                              f"{n_layers} layers, got shape {arr.shape}")
         for i in range(n_layers):
-            out[f"{prefix}{i}.{path}"] = torch.tensor(arr[i])
+            out[f"{prefix}{i}.{path}"] = _tensor(arr[i], copy)
     walk(tree, "")
 
 
-def lm_params_from_reference(tree: Mapping[str, Any],
-                             cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def lm_params_from_reference(tree: Mapping[str, Any], cfg: ModelConfig,
+                             copy: bool = True) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of :class:`repro_torch.models.transformer.LM`
     from the reference's ``init_model`` pytree as numpy arrays, unstacked
     per layer: ``layers`` (dense and ssm, stacked on L); ``groups`` of
@@ -110,26 +118,79 @@ def lm_params_from_reference(tree: Mapping[str, Any],
     ``tail`` (hybrid, stacked on the group and tail counts); vlm and
     audio have the dense ``layers``. Load it with
     ``model.load_state_dict(...)``, which rejects missing or extra
-    names (a tied model has no ``lm_head``)."""
+    names (a tied model has no ``lm_head``). With ``copy=False`` each
+    tensor is a view of its (writable) array, for a caller that copies
+    it at once."""
     require_ported(cfg)
-    out = {k: torch.tensor(np.asarray(tree[k]))
+    out = {k: _tensor(np.asarray(tree[k]), copy)
            for k in ("embed", "final_norm", "lm_head") if k in tree}
     if cfg.family in ("dense", "vlm", "audio", "ssm"):
-        _layer_slices(tree["layers"], cfg.n_layers, "layers.", out)
+        _layer_slices(tree["layers"], cfg.n_layers, "layers.", out, copy)
         return out
     if cfg.family == "moe":
         n_moe, n_dense = cfg.moe_layout()
         if cfg.moe_every > 1:
-            _layer_slices(tree["groups"], n_moe, "groups.", out)
+            _layer_slices(tree["groups"], n_moe, "groups.", out, copy)
             return out
         for key, n in (("dense_layers", n_dense), ("moe_layers", n_moe)):
             if n:
-                _layer_slices(tree[key], n, f"{key}.", out)
+                _layer_slices(tree[key], n, f"{key}.", out, copy)
         return out
     n_groups, tail = hybrid_layout(cfg)
-    _layer_slices(tree["groups"], n_groups, "groups.", out)
+    _layer_slices(tree["groups"], n_groups, "groups.", out, copy)
     if tail:
-        _layer_slices(tree["tail"], tail, "tail.", out)
+        _layer_slices(tree["tail"], tail, "tail.", out, copy)
+    return out
+
+
+def _reference_tree(params: Mapping[str, torch.Tensor], leaf, stacked
+                    ) -> Dict[str, Any]:
+    """The reference's tree over ``params`` (named as ``LM``'s
+    ``named_parameters()``): each per-layer list's entries ``{list}.{l}.
+    {path}`` go, in layer order, to ``stacked`` as ``{list}/{path}``, the
+    other tensors to ``leaf``."""
+    tree: Dict[str, Any] = {}
+    stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for name, t in params.items():
+        first, *rest = name.split(".")
+        if rest and rest[0].isdigit():
+            stacks.setdefault((first, *rest[1:]), {})[int(rest[0])] = t
+        else:
+            tree[name] = leaf(t)
+    for (first, *path), rows in stacks.items():
+        node = tree.setdefault(first, {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = stacked([rows[i] for i in range(len(rows))])
+    return tree
+
+
+def _host_dtype(t: torch.Tensor) -> np.dtype:
+    """numpy's dtype for ``t`` on the host: float32 for bfloat16."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.float32)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` copied once, straight from its device, into a new numpy
+    array."""
+    out = np.empty(tuple(t.shape), dtype=_host_dtype(t))
+    torch.from_numpy(out).copy_(t.detach())
+    return out
+
+
+def _stack_to_host(rows) -> np.ndarray:
+    """``rows`` (tensors of one shape) stacked into a new numpy array,
+    each copied once, straight from its device into its slice."""
+    shape = tuple(rows[0].shape)
+    out = np.empty((len(rows),) + shape, dtype=_host_dtype(rows[0]))
+    dst = torch.from_numpy(out)
+    for i, t in enumerate(rows):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"layer {i} has shape {tuple(t.shape)}, "
+                             f"layer 0 {shape}")
+        dst[i].copy_(t.detach())
     return out
 
 
@@ -140,24 +201,25 @@ def lm_params_to_reference(params: Mapping[str, torch.Tensor]
     (or ``state_dict()``): each per-layer list's entries ``{list}.{l}.
     {path}`` stacked on a leading axis into ``{list}/{path}``, the other
     leaves as they are. The inverse of :func:`lm_params_from_reference`.
-    bfloat16 leaves come out as float32 (exactly; numpy has no bfloat16),
-    and a copy back into the model rounds them to what they were."""
-    tree: Dict[str, Any] = {}
-    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
-    for name, t in params.items():
-        t = t.detach()
-        arr = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-        first, *rest = name.split(".")
-        if rest and rest[0].isdigit():
-            stacks.setdefault((first, *rest[1:]), {})[int(rest[0])] = arr
-        else:
-            tree[name] = arr
-    for (first, *path), rows in stacks.items():
-        node = tree.setdefault(first, {})
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = np.stack([rows[i] for i in range(len(rows))])
-    return tree
+    Every array is new (none shares memory with a tensor), each tensor
+    copied once into it. bfloat16 leaves come out as float32 (exactly;
+    numpy has no bfloat16), and a copy back into the model rounds them
+    to what they were."""
+    return _reference_tree(params, _to_host, _stack_to_host)
+
+
+def lm_reference_shapes(params: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, Any]:
+    """The tree of :func:`lm_params_to_reference` with each array's shape
+    and no data: a leaf is a tensor on the ``meta`` device. A template for
+    ``CheckpointManager.restore``, which reads only the shapes."""
+    def shape(rows):
+        return torch.empty((len(rows),) + tuple(rows[0].shape),
+                           device="meta")
+
+    return _reference_tree(params, lambda t: torch.empty(t.shape,
+                                                         device="meta"),
+                           shape)
 
 
 def adamw_state_from_reference(step, mu: Mapping[str, Any],
@@ -167,9 +229,9 @@ def adamw_state_from_reference(step, mu: Mapping[str, Any],
     reference's ``AdamWState`` fields as numpy (``step`` a 0-d int32,
     ``mu`` and ``nu`` parameter-shaped trees), its moments named as the
     model's parameters, on ``device``."""
-    def moments(tree):
-        return {k: v.to(device)
-                for k, v in lm_params_from_reference(tree, cfg).items()}
+    def moments(tree):              # one copy of each, onto ``device``
+        return {k: v.to(device, copy=True) for k, v in
+                lm_params_from_reference(tree, cfg, copy=False).items()}
 
     return AdamWState(
         torch.as_tensor(np.asarray(step, dtype=np.int32), device=device),

@@ -16,14 +16,14 @@ from repro_torch.kernels.prefix_gather import (
     prefix_select,
     prefix_select_plain,
 )
-from repro_torch.kernels.rglru import rglru, rglru_plain
+from repro_torch.kernels.rglru import rglru, rglru_assoc_plain, rglru_plain
 from repro_torch.kernels.systolic_gemm import gemm_plain, systolic_gemm
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
 __all__ = [
     "systolic_gemm", "gemm_plain",
     "wkv6", "wkv6_plain",
-    "rglru", "rglru_plain",
+    "rglru", "rglru_plain", "rglru_assoc_plain",
     "prefix_segment_gather", "prefix_segment_plain",
     "prefix_select", "prefix_select_plain",
 ]

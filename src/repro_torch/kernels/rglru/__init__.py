@@ -4,7 +4,7 @@ from repro_torch.kernels.rglru.ops import (
     reset_launch_count,
     rglru,
 )
-from repro_torch.kernels.rglru.ref import rglru_plain
+from repro_torch.kernels.rglru.ref import rglru_assoc_plain, rglru_plain
 
 __all__ = ["build", "launch_count", "reset_launch_count", "rglru",
-           "rglru_plain"]
+           "rglru_plain", "rglru_assoc_plain"]

@@ -13,6 +13,18 @@ The final state is written into ``h_out`` (B, C), which may be ``h0``
 itself: the decode cache's ``h`` slab is then updated in place. Any
 T >= 1 and C >= 1 run as they are, with no padding.
 
+Gradients. When ``a``, ``b`` or ``h0`` requires grad, the call goes
+through an autograd node whose backward runs the adjoint recurrence
+
+    lam_T = g_T + g_fin,   lam_t = g_t + a_{t+1} lam_{t+1}
+
+(``g`` the gradient of h, ``g_fin`` that of the returned h_T), which is
+the same recurrence run backward in time: the same kernel (or plain
+version) over the reversed sequence with ``a`` shifted by one step,
+from ``g_fin`` as its start state. Then ``db = lam``, ``da_t = lam_t
+h_{t-1}`` (``h_0`` the start state) and ``dh0 = a_1 lam_1``. Such a call
+refuses ``h_out``: the in-place write is the decode path's.
+
 The kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, under ``build/kernels/``) at first use and loaded with
 ``ctypes``.
@@ -24,6 +36,7 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rglru.ref import rglru_plain
@@ -97,15 +110,9 @@ def _check(a, b, h0, h_out):
         raise ValueError("rglru: tensors must be contiguous")
 
 
-def rglru(a: torch.Tensor, b: torch.Tensor,
-          h0: Optional[torch.Tensor] = None, *,
-          h_out: Optional[torch.Tensor] = None
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(h (B, T, C), h_T (B, C))`` float32 from ``a, b`` (B, T, C) and
-    the start state ``h0`` (B, C) (zeros when None). The final state is
-    written into ``h_out`` when it is given (it may be ``h0`` itself)
-    and returned."""
-    _check(a, b, h0, h_out)
+def _run(a, b, h0, h_out):
+    """The recurrence on the inputs' device: the kernel on cuda, the
+    plain version on the CPU."""
     if a.device.type == "cpu":
         h, h_t = rglru_plain(a, b, h0)
         if h_out is not None:
@@ -128,6 +135,55 @@ def rglru(a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
     rglru.launches += 1
     return h, h_t
+
+
+def _adjoint(a: torch.Tensor, g: torch.Tensor,
+            g_fin: torch.Tensor) -> torch.Tensor:
+    """``lam`` (B, T, C) of the module docstring: the recurrence run over
+    the reversed sequence, ``a`` shifted by one step (1 first, which
+    carries the start state ``g_fin`` in exactly), on ``a``'s device."""
+    a_rev = torch.cat([torch.ones_like(a[:, :1]), a[:, 1:].flip(1)], dim=1)
+    lam_rev, _ = _run(a_rev, g.flip(1), g_fin.contiguous(), None)
+    return lam_rev.flip(1)
+
+
+class _RGLRU(torch.autograd.Function):
+    """The recurrence with gradients in ``a``, ``b`` and ``h0``: forward
+    as :func:`rglru`; backward by :func:`_adjoint`."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_t = _run(a, b, h0, None)
+        ctx.save_for_backward(a, h0, h)
+        return h, h_t
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, g_fin):
+        a, h0, h = ctx.saved_tensors
+        lam = _adjoint(a, g, g_fin)
+        start = torch.zeros_like(a[:, :1]) if h0 is None else h0[:, None]
+        da = lam * torch.cat([start, h[:, :-1]], dim=1)
+        dh0 = None if h0 is None else a[:, 0] * lam[:, 0]
+        return da, lam, dh0
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor,
+          h0: Optional[torch.Tensor] = None, *,
+          h_out: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(h (B, T, C), h_T (B, C))`` float32 from ``a, b`` (B, T, C) and
+    the start state ``h0`` (B, C) (zeros when None). The final state is
+    written into ``h_out`` when it is given (it may be ``h0`` itself)
+    and returned. When an input requires grad the result takes
+    gradients (module docstring), and ``h_out`` is refused."""
+    _check(a, b, h0, h_out)
+    if any(x is not None and x.requires_grad for x in (a, b, h0)):
+        if h_out is not None:
+            raise ValueError("rglru: h_out (the in-place decode write) is "
+                             "refused when an input requires grad")
+        return _RGLRU.apply(a, b, h0)
+    return _run(a, b, h0, h_out)
 
 
 rglru.launches = 0

@@ -16,6 +16,16 @@ is indexed [g, k, v]: (G, D, D) beside 3-D inputs, (B, H, D, D) beside
 4-D ones, which is the decode cache's slab as it lies in memory;
 ``s_out`` may be that same slab, and the update is then in place.
 
+Gradients. When an input requires grad, the call goes through an
+autograd node: its forward is the kernel (the plain version on the
+CPU), and its backward, :func:`_wkv6_vjp_plain`, recomputes the plain
+recurrence from the saved inputs under autograd and takes its
+vector-Jacobian product. Neither this package nor the JAX package has a
+backward kernel for WKV (the JAX package trains through its
+``lax.scan``); the recompute holds every step's (G, D, D) intermediates
+of one call and makes a few launches a step. Such a call refuses
+``s_out``: the in-place write is the decode path's.
+
 The kernel is built by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, under ``build/kernels/``) at first use and loaded with
 ``ctypes``.
@@ -27,6 +37,7 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv6.ref import wkv6_plain
@@ -111,17 +122,9 @@ def _check(r, k, v, w, u, s0, s_out):
     return (b, t, h, d), state
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         w: torch.Tensor, u: torch.Tensor,
-         s0: Optional[torch.Tensor] = None, *,
-         s_out: Optional[torch.Tensor] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(y, S_T)`` float32: y in the layout of ``r`` and the state as
-    the module docstring lays it out — see
-    :func:`~repro_torch.kernels.wkv6.ref.wkv6_plain` for the arguments.
-    The final state is written into ``s_out`` when it is given (it may
-    be ``s0`` itself) and returned."""
-    (b, t, h, d), state = _check(r, k, v, w, u, s0, s_out)
+def _run(r, k, v, w, u, s0, s_out, b, t, h, d, state):
+    """The recurrence on the inputs' device: the kernel on cuda, the
+    plain version on the CPU."""
     if r.device.type == "cpu":
         y, s = wkv6_plain(r, k, v, w, u, s0)
         if s_out is not None:
@@ -148,6 +151,60 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
     return y, s
+
+
+def _wkv6_vjp_plain(inputs, gy, gs, needs):
+    """The gradients of ``(y, S_T)`` in ``inputs`` = (r, k, v, w, u, s0)
+    under the cotangents ``gy``, ``gs``: the plain recurrence recomputed
+    under autograd, then its vector-Jacobian product (plain torch, not a
+    kernel). ``needs`` flags the inputs that take a gradient; the others
+    get None."""
+    with torch.enable_grad():
+        xs = [None if x is None else x.detach().requires_grad_(need)
+              for x, need in zip(inputs, needs)]
+        y, s = wkv6_plain(*xs)
+        want = [x for x, need in zip(xs, needs) if need]
+        grads = iter(torch.autograd.grad((y, s), want, (gy, gs)))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+class _WKV6(torch.autograd.Function):
+    """The recurrence with gradients in r, k, v, w, u and s0: forward
+    as :func:`wkv6`; backward by :func:`_wkv6_vjp_plain`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, geometry):
+        y, s = _run(r, k, v, w, u, s0, None, *geometry)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return y, s
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gs):
+        return _wkv6_vjp_plain(ctx.saved_tensors, gy, gs,
+                               ctx.needs_input_grad[:6]) + (None,)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None, *,
+         s_out: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, S_T)`` float32: y in the layout of ``r`` and the state as
+    the module docstring lays it out — see
+    :func:`~repro_torch.kernels.wkv6.ref.wkv6_plain` for the arguments.
+    The final state is written into ``s_out`` when it is given (it may
+    be ``s0`` itself) and returned. When an input requires grad the
+    result takes gradients (module docstring), and ``s_out`` is
+    refused."""
+    (b, t, h, d), state = _check(r, k, v, w, u, s0, s_out)
+    geometry = (b, t, h, d, state)
+    if any(x is not None and x.requires_grad for x in (r, k, v, w, u, s0)):
+        if s_out is not None:
+            raise ValueError("wkv6: s_out (the in-place decode write) is "
+                             "refused when an input requires grad")
+        return _WKV6.apply(r, k, v, w, u, s0, geometry)
+    return _run(r, k, v, w, u, s0, s_out, *geometry)
 
 
 wkv6.launches = 0

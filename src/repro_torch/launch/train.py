@@ -4,6 +4,8 @@
         --reduced --steps 20                            # smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --reduced --steps 20 --fail-rate 0.1            # with restarts
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch rwkv6-3b --reduced --steps 20            # moe, ssm, hybrid
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 \
         --batch 8 --seq 256 --ckpt-every 10             # on cuda, full width
 
@@ -22,10 +24,12 @@ The config is reduced with ``--reduced`` or on the CPU, as there.
 ``--dtype`` picks ``DTypePolicy()`` (float32, the JAX CLI's policy) or
 ``DTypePolicy.bf16()``. Without a GPU it raises unless ``--device cpu``
 is given. There is no ``--model-par`` (one card) and no ``--pathfind``
-(the TPU plan search). audio and vlm are refused with the JAX CLI's
-message; moe, ssm and hybrid training are not ported yet. Without
-``--ckpt-dir`` the checkpoints go to a fresh temporary directory,
-removed at the end.
+(the TPU plan search). Every token-LM family trains: dense, moe (with
+the experts' capacity drops and the load-balancing loss), ssm (RWKV-6,
+gradients through the ``wkv6`` kernel's autograd node) and hybrid
+(RecurrentGemma, through ``rglru``'s); audio and vlm are refused with
+the JAX CLI's message. Without ``--ckpt-dir`` the checkpoints go to a
+fresh temporary directory, removed at the end.
 
 On the CPU a run with injected failures ends with the parameters of the
 fault-free run bit for bit: a restart restores the last checkpoint and
@@ -51,6 +55,7 @@ from repro_torch.convert import (
     adamw_state_from_reference,
     lm_params_from_reference,
     lm_params_to_reference,
+    lm_reference_shapes,
 )
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.launch.steps import train_step
@@ -67,17 +72,11 @@ FAULT_SEED = 11        # the JAX CLI's FailureInjector seed
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """Refuse the families ``train`` does not train: audio and vlm as
-    the JAX CLI does; moe, ssm and hybrid, whose training is not
-    ported."""
+    """Refuse the families ``train`` does not train, audio and vlm, as
+    the JAX CLI does."""
     if cfg.family in ("audio", "vlm"):
         raise SystemExit("train driver supports token-LM archs; "
                          "audio/vlm run via the dry-run cells")
-    if cfg.family != "dense":
-        item = 13 if cfg.family == "moe" else 14
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) is not ported "
-            f"yet (ROADMAP, queue 1, item {item})")
 
 
 def save_state(mgr: CheckpointManager, step: int, model: LM,
@@ -95,11 +94,12 @@ def restore_state(mgr: CheckpointManager, model: LM):
     """Load the newest valid checkpoint (the port's or the JAX
     package's) into ``model`` in place. Returns (step, the restored
     optimizer state on the model's device)."""
-    shapes = lm_params_to_reference(dict(model.named_parameters()))
+    shapes = lm_reference_shapes(dict(model.named_parameters()))
     step, tree = mgr.restore({"params": shapes, "opt_mu": shapes,
                               "opt_nu": shapes,
                               "opt_step": np.zeros((), np.int32)})
-    model.load_state_dict(lm_params_from_reference(tree["params"], model.cfg))
+    model.load_state_dict(lm_params_from_reference(tree["params"], model.cfg,
+                                                   copy=False))
     return step, adamw_state_from_reference(
         tree["opt_step"], tree["opt_mu"], tree["opt_nu"], model.cfg,
         model.embed.device)
@@ -151,6 +151,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             with torch.no_grad():
                 fresh = init_model(cfg, policy, seed=seed, torch_device=dev)
                 model.load_state_dict(fresh.state_dict())
+            del fresh                       # before the moments are drawn
             return 0, adamw.init(dict(model.named_parameters()), opt_cfg)
         return restore_state(mgr, model)
 

@@ -17,6 +17,19 @@ call. Each token's k weighted contributions are gathered into (T, k, D)
 and summed by one reduction (a fixed order, where a scatter-add on the
 card adds in the order the threads arrive).
 
+The same code takes gradients (training runs it with the capacity
+drops): each run's product is a new tensor and the runs are
+concatenated in expert order, with zero rows for the pairs over the
+capacity, which therefore contribute nothing and take no gradient, as
+in the JAX package's masked dispatch. Under autograd the expert weights
+are split once per call (``unbind``), so the backward of each expert's
+slice does not allocate a zero tensor of the whole (E, D, F) leaf;
+serving indexes only the experts it runs (a decode step a handful of
+the E). The gathers whose backward adds rows (the tokens into expert
+order, the selected router logits) are ``F.embedding`` and
+``torch.gather``, which add in a fixed order on the CPU and under
+deterministic algorithms on the card.
+
 The JAX package's expert-parallel dispatch (``moe_forward_ep``, experts
 split over a ``model`` mesh axis) is not ported: one H100 cannot check
 it, and ``moe_forward`` refuses a mesh of several devices.
@@ -113,9 +126,11 @@ class MoE(FrozenParams):
 
 def _top_k(logits: torch.Tensor, k: int):
     """The k largest of each row, largest first, ties to the lower index
-    (``jax.lax.top_k``'s order; a stable descending sort keeps it)."""
-    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    (``jax.lax.top_k``'s order; a stable descending sort keeps it). The
+    values are gathered from ``logits``, so their gradient reaches the
+    selected logits only."""
+    idx = torch.sort(logits, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(logits, -1, idx), idx
 
 
 def _route(router_logits: torch.Tensor, top_k: int):
@@ -160,17 +175,24 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
     runs = torch.searchsorted(flat_expert[order],
                               torch.arange(e + 1, device=x.device))
     runs = runs.tolist()                    # the one host sync of the call
-    xs = xf[order // k]                                     # (T*k, D)
-    hs = x.new_zeros((t * k, d))
+    xs = F.embedding(order // k, xf)                        # (T*k, D)
+    w_gate, w_up, w_down = p.w_gate, p.w_up, p.w_down
+    if torch.is_grad_enabled() and w_gate.requires_grad:
+        w_gate, w_up, w_down = (w.unbind(0) for w in (w_gate, w_up, w_down))
+    pieces = []
     for ex in range(e):
-        start = runs[ex]
-        kept = min(runs[ex + 1] - start, capacity)
+        start, n = runs[ex], runs[ex + 1] - runs[ex]
+        kept = min(n, capacity)
         if kept:
             xe = xs[start:start + kept]
-            h = F.silu(xe @ p.w_gate[ex]) * (xe @ p.w_up[ex])
-            torch.mm(h, p.w_down[ex], out=hs[start:start + kept])
-    weighted = hs * gates.reshape(-1)[order, None].to(x.dtype)
-    contrib = torch.empty_like(hs).index_copy_(0, order, weighted)
+            h = F.silu(xe @ w_gate[ex]) * (xe @ w_up[ex])
+            pieces.append(h @ w_down[ex])
+        if n > kept:                        # dropped: zero rows
+            pieces.append(x.new_zeros((n - kept, d)))
+    hs = torch.cat(pieces)                                  # (T*k, D)
+    # back to (token, k) order, then weighted by the gates
+    unsorted = torch.empty_like(hs).index_copy_(0, order, hs)
+    contrib = unsorted * gates.reshape(-1, 1).to(x.dtype)
     y = contrib.reshape(t, k, d).sum(dim=1)
     if cfg.n_shared_experts:
         y = y + mlp_forward(p.shared, xf)
@@ -179,7 +201,8 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
 
 def moe_aux_loss(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Load-balancing auxiliary loss (Switch-style: E * sum(f_e * p_e)),
-    float32."""
+    float32. Its gradient flows through the router probabilities only:
+    the counts of routed pairs take none."""
     b, s, d = x.shape
     logits = _router_logits(p, x.reshape(b * s, d))
     probs = torch.softmax(logits, dim=-1)

@@ -16,7 +16,10 @@ RG-LRU (block-diagonal gates over 16 blocks, as in the released model):
 
 The scan runs through :func:`repro_torch.kernels.rglru.rglru`: the
 hand-written CUDA kernel for CUDA tensors, its plain torch version for
-CPU tensors. The JAX package scans with its jnp associative scan.
+CPU tensors. The JAX package scans with its jnp associative scan. In
+training (no start state) the call goes through the wrapper's autograd
+node, whose backward runs the same kernel over the reversed sequence;
+the in-place state write is the decode path's alone.
 
 Parameters live on an :class:`RGBlock` module under the JAX package's
 parameter names; the functions read them as attributes.

@@ -10,7 +10,9 @@ squared-ReLU MLP with receptance gating.
 
 The WKV recurrence runs through :func:`repro_torch.kernels.wkv6.wkv6`:
 the hand-written CUDA kernel for CUDA tensors, its plain torch version
-for CPU tensors.
+for CPU tensors. In training (no start state) the call goes through the
+wrapper's autograd node; the in-place state write is the decode path's
+alone.
 
 Parameters live on :class:`TimeMix` / :class:`ChannelMix` modules under
 the JAX package's parameter names; the ``*_forward`` functions read them
@@ -126,7 +128,7 @@ def wkv_scan(r, k, v, w, u, s0=None):
     for the current token only. The kernel reads r, k, v, w and writes y
     in this layout as it lies, rows g = b*H + h. When ``s0`` is given
     (the decode cache's slab) the final state overwrites it in place and
-    is returned."""
+    is returned; without it the result takes gradients."""
     return wkv6_ops.wkv6(r.float(), k.float(), v.float(), w.float(),
                          u.float(), s0, s_out=s0)
 

@@ -49,10 +49,14 @@ A model is built for serving, its parameters without grads, unless
 ``init_model(..., trainable=True)``. :func:`forward` and :func:`loss_fn`
 build the autograd graph when grad is enabled and the model trains, and
 run under ``inference_mode`` otherwise; ``prefill`` and ``decode_step``
-always run under it. ``remat=True`` recomputes each layer of the dense,
-vlm and audio stacks in the backward (``torch.utils.checkpoint``, the
-JAX package's ``jax.checkpoint`` of its scan body), and the loss
-recomputes each chunk's logits.
+always run under it. ``remat=True`` recomputes each layer of every
+family in the backward (``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint`` of its scan body): a dense, vlm, audio, ssm or MoE
+layer (a MoE layer returns its load-balancing loss through the
+checkpoint), a hybrid group or tail layer; and the loss recomputes each
+chunk's logits. The hybrid's full-sequence pass builds no cache: its
+local attention is ``gqa_forward`` with ``window=local_window``, as the
+JAX package's ``forward``; ``prefill`` builds the ring-buffer cache.
 
 :func:`forward` runs the experts with the capacity drops and returns
 their summed load-balancing loss; ``prefill`` and ``decode_step`` run
@@ -288,24 +292,18 @@ def _ffn_block(layer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _mlp_block(layer, x)
 
 
-def _moe_forward(model: LM, tokens: torch.Tensor):
-    """The moe family's full-sequence pass with the capacity drops.
-    Returns (x, the summed load-balancing loss of the MoE layers)."""
-    cfg = model.cfg
-    x = _embed(model, tokens)
-    positions = _positions(*x.shape[:2], x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, _ in _moe_layers(model):
-        attend = attn_mod.mla_forward if _is_mla(layer) else \
-            attn_mod.gqa_forward
-        x = x + attend(layer.attn, rms_norm(x, layer.ln1), positions, cfg)
-        if isinstance(layer, MoELayer):
-            h = rms_norm(x, layer.ln2)
-            aux = aux + moe_mod.moe_aux_loss(layer.moe, h, cfg)
-            x = x + moe_mod.moe_forward(layer.moe, h, cfg)
-        else:
-            x = _mlp_block(layer, x)
-    return x, aux
+def _moe_block(layer, x: torch.Tensor, positions, cfg: ModelConfig):
+    """One layer of the moe family's full-sequence pass, the experts with
+    the capacity drops. Returns (x, the layer's load-balancing loss, or
+    None for a dense layer)."""
+    attend = attn_mod.mla_forward if _is_mla(layer) else \
+        attn_mod.gqa_forward
+    x = x + attend(layer.attn, rms_norm(x, layer.ln1), positions, cfg)
+    if isinstance(layer, MoELayer):
+        h = rms_norm(x, layer.ln2)
+        aux = moe_mod.moe_aux_loss(layer.moe, h, cfg)
+        return x + moe_mod.moe_forward(layer.moe, h, cfg), aux
+    return _mlp_block(layer, x), None
 
 
 def _moe_prefill(model: LM, tokens: torch.Tensor, cache_len: int):
@@ -355,6 +353,22 @@ def _rg_decode(layer: RGLayer, x: torch.Tensor, cfg: ModelConfig,
     updated in place."""
     y, st = _rg_sub_block(layer, x, cfg, (state["conv"], state["h"]))
     return y, _rg_to_state(st)
+
+
+def _rg_layer(layer: RGLayer, x: torch.Tensor, cfg: ModelConfig):
+    return _rg_sub_block(layer, x, cfg)[0]
+
+
+def _hybrid_group(grp: HybridGroup, x: torch.Tensor, positions,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """A hybrid group over the full sequence without a cache: two
+    recurrent sub-layers, then the local attention over
+    ``cfg.local_window`` and its MLP."""
+    x = _rg_layer(grp.rg1, x, cfg)
+    x = _rg_layer(grp.rg2, x, cfg)
+    y = attn_mod.gqa_forward(grp.attn.attn, rms_norm(x, grp.attn.ln1),
+                             positions, cfg, window=cfg.local_window)
+    return _mlp_block(grp.attn, x + y)
 
 
 def _windowed_prefill(p, x, positions, cfg: ModelConfig, win: int):
@@ -461,6 +475,18 @@ def _dense_block(layer: DenseLayer, x: torch.Tensor, positions,
     return _mlp_block(layer, x + y)
 
 
+def _rwkv_layer(layer: RWKVLayer, x: torch.Tensor, cfg: ModelConfig):
+    return _rwkv_block(layer, x, cfg)[0]
+
+
+def _layer_call(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat`` and grad
+    is enabled."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(model: LM, tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             return_hidden: bool = False, remat: bool = False):
@@ -470,30 +496,31 @@ def forward(model: LM, tokens: Optional[torch.Tensor] = None,
     norm when ``return_hidden``; aux_loss): the MoE layers' summed
     load-balancing loss (float32), 0 for the other families. It builds
     the autograd graph when grad is enabled and the model trains, with
-    each dense-stack layer recomputed in the backward when ``remat``."""
+    each layer (a hybrid group) recomputed in the backward when
+    ``remat``."""
     cfg = model.cfg
     require_ported(cfg)
     with torch.inference_mode(not _trains(model)):
-        aux = None
+        x = _embed(model, tokens, embeds)
+        positions = _positions(*x.shape[:2], x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "moe":
-            x, aux = _moe_forward(model, tokens)
+            for layer, _ in _moe_layers(model):
+                x, a = _layer_call(remat, _moe_block, layer, x, positions,
+                                   cfg)
+                if a is not None:
+                    aux = aux + a
         elif cfg.family in ("dense", "vlm", "audio"):
-            x = _embed(model, tokens, embeds)
-            positions = _positions(*x.shape[:2], x.device)
             for layer in model.layers:
-                if remat and torch.is_grad_enabled():
-                    x = checkpoint(_dense_block, layer, x, positions, cfg,
-                                   use_reentrant=False)
-                else:
-                    x = _dense_block(layer, x, positions, cfg)
+                x = _layer_call(remat, _dense_block, layer, x, positions, cfg)
         elif cfg.family == "ssm":
-            x = _embed(model, tokens)
             for layer in model.layers:
-                x, _ = _rwkv_block(layer, x, cfg)
+                x = _layer_call(remat, _rwkv_layer, layer, x, cfg)
         else:
-            x, _ = _hybrid_prefill(model, tokens, cfg.local_window)
-        if aux is None:
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for grp in model.groups:
+                x = _layer_call(remat, _hybrid_group, grp, x, positions, cfg)
+            for layer in model.tail:
+                x = _layer_call(remat, _rg_layer, layer, x, cfg)
         return (x if return_hidden else _unembed(model, x)), aux
 
 

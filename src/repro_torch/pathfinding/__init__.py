@@ -16,6 +16,7 @@ from repro_torch.pathfinding.device import (
     DevicePTResult,
     ScenarioEngine,
     ScenarioPTResult,
+    evaluate_batch_device,
     get_device_evaluator,
     get_scenario_engine,
     propose_batch,
@@ -39,7 +40,12 @@ from repro_torch.pathfinding.pareto import (
     workloads_from_configs,
 )
 from repro_torch.pathfinding.pathfinder import OBJECTIVES, Pathfinder
-from repro_torch.pathfinding.resume import SearchCheckpointer
+from repro_torch.pathfinding.resume import (
+    SearchCheckpointer,
+    run_segmented,
+    search_fingerprint,
+    segment_fingerprint,
+)
 from repro_torch.pathfinding.scenario import ScenarioSpec
 from repro_torch.pathfinding.space import DesignSpace
 from repro_torch.pathfinding.strategies import (
@@ -57,11 +63,13 @@ __all__ = [
     "BatchEvaluator", "MetricsBatch", "evaluate_batch",
     "fit_normalizer_batched", "fit_region_normalizers", "get_evaluator",
     "DeviceEvaluator", "DevicePTResult", "ScenarioEngine",
-    "ScenarioPTResult", "get_device_evaluator", "get_scenario_engine",
+    "ScenarioPTResult", "evaluate_batch_device", "get_device_evaluator",
+    "get_scenario_engine",
     "propose_batch", "FrontierFeed", "ParetoArchive", "ScalarizationSweep",
     "REGION_INTENSITIES", "Scenario", "ScenarioFrontier", "ScenarioSpec",
     "ScenarioSweep", "fold_cell_key", "fold_job_key",
-    "workloads_from_configs", "SearchCheckpointer",
+    "workloads_from_configs", "SearchCheckpointer", "run_segmented",
+    "search_fingerprint", "segment_fingerprint",
     "crowding_distance", "directions_to_weights", "hypervolume",
     "non_dominated_mask", "non_dominated_mask_torch", "simplex_directions",
     "OBJECTIVES", "Pathfinder", "DesignSpace", "DEFAULT_SEARCH_KEY",

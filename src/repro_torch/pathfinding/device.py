@@ -2125,6 +2125,19 @@ def get_device_evaluator(wl: GEMMWorkload, db: TechDB = DEFAULT_DB,
         _DEVICE_EVALUATOR_CACHE_MAX)
 
 
+def evaluate_batch_device(encoded: np.ndarray, wl: GEMMWorkload,
+                          db: TechDB = DEFAULT_DB,
+                          tile_sizes: Tuple[int, int, int] = DEFAULT_TILE,
+                          space: Optional[DesignSpace] = None,
+                          torch_device: DeviceLike = None) -> MetricsBatch:
+    """The device counterpart of
+    :func:`repro_torch.pathfinding.evaluate_batch`: the metrics of the
+    encoded rows from the cached :class:`DeviceEvaluator` on
+    ``torch_device``."""
+    return get_device_evaluator(wl, db, tile_sizes, space,
+                                torch_device=torch_device).metrics(encoded)
+
+
 _SCENARIO_ENGINES: Dict[tuple, Tuple[TechDB, ScenarioEngine]] = {}
 _SCENARIO_ENGINE_CACHE_MAX = 4
 

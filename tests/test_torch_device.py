@@ -19,6 +19,7 @@ from repro_torch.convert import normalizer_from_arrays, techdb_from_fields
 from repro_torch.core import TEMPLATES, workload
 from repro_torch.core.techdb import DEFAULT_DB
 from repro_torch.pathfinding.batch import MetricsBatch
+from repro_torch.pathfinding import evaluate_batch_device
 from repro_torch.pathfinding.device import (
     DeviceEvaluator,
     _validity,
@@ -133,6 +134,15 @@ def test_evaluate_cost_vector_within_tolerance(ref, encs, evaluators, ci):
     np.testing.assert_array_equal(cost2, cost)
     raw = evaluators[ci].metrics(encs[ci])
     np.testing.assert_array_equal(raw.latency_s, mb.latency_s)
+
+
+def test_evaluate_batch_device_matches_reference(ref, encs):
+    """The functional entry (the reference's ``evaluate_batch_device``)
+    on the default space and TechDB: case 0's metrics."""
+    mb = evaluate_batch_device(encs[0], workload(1), torch_device="cpu")
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(mb, f), ref[f"mb0_{f}"],
+                                   rtol=RTOL, atol=0, err_msg=f)
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -23,7 +23,12 @@ import torch
 
 from test_torch_support import run_reference
 
-from repro_torch.kernels.rglru import launch_count, rglru, rglru_plain
+from repro_torch.kernels.rglru import (
+    launch_count,
+    rglru,
+    rglru_assoc_plain,
+    rglru_plain,
+)
 
 RTOL = 1e-6                # of the magnitude scale M (module docstring)
 # (B, T, C); the last three land on the CUDA kernels' boundaries: one
@@ -102,6 +107,17 @@ def test_rglru_zero_state_matches_reference(ref, shape, oracle, impl):
     assert torch.equal(h_t, h[:, -1])
     _close(h, ref[f"{_name(shape)}_{oracle}"], magnitude(c["a"], c["b"]),
            f"h vs {oracle}")
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_name)
+def test_rglru_assoc_plain_matches_reference_assoc(ref, shape):
+    """The associative-scan order, ``rglru_assoc_ref``'s, in plain
+    torch."""
+    c = _case(shape, seed=SHAPES.index(shape))
+    h = rglru_assoc_plain(*_t(c, "a", "b"))
+    assert h.dtype == torch.float32
+    _close(h, ref[f"{_name(shape)}_assoc"], magnitude(c["a"], c["b"]),
+           "h vs assoc")
 
 
 @pytest.mark.parametrize("impl", sorted(IMPLS))
@@ -223,3 +239,26 @@ def test_cuda_kernel_equals_plain_on_card(shape, start, offset):
         torch.cuda.synchronize()
         assert t_i.data_ptr() == state.data_ptr()
         assert torch.equal(state, t_p) and torch.equal(h_i, h_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["zero", "nonzero"])
+@pytest.mark.parametrize("shape", [(2, 1, 200), (2, 97, 4096), (3, 33, 130)])
+def test_cuda_gradients_equal_plain_autograd_on_card(shape, start):
+    """The autograd node on the card (backward: the kernel over the
+    reversed sequence) against autograd through the plain version on the
+    card, within 1e-5 of each gradient's max |value|; the forward and
+    the backward launch once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    c = _case(shape, seed=sum(shape) + 1)
+    a, b, h0 = (t.cuda().requires_grad_() for t in _t(c, "a", "b", "h0"))
+    args = (a, b, h0) if start == "nonzero" else (a, b)
+    g = torch.randn_like(a)
+    g_fin = torch.randn_like(a[:, 0])
+    before = launch_count()
+    got = torch.autograd.grad(rglru(*args), args, (g, g_fin))
+    assert launch_count() == before + 2
+    want = torch.autograd.grad(rglru_plain(*args), args, (g, g_fin))
+    for x, p in zip(got, want):
+        assert float((x - p).abs().max()) <= 1e-5 * float(p.abs().max())

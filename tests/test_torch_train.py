@@ -23,9 +23,14 @@ supervision and its checkpoints, against the reference.
 - ``train`` with injected failures (one before the first checkpoint,
   which restarts from the initial weights, and two after it) ends with
   the parameters and moments of the fault-free run, bit for bit.
-- The CLI: exits 0 with a falling loss on the CPU; raises without a GPU
-  unless given ``--device cpu``; refuses the families whose training is
-  not ported.
+- The CLI: exits 0 with a falling loss on the CPU, for smollm and for
+  the reduced moe (``deepseek-v2-236b``, ``llama4-maverick-400b-a17b``),
+  ssm (``rwkv6-3b``) and hybrid (``recurrentgemma-9b``) configs; raises
+  without a GPU unless given ``--device cpu``. For those four too,
+  ``train`` with injected failures ends equal to the bit to the
+  fault-free run. Their steps are held against the reference in
+  ``tests/test_torch_train_moe.py`` and
+  ``tests/test_torch_train_recurrent.py``.
 """
 import numpy as np
 import pytest
@@ -35,7 +40,12 @@ from test_torch_support import FLAT, nest, run_reference
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.convert import lm_params_from_reference
+from repro_torch.convert import (
+    adamw_state_from_reference,
+    lm_params_from_reference,
+    lm_params_to_reference,
+    lm_reference_shapes,
+)
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.steps import train_step
@@ -253,9 +263,77 @@ def test_cli_needs_a_gpu_unless_given_cpu():
         train_mod.main(["--reduced", "--steps", "1"])
 
 
-@pytest.mark.parametrize("name,item", [
-    ("deepseek-v2-236b", 13), ("llama4-maverick-400b-a17b", 13),
-    ("rwkv6-3b", 14), ("recurrentgemma-9b", 14)])
-def test_unported_training_families_raise(name, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
-        train_mod.main(["--arch", name, "--device", "cpu", "--steps", "1"])
+FAMILIES = ("deepseek-v2-236b", "llama4-maverick-400b-a17b", "rwkv6-3b",
+            "recurrentgemma-9b")
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_cli_trains_each_family_on_cpu(name, capsys):
+    rc = train_mod.main(["--arch", name, "--device", "cpu", "--steps", "20",
+                         "--batch", "2", "--seq", "32"])
+    out = capsys.readouterr().out
+    assert rc == 0, out                      # 0 only if the loss fell
+    assert f"[train] {name}-smoke on cpu: 20 steps" in out
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_each_family_replays_injected_failures_bit_for_bit(name, tmp_path):
+    """The schedule of ``test_injected_failures_replay_bit_for_bit``
+    (steps 2, 9 and 11 fail once each) on the other families."""
+    cfg = get_config(name).reduced()
+
+    def run(rate, **kw):
+        return train_mod.train(cfg, steps=12, batch=2, seq=40, ckpt_every=4,
+                               fail_rate=rate, torch_device="cpu",
+                               log=lambda line: None, **kw)
+
+    clean, faulty = run(0.0), run(0.2, ckpt_dir=str(tmp_path))
+    assert (faulty["stats"].restarts, faulty["stats"].replayed_steps) == (
+        3, 6)
+    for (k, p), q in zip(clean["model"].named_parameters(),
+                         faulty["model"].parameters()):
+        assert torch.equal(p, q), k
+    for moments in ("mu", "nu"):
+        a, b = (getattr(r["opt_state"], moments) for r in (clean, faulty))
+        assert all(torch.equal(a[k], b[k]) for k in a), moments
+    by_step = dict(zip(clean["steps"], clean["losses"]))
+    assert all(loss == by_step[s]
+               for s, loss in zip(faulty["steps"], faulty["losses"]))
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("name", ("smollm-135m",) + FAMILIES)
+def test_checkpoint_trees_share_no_memory(name):
+    """``save_state``'s tree (``lm_params_to_reference``) holds arrays of
+    its own, shaped as ``lm_reference_shapes`` (``restore_state``'s
+    template) says; the optimizer state ``restore_state`` builds from
+    such a tree shares no memory with it, since AdamW updates its moments
+    in place."""
+    cfg = get_config(name).reduced()
+    model = init_model(cfg, torch_device="cpu", trainable=True)
+    params = dict(model.named_parameters())
+    tree = lm_params_to_reference(params)
+    shapes = dict(_leaves(lm_reference_shapes(params)))
+    arrays = dict(_leaves(tree))
+    assert set(shapes) == set(arrays)
+    for path, arr in arrays.items():
+        assert shapes[path].device.type == "meta", path
+        assert tuple(shapes[path].shape) == arr.shape, path
+        assert arr.flags.owndata, path
+        assert not any(np.shares_memory(arr, p.detach().numpy())
+                       for p in params.values()), path
+    state = adamw_state_from_reference(np.int32(3), tree, tree, cfg, "cpu")
+    assert int(state.step) == 3
+    for moments in (state.mu, state.nu):
+        assert set(moments) == set(params)
+        for k, t in moments.items():
+            assert torch.equal(t, params[k].detach()), k
+            assert not any(np.shares_memory(t.numpy(), arr)
+                           for arr in arrays.values()), k

@@ -408,3 +408,24 @@ def test_cuda_wrapper_rejects_misaligned_inputs():
     shifted.copy_(r)
     with pytest.raises(ValueError):
         wkv6(shifted, k, v, w, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["zero", "s0"])
+def test_cuda_gradients_equal_plain_autograd_on_card(start):
+    """The autograd node on the card (forward: the kernel; backward: the
+    plain recompute) against autograd through the plain version on the
+    card, within 1e-5 of each gradient's max |value|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    inputs = _card_case(3, 37, "model", seed=9)
+    args = [x.requires_grad_() for x in inputs[:6 if start == "s0" else 5]]
+    r = args[0]
+    gy = torch.randn_like(r)
+    gs = torch.randn(r.shape[0], r.shape[2], D, D, device="cuda")
+    before = launch_count()
+    got = torch.autograd.grad(wkv6(*args), args, (gy, gs))
+    assert launch_count() == before + 1
+    want = torch.autograd.grad(wkv6_plain(*args), args, (gy, gs))
+    for g, p in zip(got, want):
+        assert float((g - p).abs().max()) <= 1e-5 * float(p.abs().max())
