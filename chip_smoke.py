@@ -303,6 +303,20 @@ one JSON line that carries the card's name and power limit:
     hand-written kernel may launch; then the table of train-state sizes
     against the card that sets this width and ``train_hybrid``'s depth.
     A ``train_time`` line gives the seconds of phases 33-37.
+38. ``dryrun`` — the counted work of a step (``repro_torch.analysis``:
+    one ``TorchDispatchMode`` counts FLOPs, bytes, collectives and live
+    bytes op by op; ``wkv6`` and ``rglru`` by their formulas): (a)
+    ``launch/dryrun.py``'s cells on meta for one arch of each family at
+    train_4k and decode_32k (the ssm family's train_4k aside: its plain
+    WKV backward takes ~110 s of host time on meta), every record ok or
+    skipped; (b) ``smollm-135m``'s train step (8 x 256),
+    ``qwen3-8b``'s decode step (batch 4, cache 1024 + 32) and
+    ``rwkv6-3b``'s prefill (4 x 512, through the ``wkv6`` kernel),
+    float32, each counted on the card and on meta: FLOPs and bytes
+    equal to the unit; the CUDA-event median step time beside the
+    counted roofline bound and its share (``mfu_counted_bound``), the
+    model-FLOPs utilization, the hand-counted bound, and the counted
+    peak of live bytes beside ``torch.cuda.max_memory_allocated``.
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line (the
 ``prefix_select`` launches are those of the search, pareto, strategies,
@@ -317,9 +331,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -330,12 +346,21 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
-FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor-core rate (data sheet)
+SRC = os.path.join(REPO, "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
+# the H100's rates and the hand-counted step bounds; outside a checkout
+# of the repository this import fails and the script exits non-zero
+from repro_torch.analysis.roofline import (  # noqa: E402
+    H100,
+    dense_serve_bound,
+    lm_step_bound,
+    moe_serve_bound,
+)
+
 TOL = 1e-6
 WKV_TOL = 1e-6                 # of the recurrence's magnitude M (phase_wkv6)
 LM_TOL = 1e-4                  # of max |logit|, cuda vs CPU (_decode_parity)
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (data sheet)
 # of Mag = max_mn sum_k |a_mk| |b_kn| (phase_gemm), by output dtype
 GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
             torch.float16: 2.0 ** -7}
@@ -529,8 +554,8 @@ def kernel_bound(args) -> dict:
     nbytes = (n_entries * 8 + (3 * P * C + 3 * P) * 4
               + (P * C * F + P * F) * 8)
     ops = 2 * P * C * F
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / H100.hbm_bytes_per_s * 1e3
+    t_ops = ops / H100.fp32_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops)
@@ -1611,19 +1636,16 @@ def wkv6_inputs(G: int, T: int, heads: int, with_state: bool, seed: int):
 
 
 def wkv6_bound(r, u, s0) -> dict:
-    """r, k, v, w read once, u and the start state (when given) read
-    once, y and S_T written once, over HBM bandwidth; against the least
-    operations the function needs per (g, t), over the fp32
-    non-tensor-core rate: y_v = sum_k r_k S[k, v] + v_v sum_k r_k u_k k_k
-    (2 D^2 + 5 D) and S <- w * S + k v^T (3 D^2). ``r`` is (G, T, D) or
-    (B, T, H, D)."""
-    T, D = r.shape[1], r.shape[-1]
-    G = r.numel() // (T * D)
-    nbytes = 4 * (5 * G * T * D + u.numel() + G * D * D
-                  + (G * D * D if s0 is not None else 0))
-    ops = G * T * (5 * D * D + 5 * D)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    """The least time of one ``wkv6`` call: its bytes
+    (``kernels/wkv6/ops.py::work``: r, k, v, w, u and the start state
+    read once, y and S_T written once) over HBM bandwidth, against its
+    operations (5 D^2 + 5 D a row and step) over the fp32
+    non-tensor-core rate."""
+    from repro_torch.kernels.wkv6.ops import work
+
+    ops, nbytes = work(r, u, s0)
+    t_bytes = nbytes / H100.hbm_bytes_per_s * 1e3
+    t_ops = ops / H100.fp32_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops)
@@ -1915,15 +1937,16 @@ def rglru_inputs(B: int, T: int, C: int, with_state: bool, seed: int):
 
 
 def rglru_bound(a, h0) -> dict:
-    """a and b read once, the start state (when given) read once, h and
-    the final state written once, over HBM bandwidth; against one
+    """The least time of one ``rglru`` call: its bytes
+    (``kernels/rglru/ops.py::work``: a, b and the start state read once,
+    h and the final state written once) over HBM bandwidth, against one
     multiply and one add per element over the fp32 non-tensor-core
     rate."""
-    B, T, C = a.shape
-    nbytes = 4 * (3 * B * T * C + B * C + (B * C if h0 is not None else 0))
-    ops = 2 * B * T * C
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    from repro_torch.kernels.rglru.ops import work
+
+    ops, nbytes = work(a, h0)
+    t_bytes = nbytes / H100.hbm_bytes_per_s * 1e3
+    t_ops = ops / H100.fp32_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops)
@@ -2078,43 +2101,6 @@ def _dense_extra(cfg, model, prompts) -> dict:
                 decode_step_profile=prof)
 
 
-def dense_serve_bound(cfg, model, batch: int, prompt_len: int) -> dict:
-    """Least times of a dense serve cell, each the larger of its bytes
-    over ``HBM_BYTES_PER_S`` and its operations over the card's rate for
-    the weights' dtype (``FP32_OPS_PER_S``, TF32 off, or
-    ``BF16_OPS_PER_S``). A decode step reads every weight and the
-    prompt's KV cache once and does 2 operations a weight a sequence.
-    The prefill reads every weight and writes the KV cache once; it does
-    2 operations a layer weight a prompt token, the causal attention's
-    two products (S (S + 1) / 2 positions a head) and the LM head for
-    the last position of each sequence."""
-    elt = model.embed.element_size()
-    rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
-        else FP32_OPS_PER_S
-    n_params = sum(p.numel() for p in model.parameters())
-    head = model.embed if cfg.tie_embeddings else model.lm_head
-    layer_params = sum(p.numel() for p in model.layers.parameters())
-    tokens = batch * prompt_len
-    kv_bytes = (cfg.n_layers * 2 * tokens * cfg.n_kv_heads * cfg.d_head
-                * elt)
-    attn_ops = (cfg.n_layers * 2 * 2 * batch * cfg.n_heads * cfg.d_head
-                * prompt_len * (prompt_len + 1) / 2)
-    prefill_ops = 2 * layer_params * tokens + attn_ops \
-        + 2 * head.numel() * batch
-    out = {}
-    for name, nbytes, ops in (
-            ("decode", n_params * elt + kv_bytes, 2 * n_params * batch),
-            ("prefill", n_params * elt + kv_bytes, prefill_ops)):
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / rate * 1e3
-        out[f"{name}_bound_ms"] = max(by_bytes, by_ops)
-        out[f"{name}_bound_by"] = "bytes" if by_bytes >= by_ops \
-            else "operations"
-        out[f"{name}_bytes"], out[f"{name}_ops"] = nbytes, ops
-    out["ops_per_s"] = rate
-    return out
-
-
 def phase_serve_dense(card: str) -> dict:
     """``qwen3-8b`` at full width in float32: no hand-written kernel may
     launch (the dense path has none)."""
@@ -2240,75 +2226,6 @@ def _host_syncs(fn) -> dict:
         if "synchroniz" in str(w.message))
     return dict(host_syncs_per_step=sum(sites.values()),
                 host_sync_sites=dict(sites))
-
-
-def moe_serve_bound(cfg, model, batch: int, prompt_len: int,
-                    routed: list) -> dict:
-    """Least times of a MoE serve cell, each the larger of its bytes over
-    ``HBM_BYTES_PER_S`` and its operations over the card's rate for the
-    weights' dtype. A decode step reads every weight but the embedding
-    table (it gathers a row a sequence) and the routed experts, then the
-    experts it routed to (``routed``: the distinct experts of each MoE
-    layer, from a measured step) and the prompt's cache (the latent pair
-    under MLA, K and V under GQA); it does 2 operations an active weight
-    a sequence (everything but the embedding table and the routed
-    experts, plus ``top_k`` experts a MoE layer). ``decode_bound_all_
-    experts_ms`` reads every expert, as the JAX package's dispatch does.
-    The prefill reads those weights and every expert and writes the
-    cache; it does 2 operations an active weight a prompt token, the
-    causal attention's two products and the LM head at the last
-    position of each sequence."""
-    from repro_torch.models.transformer import MoELayer, _moe_layers
-
-    elt = model.embed.element_size()
-    rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
-        else FP32_OPS_PER_S
-
-    def nbytes(ps):
-        return sum(p.numel() * p.element_size() for p in ps)
-
-    moes = [layer.moe for layer, _ in _moe_layers(model)
-            if isinstance(layer, MoELayer)]
-    experts = [w for m in moes for w in (m.w_gate, m.w_up, m.w_down)]
-    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
-    head = model.embed if cfg.tie_embeddings else model.lm_head
-    table = 0 if cfg.tie_embeddings else model.embed.numel()
-    n_params = sum(p.numel() for p in model.parameters())
-    base_params = n_params - sum(w.numel() for w in experts) - table
-    base_bytes = (nbytes(model.parameters()) - nbytes(experts)
-                  - table * elt)
-    active = base_params + len(moes) * cfg.top_k * per_expert
-    layer_active = active - head.numel() - model.final_norm.numel()
-    tokens = batch * prompt_len
-    if cfg.use_mla:
-        cache = cfg.n_layers * tokens * (cfg.kv_lora_rank
-                                         + cfg.qk_rope_head_dim) * elt
-        qk, pv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
-    else:
-        cache = cfg.n_layers * 2 * tokens * cfg.n_kv_heads * cfg.d_head * elt
-        qk = pv = cfg.d_head
-    attn_ops = (cfg.n_layers * 2 * batch * cfg.n_heads * (qk + pv)
-                * prompt_len * (prompt_len + 1) / 2)
-    decode_ops = 2 * active * batch
-    out = {}
-    for name, nb, ops in (
-            ("decode", base_bytes + batch * cfg.d_model * elt
-             + sum(routed) * per_expert * elt + cache, decode_ops),
-            ("decode_all_experts", base_bytes + batch * cfg.d_model * elt
-             + nbytes(experts) + cache, decode_ops),
-            ("prefill", base_bytes + tokens * cfg.d_model * elt
-             + nbytes(experts) + cache,
-             2 * layer_active * tokens + attn_ops + 2 * head.numel() * batch)):
-        by_bytes = nb / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / rate * 1e3
-        key = "decode_bound_all_experts" if name == "decode_all_experts" \
-            else f"{name}_bound"
-        out[f"{key}_ms"] = max(by_bytes, by_ops)
-        out[f"{key}_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        out[f"{name}_bytes"], out[f"{name}_ops"] = nb, ops
-    out["ops_per_s"] = rate
-    out["active_params_per_token"] = active
-    return out
 
 
 def _moe_extra(cfg, model, prompts) -> dict:
@@ -2484,85 +2401,6 @@ def _no_kernel_launched(phase: str, counters: dict) -> dict:
         raise AssertionError(f"{phase} launched hand-written kernels "
                              f"{launches}; its path has none")
     return launches
-
-
-def _attention_pairs(seq: int, causal: bool, window=None) -> float:
-    """Query-key pairs a head scores over ``seq`` positions: S^2, or
-    S (S + 1) / 2 when causal, each query seeing at most ``window``."""
-    if not causal:
-        return seq * seq
-    if window is None or window >= seq:
-        return seq * (seq + 1) / 2
-    return window * (window + 1) / 2 + (seq - window) * window
-
-
-def lm_step_bound(cfg, model, batch: int, seq: int, train: bool,
-                  routed_pairs=None) -> dict:
-    """Least time of one forward (``train=False``) or train step over
-    ``batch`` x ``seq`` tokens, the larger of its bytes over
-    ``HBM_BYTES_PER_S`` and its operations over the card's rate for the
-    weights' dtype (``FP32_OPS_PER_S``, TF32 off, or ``BF16_OPS_PER_S``).
-    Operations: 2 a matrix weight a token forward and 4 more backward
-    (every weight of rank 2 or more but the embedding, the element-wise
-    ``mu``, ``u`` and ``conv_w``, and the experts; the LM head; the
-    embedding gather does none); the experts 2 x 3 D F a routed (token,
-    expert) pair (``routed_pairs`` of one forward summed over the MoE
-    layers, or every token's top-k when None); the attention's two
-    products over the pairs a head scores (causal, windowed or not), at
-    MLA's key and value widths; and the recurrences, a forward of
-    ``wkv6`` 5 D^2 + 5 D a row and step, of ``rglru`` 2 an element, all
-    again twice that backward. The recomputation of remat is not work
-    the step needs and is not counted. Bytes: every weight read once (a
-    train step also reads its two moments and writes the three back) and
-    the logits written once (forward; a train step writes none)."""
-    from repro_torch.models.attention import GQA, MLA
-    from repro_torch.models.moe import MoE
-    from repro_torch.models.rglru import RGBlock
-    from repro_torch.models.rwkv6 import HEAD_DIM, TimeMix
-
-    elt = model.embed.element_size()
-    rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
-        else FP32_OPS_PER_S
-    head = model.embed if cfg.tie_embeddings else model.lm_head
-    # not matrix products a token: the embedding (a gather), the head
-    # (counted once), the experts (counted by routed pair below) and the
-    # element-wise TimeMix mixes and bonus and RG-LRU convolution
-    skip = {id(model.embed), id(head)}
-    for m in model.modules():
-        if isinstance(m, MoE):
-            skip.update(map(id, (m.w_gate, m.w_up, m.w_down)))
-        elif isinstance(m, TimeMix):
-            skip.update(map(id, (m.mu, m.u)))
-        elif isinstance(m, RGBlock):
-            skip.add(id(m.conv_w))
-    mm = head.numel() + sum(p.numel() for p in model.parameters()
-                            if p.dim() >= 2 and id(p) not in skip)
-    n = sum(p.numel() for p in model.parameters())
-    tokens = batch * seq
-    ops = 2 * mm * tokens
-    if cfg.moe:
-        if routed_pairs is None:
-            routed_pairs = tokens * cfg.top_k * cfg.moe_layout()[0]
-        ops += 2 * 3 * cfg.d_model * cfg.moe_d_ff * routed_pairs
-    window = cfg.local_window if cfg.family == "hybrid" else None
-    pairs = _attention_pairs(seq, not cfg.encoder_only, window)
-    for m in model.modules():
-        if isinstance(m, GQA):
-            ops += 2 * 2 * batch * cfg.n_heads * cfg.d_head * pairs
-        elif isinstance(m, MLA):
-            ops += 2 * batch * cfg.n_heads * pairs * (
-                cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
-        elif isinstance(m, TimeMix):
-            ops += tokens * m.u.shape[0] * (5 * HEAD_DIM ** 2 + 5 * HEAD_DIM)
-        elif isinstance(m, RGBlock):
-            ops += 2 * tokens * m.lam.numel()
-    ops *= 3 if train else 1
-    nbytes = (6 * n * 4 if train else n * elt + tokens * cfg.vocab * elt)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / rate * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                bound_ops=ops, bound_bytes=nbytes, ops_per_s=rate)
 
 
 def phase_train_parity(card: str) -> dict:
@@ -3504,6 +3342,172 @@ def phase_train_moe(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# dryrun phase: the counted work of a step (``repro_torch.analysis``), on
+# meta and on the card
+# ---------------------------------------------------------------------------
+
+# (a) on meta, bf16, two depths extrapolated: one arch of each family at
+# train_4k and decode_32k, but the ssm family's train_4k, whose plain WKV
+# backward recomputes its 4,096 steps op by op (minutes of host time).
+# Serially these cells take ~46 s of host time; the whole 40-cell sweep
+# takes ~20 min (prefill_32k cells up to minutes each); PERF.md has it
+# from the CLI.
+DRYRUN_SWEEP = tuple((arch, shape) for arch in (
+    "smollm-135m", "internvl2-26b", "hubert-xlarge",
+    "llama4-maverick-400b-a17b", "rwkv6-3b", "recurrentgemma-9b")
+    for shape in ("train_4k", "decode_32k")
+    if (arch, shape) != ("rwkv6-3b", "train_4k"))
+# (b) on the card and on meta at full depth, fp32, the shapes of the
+# train, serve_dense and serve phases: (arch, kind, seq, batch)
+DRYRUN_CARD = (("smollm-135m", "train", 256, 8),
+               ("qwen3-8b", "decode", 1024 + 32, 4),
+               ("rwkv6-3b", "prefill", 512, 4))
+DRYRUN_REPS = {"train": 5, "decode": 20, "prefill": 5}
+DRYRUN_WORKERS = 4             # of the card's machine's 8 cores
+
+
+def _card_cell(cfg, kind: str, seq: int, batch: int):
+    """The step of a (kind, seq, batch) cell with its arguments on the
+    card: a model drawn from seed 0 in float32 (trainable for a train
+    step), the synthetic pipeline's first batch, a zero cache holding
+    ``seq - 32`` positions for a decode step. Returns (fn, args,
+    static)."""
+
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.steps import prefill_step, serve_step, train_step
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.optim import adamw
+
+    model = init_model(cfg, seed=0, torch_device=DEV,
+                       trainable=kind == "train")
+    if kind == "decode":
+        cache = init_cache(cfg, batch, seq, torch_device=DEV)
+        token = torch.zeros((batch,), dtype=torch.int32, device=DEV)
+        length = torch.full((batch,), seq - 32, dtype=torch.int32,
+                            device=DEV)
+        return serve_step, (model, cache, token, length), {}
+    pipe = SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch), torch_device=DEV)
+    data = {k: v.contiguous() for k, v in pipe.batch(0).items()}
+    if kind == "train":
+        fn = functools.partial(train_step, opt_cfg=adamw.AdamWConfig(),
+                               remat=True)
+        opt = adamw.init(dict(model.named_parameters()), adamw.AdamWConfig())
+        return fn, (model, opt, data), {}
+    return prefill_step, (model, {"tokens": data["tokens"]}), \
+        {"cache_len": seq}
+
+
+def phase_dryrun(card: str) -> dict:
+    """(a) ``launch/dryrun.py``'s ``run_cell`` on meta for the cells of
+    ``DRYRUN_SWEEP``: every record ``ok`` or ``skipped``.
+    (b) three steps counted on the card and on meta at full depth in
+    float32: ``smollm-135m``'s train step (8 x 256), ``qwen3-8b``'s decode
+    step (batch 4, cache 1024 + 32) and ``rwkv6-3b``'s prefill (4 x 512,
+    the ``wkv6`` kernel): the card's counted FLOPs and bytes must equal
+    meta's to the unit; each with its CUDA-event median step time, the
+    counted roofline bound and its share of the step (``mfu_*``), the
+    hand-counted bound beside it, and the counted peak of live bytes
+    beside ``torch.cuda.max_memory_allocated``. (a) runs in worker
+    processes while (b) runs on the card."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    # (a) meta counting is host work: its cells run in DRYRUN_WORKERS
+    # processes, which touch no card, while (b) runs here; the workers
+    # are stopped on leaving the pool
+    with multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
+        pending = pool.starmap_async(
+            functools.partial(dryrun.run_cell, verbose=False), DRYRUN_SWEEP)
+        cells = _dryrun_card_cells()
+        card_s = time.perf_counter() - t0
+        recs = pending.get()
+    sweep_s = time.perf_counter() - t0
+    sweep = []
+    for (arch, shape), rec in zip(DRYRUN_SWEEP, recs):
+        if rec["status"] not in ("ok", "skipped"):
+            raise AssertionError(f"dryrun {arch} x {shape}: {rec}")
+        sweep.append({k: rec.get(k) for k in (
+            "arch", "shape", "status", "flops", "bytes_accessed",
+            "argument_size_in_bytes", "temp_size_in_bytes",
+            "fits_one_card", "compile_s")})
+    rec = dict(phase="dryrun", sweep=sweep, sweep_s=sweep_s, cells=cells,
+               card_s=card_s, seconds=time.perf_counter() - t0, card=card)
+    emit(rec)
+    return rec
+
+
+def _dryrun_card_cells() -> list:
+    """``phase_dryrun``'s (b): the cells of ``DRYRUN_CARD`` counted on
+    meta and on the card, timed, each with its bounds and peak."""
+    from repro_torch.analysis.roofline import Roofline, model_flops_for
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.common import DTypePolicy
+
+    cells = []
+    for arch, kind, seq, batch in DRYRUN_CARD:
+        cfg = get_config(arch)
+        shape = ShapeCell(f"{kind}_{batch}x{seq}", kind, seq, batch)
+        fn, args, _, _, static = build_cell(cfg, shape, None, DTypePolicy())
+        meta = dryrun.count_step(fn, args, static, "meta")
+        del fn, args
+        fn, args, static = _card_cell(cfg, kind, seq, batch)
+        model = args[0]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = dryrun.count_step(fn, args, static, DEV)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        for key in ("flops", "bytes"):
+            if got[key] != meta[key]:
+                raise AssertionError(f"dryrun {arch} {kind}: {key} counted "
+                                     f"on the card {got[key]}, on meta "
+                                     f"{meta[key]}")
+        times = []
+        for _ in range(DRYRUN_REPS[kind]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn(*args, **static)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        step_ms = float(np.median(times))
+        peak_flops = H100.peak_flops(model.embed.dtype)
+        rl = Roofline(arch, shape.name, "one", 1, got["flops"], got["bytes"],
+                      got["collectives"]["total"],
+                      model_flops_for(cfg, shape), H100, peak_flops)
+        if kind == "decode":
+            hand = dense_serve_bound(cfg, model, batch, seq - 32)
+            hand = dict(bound_ms=hand["decode_bound_ms"],
+                        bound_by=hand["decode_bound_by"])
+        else:
+            hand = lm_step_bound(cfg, model, batch, seq,
+                                 train=kind == "train")
+        bound_ms = rl.step_time_lb * 1e3
+        cells.append(dict(
+            arch=arch, kind=kind, batch=batch, seq=seq, dtype="float32",
+            counted_flops=got["flops"], counted_bytes=got["bytes"],
+            meta_flops=meta["flops"], meta_bytes=meta["bytes"],
+            kernels=got["kernels"], step_ms=step_ms, step_ms_all=times,
+            counted_bound_ms=bound_ms, bottleneck=rl.bottleneck,
+            mfu_counted_bound=bound_ms / step_ms,
+            mfu_model_flops=rl.model_flops / (peak_flops * step_ms * 1e-3),
+            useful_flops_fraction=rl.useful_flops_fraction,
+            hand_bound_ms=hand["bound_ms"], hand_bound_by=hand["bound_by"],
+            counted_temp_size_in_bytes=got["temp"],
+            meta_temp_size_in_bytes=meta["temp"],
+            max_memory_allocated_delta=peak))
+        del fn, args, static, model, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cells
+
+
+# ---------------------------------------------------------------------------
 # gemm_kernel phase: the systolic GEMM's four kernels against their plain
 # versions, and systolic_gemm against torch.matmul
 # ---------------------------------------------------------------------------
@@ -3570,8 +3574,8 @@ def gemm_bound(M: int, K: int, N: int, dtype, site: str,
     out_bytes = M * N * (isz if site == "os_gemm" else 4 * n_slabs)
     nbytes = (M * K + K * N) * isz + out_bytes
     ops = 2 * M * N * K
-    rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rate = H100.fp32_flops if dtype == torch.float32 else H100.bf16_flops
+    t_bytes = nbytes / H100.hbm_bytes_per_s * 1e3
     t_ops = ops / rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -3746,8 +3750,8 @@ def segment_bound(pref, rows, start, end) -> dict:
     nbytes = (int(torch.unique(ids).numel()) * isz + 3 * P * C * 4
               + (P * C + P) * isz)
     ops = 2 * P * C
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / H100.hbm_bytes_per_s * 1e3
+    t_ops = ops / H100.fp32_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops)
@@ -3857,12 +3861,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    src = os.path.join(REPO, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print("chip_smoke: run from a checkout of the repository "
-              "(src/repro_torch not found)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3944,6 +3942,7 @@ def main() -> int:
               card=card))
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dryrun(card)
     gmain = phase_gemm(card)
     smain = phase_prefix_segment(card)
 

@@ -9,6 +9,7 @@ CONFIG = ModelConfig(
     d_model=2560,
     n_heads=0,             # attention-free
     n_kv_heads=0,
+    d_head=0,
     d_ff=8960,
     vocab=65536,
     sub_quadratic=True,    # O(1) state: runs long_500k

@@ -10,9 +10,16 @@ library as ``<name>.log``. The library is loaded with ``ctypes``.
 :func:`compile_sources` starts one ``nvcc`` per source, all at once, and
 waits for them; :func:`load` compiles one source if needed and loads it.
 A failed build raises.
+
+``ctypes`` calls are invisible to torch's dispatcher, so a wrapper
+reports each call's work to the counters in :data:`COUNTERS` through
+:func:`counted`. The list is empty unless a step is being counted
+(``repro_torch.analysis.counting.OpCounter`` adds itself while it is
+entered), and a wrapper then skips the report with one check.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +33,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
+
+# The active work counters, outermost first. Each has
+# ``enter_kernel(name, ops, nbytes)`` and ``exit_kernel()``.
+COUNTERS: List = []
+
+
+@contextlib.contextmanager
+def counted(name: str, ops: int, nbytes: int):
+    """Report one call of the hand-written kernel ``name`` (``ops``
+    operations, ``nbytes`` bytes, by its formula) to every counter in
+    :data:`COUNTERS`, and hide from them the aten ops run inside the
+    block: the plain version on the CPU, empty outputs on ``meta``,
+    allocations around the launch on cuda."""
+    counters = list(COUNTERS)
+    for c in counters:
+        c.enter_kernel(name, ops, nbytes)
+    try:
+        yield
+    finally:
+        for c in counters:
+            c.exit_kernel()
 
 
 def _nvcc() -> str:

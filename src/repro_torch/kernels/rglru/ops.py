@@ -6,8 +6,12 @@ function). On a CUDA tensor it launches a hand-written Hopper kernel
 in ``csrc/rglru.cu`` (its launcher takes the ring kernel for T >= 2, the
 step kernel for one step; :func:`geometry` says which); on a CPU tensor
 it runs the plain torch version
-(:func:`~repro_torch.kernels.rglru.ref.rglru_plain`). There is no other
-switch, and a failed build or launch raises.
+(:func:`~repro_torch.kernels.rglru.ref.rglru_plain`); on a ``meta``
+tensor it returns empty outputs of the right shapes (shape-only
+counting). There is no other switch, and a failed build or launch
+raises. While a step is counted, each call reports its work
+(:func:`work`) to the counters (``_build.COUNTERS``), whichever path
+runs.
 
 The final state is written into ``h_out`` (B, C), which may be ``h0``
 itself: the decode cache's ``h`` slab is then updated in place. Any
@@ -110,16 +114,45 @@ def _check(a, b, h0, h_out):
         raise ValueError("rglru: tensors must be contiguous")
 
 
+def work(a: torch.Tensor,
+         h0: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """(operations, bytes) of one call: the least work the function
+    needs, as the counter (:mod:`repro_torch.analysis.counting`) and the
+    kernel's bound read it. Bytes: a and b read once, the start state
+    (when given) read once, h and the final state written once.
+    Operations: one multiply and one add per element."""
+    B, T, C = a.shape
+    nbytes = 4 * (3 * B * T * C + B * C + (B * C if h0 is not None else 0))
+    return 2 * B * T * C, nbytes
+
+
 def _run(a, b, h0, h_out):
     """The recurrence on the inputs' device: the kernel on cuda, the
-    plain version on the CPU."""
+    plain version on the CPU, empty outputs of the right shapes on
+    ``meta`` (nothing is launched). Its work (:func:`work`) is reported to
+    the counters while a step is counted, whichever runs."""
+    if a.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rglru: unsupported device {a.device}")
+    if _build.COUNTERS:
+        with _build.counted("rglru", *work(a, h0)):
+            return _compute(a, b, h0, h_out)
+    return _compute(a, b, h0, h_out)
+
+
+def _compute(a, b, h0, h_out):
     if a.device.type == "cpu":
         h, h_t = rglru_plain(a, b, h0)
         if h_out is not None:
             h_t = h_out.copy_(h_t)
         return h, h_t
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru: unsupported device {a.device}")
+    if a.device.type == "meta":
+        h_t = h_out if h_out is not None else torch.empty(
+            a.shape[::2], dtype=torch.float32, device=a.device)
+        return torch.empty_like(a), h_t
+    return _launch(a, b, h0, h_out)
+
+
+def _launch(a, b, h0, h_out):
     lib = build()
     bsz, t, c = a.shape
     h = torch.empty_like(a)

@@ -4,8 +4,12 @@
 (see :mod:`repro_torch.kernels.wkv6.ref` for the function). On a CUDA
 tensor it launches the hand-written Hopper kernel in ``csrc/wkv6.cu``;
 on a CPU tensor it runs the plain torch version
-(:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`). There is no other
-switch, and a failed build or launch raises.
+(:func:`~repro_torch.kernels.wkv6.ref.wkv6_plain`); on a ``meta``
+tensor it returns empty outputs of the right shapes (shape-only
+counting). There is no other switch, and a failed build or launch
+raises. While a step is counted, each call reports its work
+(:func:`work`) to the counters (``_build.COUNTERS``), whichever path
+runs.
 
 Layouts. ``r, k, v, w`` are either (G, T, D) rows, or the model's
 (B, T, H, D) with rows g = b*H + h, which the kernel reads and writes as
@@ -122,16 +126,50 @@ def _check(r, k, v, w, u, s0, s_out):
     return (b, t, h, d), state
 
 
+def work(r: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """(operations, bytes) of one call: the least work the function
+    needs, as the counter (:mod:`repro_torch.analysis.counting`) and the
+    kernel's bound read it. Bytes: r, k, v, w read once, u and the start
+    state (when given) read once, y and S_T written once. Operations per
+    (g, t): y_v = sum_k r_k S[k, v] + v_v sum_k r_k u_k k_k (2 D^2 + 5 D)
+    and S <- w * S + k v^T (3 D^2). ``r`` is (G, T, D) or
+    (B, T, H, D)."""
+    T, D = r.shape[1], r.shape[-1]
+    G = r.numel() // (T * D)
+    nbytes = 4 * (5 * G * T * D + u.numel() + G * D * D
+                  + (G * D * D if s0 is not None else 0))
+    return G * T * (5 * D * D + 5 * D), nbytes
+
+
 def _run(r, k, v, w, u, s0, s_out, b, t, h, d, state):
     """The recurrence on the inputs' device: the kernel on cuda, the
-    plain version on the CPU."""
+    plain version on the CPU, empty outputs of the right shapes on
+    ``meta`` (nothing is launched). Its work (:func:`work`) is reported to
+    the counters while a step is counted, whichever runs."""
+    if r.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    if _build.COUNTERS:
+        with _build.counted("wkv6", *work(r, u, s0)):
+            return _compute(r, k, v, w, u, s0, s_out, b, t, h, d, state)
+    return _compute(r, k, v, w, u, s0, s_out, b, t, h, d, state)
+
+
+def _compute(r, k, v, w, u, s0, s_out, b, t, h, d, state):
     if r.device.type == "cpu":
         y, s = wkv6_plain(r, k, v, w, u, s0)
         if s_out is not None:
             s = s_out.copy_(s)
         return y, s
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6: unsupported device {r.device}")
+    if r.device.type == "meta":
+        y = torch.empty_like(r)
+        s = s_out if s_out is not None else torch.empty(
+            state, dtype=torch.float32, device=r.device)
+        return y, s
+    return _launch(r, k, v, w, u, s0, s_out, b, t, h, d, state)
+
+
+def _launch(r, k, v, w, u, s0, s_out, b, t, h, d, state):
     if any(x is not None and x.data_ptr() % 16
            for x in (r, k, v, w, u, s0, s_out)):
         raise ValueError("wkv6: r, k, v, w, u and the state must start on "

@@ -6,6 +6,8 @@
         --reduced --steps 20 --fail-rate 0.1            # with restarts
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch rwkv6-3b --reduced --steps 20            # moe, ssm, hybrid
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --reduced --pathfind --steps 2                  # print an H100 plan
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 \
         --batch 8 --seq 256 --ckpt-every 10             # on cuda, full width
 
@@ -23,8 +25,11 @@ first.
 The config is reduced with ``--reduced`` or on the CPU, as there.
 ``--dtype`` picks ``DTypePolicy()`` (float32, the JAX CLI's policy) or
 ``DTypePolicy.bf16()``. Without a GPU it raises unless ``--device cpu``
-is given. There is no ``--model-par`` (one card) and no ``--pathfind``
-(the TPU plan search). Every token-LM family trains: dense, moe (with
+is given. There is no ``--model-par`` (one card). ``--pathfind`` first
+anneals a plan for a cluster of H100s (``analysis/gpu_pathfinder.py``:
+devices, TP width, microbatch, remat, int8 gradients, with their carbon)
+and prints it, as the JAX CLI does; the run itself stays on one device.
+Every token-LM family trains: dense, moe (with
 the experts' capacity drops and the load-balancing loss), ssm (RWKV-6,
 gradients through the ``wkv6`` kernel's autograd node) and hybrid
 (RecurrentGemma, through ``rglru``'s); audio and vlm are refused with
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.analysis.gpu_pathfinder import pathfind
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
@@ -184,6 +190,8 @@ def main(argv=None) -> int:
                     help="default: a fresh temporary directory")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--fail-rate", type=float, default=0.0)
+    ap.add_argument("--pathfind", action="store_true",
+                    help="print the H100 cluster plan the pathfinder picks")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: cuda (raises without a GPU)")
@@ -198,6 +206,9 @@ def main(argv=None) -> int:
     require_trainable(cfg)
     policy = (DTypePolicy.bf16() if args.dtype == "bfloat16"
               else DTypePolicy())
+    if args.pathfind:
+        plan = pathfind(cfg, args.batch, args.seq, verbose=True)
+        print(f"[pathfind] chosen plan: {plan}")
     out = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 lr=args.lr, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every, fail_rate=args.fail_rate,

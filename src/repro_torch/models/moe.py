@@ -144,6 +144,16 @@ def _router_logits(p, xf: torch.Tensor) -> torch.Tensor:
     return xf.float() @ p.router
 
 
+def _run_starts(runs: torch.Tensor, pairs: int, e: int) -> list:
+    """The start of each expert's run and the end of the last, on the
+    host. A ``meta`` tensor holds no routing: there every pair counts as
+    routed, none dropped, spread as evenly as whole pairs go over the
+    experts (so the work counted reads every expert that gets one)."""
+    if runs.device.type == "meta":
+        return [i * pairs // e for i in range(e + 1)]
+    return runs.tolist()
+
+
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
                 capacity: Optional[int] = None, exact: bool = False,
                 mesh: Optional[Sequence[torch.device]] = None
@@ -155,7 +165,11 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
     ``int(T * k / E * capacity_factor) + 1``. A ``mesh`` of more than
     one device, where the JAX package would split the experts over its
     ``model`` axis (``moe_forward_ep``), raises ``NotImplementedError``:
-    that dispatch is not ported, since one H100 cannot check it."""
+    that dispatch is not ported, since one H100 cannot check it. On
+    ``meta`` (shape-only counting) the routing is not known: every
+    token's top-k pairs count as routed, spread evenly over the experts
+    and none dropped (:func:`_run_starts`), so the bytes counted read
+    every expert that a share of the pairs reaches."""
     if mesh is not None and len(mesh) > 1:
         raise NotImplementedError(
             f"expert-parallel MoE over {len(mesh)} devices is not ported "
@@ -174,7 +188,7 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig,
     order = torch.argsort(flat_expert, stable=True)
     runs = torch.searchsorted(flat_expert[order],
                               torch.arange(e + 1, device=x.device))
-    runs = runs.tolist()                    # the one host sync of the call
+    runs = _run_starts(runs, t * k, e)      # the one host sync of the call
     xs = F.embedding(order // k, xf)                        # (T*k, D)
     w_gate, w_up, w_down = p.w_gate, p.w_up, p.w_down
     if torch.is_grad_enabled() and w_gate.requires_grad:

@@ -232,10 +232,13 @@ def init_model(cfg: ModelConfig, policy: DTypePolicy = DTypePolicy(), *,
                trainable: bool = False) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     the target device (so a full-width model is drawn where it lives);
-    the parameters take grads when ``trainable``."""
+    the parameters take grads when ``trainable``. On ``meta`` the model
+    has shapes and no data, and nothing is drawn (the counterpart of
+    ``jax.eval_shape`` of the JAX package's ``init_model``)."""
     require_ported(cfg)
     dev = resolve_device(torch_device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         model = LM(cfg, policy, gen, dev)
     return model.requires_grad_(trainable)

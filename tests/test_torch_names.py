@@ -12,6 +12,10 @@ the reference is imported). The allowed differences:
 - one omission, ``kernels.wkv6_ref_vmapped``: it is ``jax.vmap`` of
   ``wkv6_ref`` over rows, and ``wkv6_plain`` already takes the batched
   (G, T, D) and (B, T, H, D) layouts.
+
+The reference's ``analysis`` and ``launch`` have no ``__all__``: their
+names are those their ``__init__.py`` imports, and the port exports
+each of them too.
 """
 import ast
 import importlib
@@ -40,6 +44,15 @@ def _reference_all(pkg):
     return None
 
 
+def _reference_imports(pkg):
+    """The names the reference subpackage's ``__init__.py`` imports."""
+    path = os.path.join(SRC, "repro", pkg, "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return [a.asname or a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) for a in node.names]
+
+
 def _port_name(name):
     if name in RENAMES:
         return RENAMES[name]
@@ -61,6 +74,16 @@ def test_port_exports_the_reference_names(pkg):
     mod = importlib.import_module(f"repro_torch.{pkg}")
     wanted = [_port_name(n) for n in _reference_all(pkg)
               if n not in OMITTED.get(pkg, ())]
+    missing = [n for n in wanted if n not in mod.__all__]
+    assert not missing, f"repro_torch.{pkg} lacks {missing}"
+    assert all(hasattr(mod, n) for n in mod.__all__)
+
+
+@pytest.mark.parametrize("pkg", ("analysis", "launch"))
+def test_port_exports_the_names_the_reference_imports(pkg):
+    wanted = _reference_imports(pkg)
+    assert wanted and _reference_all(pkg) is None
+    mod = importlib.import_module(f"repro_torch.{pkg}")
     missing = [n for n in wanted if n not in mod.__all__]
     assert not missing, f"repro_torch.{pkg} lacks {missing}"
     assert all(hasattr(mod, n) for n in mod.__all__)

@@ -63,9 +63,12 @@ np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
 
 
 def run_reference(body: str, inputs: Optional[Dict[str, np.ndarray]],
-                  workdir, timeout: float = 240.0) -> Dict[str, np.ndarray]:
+                  workdir, timeout: float = 240.0,
+                  env: Optional[Dict[str, str]] = None
+                  ) -> Dict[str, np.ndarray]:
     """Run ``body`` against the reference package in a subprocess and
-    return the ``out`` dict it filled."""
+    return the ``out`` dict it filled. ``env`` adds variables to the
+    subprocess's environment (``XLA_FLAGS``, read before jax starts)."""
     workdir = str(workdir)
     in_path = os.path.join(workdir, "ref_in.npz")
     out_path = os.path.join(workdir, "ref_out.npz")
@@ -73,7 +76,7 @@ def run_reference(body: str, inputs: Optional[Dict[str, np.ndarray]],
     np.savez(in_path, **(inputs or {"_": np.zeros(0)}))
     with open(script, "w") as f:
         f.write(_PREAMBLE + textwrap.dedent(body) + _EPILOGUE)
-    env = dict(os.environ)
+    env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = SRC
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run(
