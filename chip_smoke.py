@@ -317,10 +317,29 @@ one JSON line that carries the card's name and power limit:
     counted roofline bound and its share (``mfu_counted_bound``), the
     model-FLOPs utilization, the hand-counted bound, and the counted
     peak of live bytes beside ``torch.cuda.max_memory_allocated``.
+    (a) also counts one production-mesh cell, ``smollm-135m`` train_4k on
+    the 16 x 16 single pod, one rank of a fake 256-rank process group
+    in its own worker (``dryrun.run_mesh_cell``): ok, per-device bytes.
+39. ``mesh_one`` — the multi-rank paths over NCCL at world size 1 (a
+    process group of this one process, after ``scenario_llm``): (i)
+    ``scenario_llm``'s grid with ``shard=True``, whose mesh is now the
+    group's one-rank ``DeviceMesh``, equal to ``shard=False`` bit for
+    bit (its ``prefix_select`` launches count in the kernels line);
+    (ii) the reduced ``smollm-135m`` train step built on a 1 x 1 cuda
+    ``DeviceMesh`` (parameters, moments and batch as DTensors) against
+    the plain step, three steps under deterministic algorithms: losses
+    and parameters bit for bit, or within 1e-6 of each leaf's max (the
+    record says which).
+40. ``ep_shards`` — the expert-parallel split on the card: ``_ep_shard``
+    of ranks 0-3 of the reduced ``deepseek-v2-236b``'s first MoE layer,
+    summed, exact and with the capacity drops, within 1e-5 of max |y|
+    of the same sums on the CPU; the exact sum plus the shared experts
+    within 1e-5 of ``moe_forward(exact=True)`` on the card.
+A ``seconds`` line gives the whole script's time.
 
 Then a line with the card (``nvidia-smi``), the ``kernels`` JSON line (the
 ``prefix_select`` launches are those of the search, pareto, strategies,
-scenario, resume, service and scenario_llm phases; the ``wkv6`` and
+scenario, resume, service, scenario_llm and mesh_one phases; the ``wkv6`` and
 ``rglru`` launches those of ``serve`` and ``train_ssm``, of
 ``serve_hybrid`` and ``train_hybrid``) and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -330,6 +349,7 @@ checkout of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -2360,6 +2380,194 @@ def phase_scenario_llm(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# mesh_one / ep_shards phases: the multi-rank paths at one rank on the card
+# ---------------------------------------------------------------------------
+
+MESH_TOL = 1e-6           # of each leaf's max |value|: the 1 x 1 mesh step
+EP_TOL = 1e-5             # of max |y|: the summed expert-parallel shards
+MESH_RUN = dict(seq=64, batch=4, steps=3)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh_one(card: str) -> dict:
+    """NCCL at world size 1: (i) scenario_llm's grid split over the live
+    group's one rank against ``shard=False``, bit for bit; (ii) the
+    reduced smollm train step on a 1 x 1 cuda ``DeviceMesh`` against
+    the plain step."""
+    import torch.distributed as dist
+
+    from repro_torch import distributed
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw
+    from repro_torch.pathfinding import (
+        ScalarizationSweep,
+        ScenarioSweep,
+        workloads_from_configs,
+    )
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    try:
+        init_s = time.perf_counter() - t0
+        # (i) the scenario grid over the group
+        wls = workloads_from_configs(["smollm-135m", "qwen3-8b"])
+        sweep = ScenarioSweep(strategy=ScalarizationSweep(
+            directions=2, n_chains=4, sweeps=10), shard=True)
+        torch.cuda.synchronize()
+        kops.reset_launch_count()
+        with _Recorder(distributed, "shard_scenarios") as placed:
+            t = time.perf_counter()
+            got = sweep.run(wls, key=0, torch_device=DEV)
+            torch.cuda.synchronize()
+            split_s = time.perf_counter() - t
+        launches = kops.launch_count()
+        meshes = [call[0][1] for call in placed.calls]
+        if len(meshes) != 1 or type(meshes[0]).__name__ != "DeviceMesh" \
+                or meshes[0].size() != 1 \
+                or meshes[0].device_type != torch.device(DEV).type:
+            raise AssertionError(f"mesh_one placed its cells on {meshes}, "
+                                 f"not the group's one-rank {DEV} mesh")
+        want = 1 + sweep.strategy.sweeps + 1
+        if launches != want:
+            raise AssertionError(f"mesh_one launched prefix_select "
+                                 f"{launches} times, not {want}")
+        plain = dataclasses.replace(sweep, shard=False).run(
+            wls, key=0, torch_device=DEV)
+        for sc in plain.scenarios:
+            a, b = got.results[sc.key], plain.results[sc.key]
+            if not (a.best == b.best and a.best_cost == b.best_cost
+                    and a.history == b.history
+                    and np.array_equal(a.frontier.encoded,
+                                       b.frontier.encoded)
+                    and np.array_equal(a.frontier.vectors,
+                                       b.frontier.vectors)):
+                raise AssertionError(f"mesh_one cell {sc.key}: the split "
+                                     "grid differs from shard=False")
+        # (ii) the train step on a 1 x 1 DeviceMesh against the plain one
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        cfg = get_config("smollm-135m").reduced()
+        policy = DTypePolicy()
+        opt_cfg = adamw.AdamWConfig(lr_peak=1e-2, warmup_steps=2,
+                                    total_steps=30)
+        pipe = SyntheticTokenPipeline(DataConfig(
+            cfg.vocab, MESH_RUN["seq"], MESH_RUN["batch"]), torch_device=DEV)
+        runs, step_ms = {}, {}
+        mesh = make_host_mesh(1, DEV)
+        for name, m in (("plain", None), ("mesh", mesh)):
+            model = init_model(cfg, policy, seed=0, torch_device=DEV,
+                               trainable=True)
+            step = build_train_step(cfg, m, opt_cfg, policy, remat=True)[0]
+            state = adamw.init(dict(model.named_parameters()), opt_cfg)
+            losses, times = [], []
+            for i in range(MESH_RUN["steps"]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(model, state, pipe.batch(i))
+                losses.append(float(metrics["loss"]))
+                times.append((time.perf_counter() - t) * 1e3)
+            params = dict(model.named_parameters())
+            dtensors = sum(distributed.sharding.is_dtensor(p)
+                           for p in params.values())
+            if (m is not None) != (dtensors == len(params)):
+                raise AssertionError(f"mesh_one {name}: {dtensors} of "
+                                     f"{len(params)} parameters are "
+                                     "DTensors")
+            runs[name] = (losses, {k: distributed.sharding.full(p).detach()
+                                   for k, p in params.items()})
+            step_ms[name] = times
+        (la, pa), (lb, pb) = runs["plain"], runs["mesh"]
+        bitwise = la == lb and all(torch.equal(pa[k], pb[k]) for k in pa)
+        worst = max(float((pa[k] - pb[k]).abs().max())
+                    / max(float(pa[k].abs().max()), 1e-30) for k in pa)
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+        if not bitwise and max(worst, loss_rel) > MESH_TOL:
+            raise AssertionError(f"mesh_one: the 1 x 1 mesh step is "
+                                 f"{worst} (params) / {loss_rel} (loss) "
+                                 f"off the plain step, > {MESH_TOL}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+        dist.destroy_process_group()
+    rec = dict(phase="mesh_one", backend="nccl", world_size=1,
+               init_s=init_s, scenario_cells=len(plain.scenarios),
+               scenario_split_equal=True, scenario_split_s=split_s,
+               launches={"prefix_select": launches},
+               train_steps=MESH_RUN, train_bitwise=bitwise,
+               train_max_rel_param=worst, train_max_rel_loss=loss_rel,
+               train_losses=runs["mesh"][0], step_ms=step_ms,
+               seconds=time.perf_counter() - t0, card=card)
+    emit(rec)
+    return rec
+
+
+def phase_ep_shards(card: str) -> dict:
+    """The four ranks' ``_ep_shard`` of the reduced deepseek-v2-236b's
+    first MoE layer summed on the card, against the CPU and against
+    ``moe_forward(exact=True)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.models.transformer import init_model
+
+    t0 = time.perf_counter()
+    cfg = get_config("deepseek-v2-236b").reduced()
+    layer = init_model(cfg, DTypePolicy(), seed=0,
+                       torch_device="cpu").moe_layers[0].moe
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32))
+    ep = 4
+    e_loc = cfg.n_experts // ep
+
+    def summed(lay, xs, exact):
+        return sum(moe_mod._ep_shard(
+            lay.router, *(w[r * e_loc:(r + 1) * e_loc]
+                          for w in (lay.w_gate, lay.w_up, lay.w_down)),
+            xs, cfg, r, ep, exact=exact) for r in range(ep))
+
+    errs = {}
+    with torch.inference_mode():
+        card_layer = copy.deepcopy(layer).to(DEV)
+        xd = x.to(DEV)
+        for exact in (True, False):
+            got = summed(card_layer, xd, exact).cpu()
+            want = summed(layer, x, exact)
+            errs[f"vs_cpu_{'exact' if exact else 'capped'}"] = float(
+                (got - want).abs().max()) / float(want.abs().max())
+        whole = moe_mod.moe_forward(card_layer, xd, cfg, exact=True)
+        split = summed(card_layer, xd, True) + moe_mod.mlp_forward(
+            card_layer.shared, xd)
+        errs["vs_moe_forward"] = float((split - whole).abs().max()) \
+            / float(whole.abs().max())
+    for name, err in errs.items():
+        if not err <= EP_TOL:
+            raise AssertionError(f"ep_shards {name}: {err} > {EP_TOL}")
+    rec = dict(phase="ep_shards", arch=cfg.name, ranks=ep,
+               tokens=int(x.shape[0] * x.shape[1]), max_rel=errs,
+               seconds=time.perf_counter() - t0, card=card)
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # train_parity / train / vlm_audio_parity / vlm / audio phases: the training
 # path and the vlm and audio families (no hand-written kernel on their
 # paths)
@@ -3364,6 +3572,8 @@ DRYRUN_CARD = (("smollm-135m", "train", 256, 8),
                ("rwkv6-3b", "prefill", 512, 4))
 DRYRUN_REPS = {"train": 5, "decode": 20, "prefill": 5}
 DRYRUN_WORKERS = 4             # of the card's machine's 8 cores
+# (a) one rank of the production single pod (16 x 16), in its own worker
+DRYRUN_MESH_CELL = ("smollm-135m", "train_4k", "single")
 
 
 def _card_cell(cfg, kind: str, seq: int, batch: int):
@@ -3419,9 +3629,11 @@ def phase_dryrun(card: str) -> dict:
     with multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
         pending = pool.starmap_async(
             functools.partial(dryrun.run_cell, verbose=False), DRYRUN_SWEEP)
+        on_mesh = pool.apply_async(dryrun.run_mesh_cell, DRYRUN_MESH_CELL)
         cells = _dryrun_card_cells()
         card_s = time.perf_counter() - t0
         recs = pending.get()
+        mesh_rec = on_mesh.get()
     sweep_s = time.perf_counter() - t0
     sweep = []
     for (arch, shape), rec in zip(DRYRUN_SWEEP, recs):
@@ -3431,8 +3643,16 @@ def phase_dryrun(card: str) -> dict:
             "arch", "shape", "status", "flops", "bytes_accessed",
             "argument_size_in_bytes", "temp_size_in_bytes",
             "fits_one_card", "compile_s")})
+    if mesh_rec["status"] != "ok" or mesh_rec["chips"] != 256:
+        raise AssertionError(f"dryrun {DRYRUN_MESH_CELL}: {mesh_rec}")
+    mesh_cell = {k: mesh_rec.get(k) for k in (
+        "arch", "shape", "mesh", "chips", "status", "flops",
+        "bytes_accessed", "collectives", "argument_size_in_bytes",
+        "param_size_in_bytes", "temp_size_in_bytes", "fits_one_card",
+        "compile_s")}
     rec = dict(phase="dryrun", sweep=sweep, sweep_s=sweep_s, cells=cells,
-               card_s=card_s, seconds=time.perf_counter() - t0, card=card)
+               mesh_cell=mesh_cell, card_s=card_s,
+               seconds=time.perf_counter() - t0, card=card)
     emit(rec)
     return rec
 
@@ -3861,6 +4081,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3915,6 +4136,8 @@ def main() -> int:
     gc.collect()                          # free llama4's 37.1 GB
     torch.cuda.empty_cache()
     scen_llm = phase_scenario_llm(card)
+    mesh_one = phase_mesh_one(card)
+    phase_ep_shards(card)
     phase_train_parity(card)
     phase_train(card)
     gc.collect()                          # free the two trained smollms
@@ -3945,6 +4168,8 @@ def main() -> int:
     phase_dryrun(card)
     gmain = phase_gemm(card)
     smain = phase_prefix_segment(card)
+    emit(dict(phase="seconds", seconds=time.perf_counter() - t_script,
+              card=card))
 
     print(card)
     emit({"kernels": [{
@@ -3954,7 +4179,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/prefix_gather/kernel.py:79",
         "launches": sum(p["launches"]["prefix_select"]
                         for p in (search, pareto, strategies, scenario,
-                                  resume, service, scen_llm)),
+                                  resume, service, scen_llm, mesh_one)),
         "max_abs_err": kmain["max_abs_err"], "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"], "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"], "library_ms": None}, {

@@ -298,6 +298,12 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "prim":     # metadata (``.device``): no work
+            return func(*args, **kwargs)
+        if any(t.__name__ == "DTensor" for t in types):
+            # a DTensor op runs as its local ops and collectives, each of
+            # which comes back here on this rank's shapes
+            return NotImplemented
         if _composite(func):
             # an op that reaches this mode whole (under inference_mode,
             # ``matmul``) runs as the ops it is made of, as it does under

@@ -34,10 +34,24 @@ and ``fits_one_card``:
   (nothing compiles); ``alias_size_in_bytes`` and
   ``generated_code_size_in_bytes`` have no counterpart and are None.
 
-``--mesh one`` (the default) is the only mesh: ``single``, ``multi``
-and ``both`` need the production shardings of ROADMAP items 16 and 18,
-and are refused. XLA's probe mode and ``scan_layers`` have no twin:
-the port's layers are a Python loop and the counter sees every op.
+``--mesh one`` (the default) counts one card. ``--mesh single`` (16 x
+16, axes data and model), ``multi`` (2 x 16 x 16, pod, data and model)
+and ``both`` count one rank of the JAX package's production meshes:
+this process starts a fake process group of 256 (512) ranks, of which
+it is rank 0 (no device, no data moved), each cell's step places its
+parameters, optimizer state, batch and caches as DTensors on ``meta``
+by the JAX package's rules (``distributed/sharding.py``), and the
+counter sees this rank's local ops and the ``_c10d_functional``
+collectives DTensor runs. Its records are per device:
+``argument_size_in_bytes`` and ``param_size_in_bytes`` from the local
+shard shapes, ``chips`` the mesh's size; ``fits_one_card`` asks whether
+one rank's share fits. The collectives are DTensor's and are recorded,
+not held against XLA's, which chooses others. The multi-pod cells are
+counted on the mesh's (pod x data, model) = 32 x 16 view, which splits
+every dimension the (pod, data) pair splits the same way: DTensor's
+sharding propagation on the 3-d mesh takes minutes an op here. XLA's
+probe mode and ``scan_layers`` have no twin: the port's layers are a
+Python loop and the counter sees every op.
 
 Usage (no device needed; importing this module changes nothing in the
 environment)::
@@ -45,6 +59,8 @@ environment)::
     PYTHONPATH=src python -m repro_torch.launch.dryrun          # all cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
         --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
+        --arch smollm-135m --shape train_4k
 """
 from __future__ import annotations
 
@@ -65,7 +81,11 @@ from repro_torch.analysis.roofline import H100, HEADER, format_row, \
     from_record
 from repro_torch.configs import ARCH_NAMES, SHAPES, applicable, get_config, \
     get_shape
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import (
+    is_device_mesh,
+    make_host_mesh,
+    make_production_mesh,
+)
 from repro_torch.launch.steps import BF16, build_cell
 
 MESHES = ("one", "single", "multi", "both")
@@ -83,6 +103,42 @@ def tree_bytes(tree) -> int:
             st = t.untyped_storage()
             seen[st._cdata] = st.nbytes()
     return sum(seen.values())
+
+
+def _local_bytes(arg, pl, mesh) -> int:
+    """Bytes of this rank's shards of ``arg`` (a tensor, a model, an
+    AdamW state, dicts, lists and tuples of them) placed by ``pl`` (the
+    same structure of placements, or None for a replicated tensor)."""
+    if isinstance(arg, torch.Tensor):
+        n = arg.numel() * arg.element_size()
+        for i, p in enumerate(pl or ()):
+            if p.is_shard():
+                n //= mesh.mesh.shape[i]
+        return n
+    if isinstance(arg, nn.Module):
+        return sum(_local_bytes(t, pl[k], mesh)
+                   for k, t in arg.named_parameters())
+    if hasattr(arg, "_fields"):                 # AdamWState
+        return (_local_bytes(arg.step, None, mesh)
+                + _local_bytes(arg.mu, pl.mu, mesh)
+                + _local_bytes(arg.nu, pl.nu, mesh))
+    if isinstance(arg, dict):
+        return sum(_local_bytes(v, pl[k], mesh) for k, v in arg.items())
+    return sum(_local_bytes(a, p, mesh) for a, p in zip(arg, pl))
+
+
+def production_mesh(name: str):
+    """The mesh a ``--mesh`` name counts on: the production mesh of a
+    fake process group, the multi-pod one as its (pod x data, model)
+    view."""
+    mesh = make_production_mesh(multi_pod=name == "multi")
+    if "pod" not in mesh.mesh_dim_names:
+        return mesh
+    from torch.distributed.device_mesh import init_device_mesh
+
+    pod, data, model = mesh.mesh.shape
+    return init_device_mesh("cpu", (pod * data, model),
+                            mesh_dim_names=("data", "model"))
 
 
 def count_step(fn, args, static, device) -> Dict[str, object]:
@@ -119,23 +175,35 @@ def count_extrapolated(cfg, shape, mesh=None, policy=BF16):
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str = "one",
-             policy=BF16, verbose: bool = True) -> dict:
+             policy=BF16, verbose: bool = True, mesh=None) -> dict:
+    """One cell's record; ``mesh`` is the mesh a ``single`` or ``multi``
+    cell counts on (without one, :func:`run_mesh_cell` builds it)."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     ok, reason = applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": reason}
+    if mesh is None and mesh_name != "one":
+        return run_mesh_cell(arch, shape_name, mesh_name, policy, verbose)
     t0 = time.time()
     try:
-        mesh = make_host_mesh(torch_device="meta")
+        if mesh is None:
+            mesh = make_host_mesh(torch_device="meta")
         ext, k2, depths = count_extrapolated(cfg, shape, mesh, policy)
-        _, args, _, _, _ = build_cell(cfg, shape, mesh, policy)
-        arg_bytes = tree_bytes(args)
+        _, args, in_sh, _, _ = build_cell(cfg, shape, mesh, policy)
+        if is_device_mesh(mesh):
+            chips = mesh.size()
+            arg_bytes = _local_bytes(args, in_sh, mesh)
+            param_bytes = _local_bytes(args[0], in_sh[0], mesh)
+        else:
+            chips = 1
+            arg_bytes = tree_bytes(args)
+            param_bytes = tree_bytes(args[0])
         temp = ext["temp"]
         rec = {
             "arch": arch, "shape": shape_name, "mesh": mesh_name,
-            "chips": 1, "status": "ok",
+            "chips": chips, "status": "ok",
             "flops": ext["flops"],
             "bytes_accessed": ext["bytes"],
             "collectives": ext["collectives"],
@@ -147,6 +215,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "one",
             "compile_s": round(time.time() - t0, 1),
             "temp_size_in_bytes": temp,
             "argument_size_in_bytes": arg_bytes,
+            "param_size_in_bytes": param_bytes,
             "output_size_in_bytes": ext["output"],
             "alias_size_in_bytes": None,
             "generated_code_size_in_bytes": None,
@@ -170,6 +239,21 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "one",
                 "traceback": traceback.format_exc()[-2000:]}
 
 
+def run_mesh_cell(arch: str, shape_name: str, mesh_name: str,
+                  policy=BF16, verbose: bool = False) -> dict:
+    """:func:`run_cell` on a production mesh in a process with no live
+    process group: the fake group starts for the cell and stops after
+    it, so the process can count one-card cells again."""
+    import torch.distributed as dist
+
+    mesh = production_mesh(mesh_name)
+    try:
+        return run_cell(arch, shape_name, mesh_name, policy, verbose,
+                        mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="one arch id (default all)")
@@ -179,11 +263,6 @@ def main(argv=None) -> int:
     ap.add_argument("--append", action="store_true",
                     help="merge into an existing report")
     args = ap.parse_args(argv)
-    if args.mesh != "one":
-        ap.error(f"--mesh {args.mesh}: the production meshes' per-device "
-                 "counts need their parameter, cache and optimizer "
-                 "shardings (ROADMAP, queue 1, items 16 and 18), which "
-                 "need more than one card; --mesh one counts one card")
 
     arches = [args.arch] if args.arch else list(ARCH_NAMES)
     shapes = [args.shape] if args.shape else [s.name for s in SHAPES]
@@ -198,25 +277,27 @@ def main(argv=None) -> int:
             if r.get("status") == "ok"}
 
     failures = 0
-    for arch in arches:
-        for shape in shapes:
-            key = (arch, shape, args.mesh)
-            if key in done:
-                continue
-            print(f"[dryrun] {arch} x {shape} x {args.mesh}")
-            rec = run_cell(arch, shape, args.mesh)
-            records = [r for r in records
-                       if (r["arch"], r["shape"], r["mesh"]) != key]
-            records.append(rec)
-            if rec["status"] == "error":
-                failures += 1
-                print(f"  ERROR: {rec['error']}")
-            elif rec["status"] == "skipped":
-                print(f"  skipped: {rec['reason']}")
-            else:
-                print(f"  ok in {rec['compile_s']}s")
-            with open(args.out, "w") as f:
-                json.dump(records, f, indent=1)
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
+    for mesh_name in meshes:
+        for arch in arches:
+            for shape in shapes:
+                key = (arch, shape, mesh_name)
+                if key in done:
+                    continue
+                print(f"[dryrun] {arch} x {shape} x {mesh_name}")
+                rec = run_cell(arch, shape, mesh_name)
+                records = [r for r in records
+                           if (r["arch"], r["shape"], r["mesh"]) != key]
+                records.append(rec)
+                if rec["status"] == "error":
+                    failures += 1
+                    print(f"  ERROR: {rec['error']}")
+                elif rec["status"] == "skipped":
+                    print(f"  skipped: {rec['reason']}")
+                else:
+                    print(f"  ok in {rec['compile_s']}s")
+                with open(args.out, "w") as f:
+                    json.dump(records, f, indent=1)
     print(f"[dryrun] wrote {args.out}: "
           f"{sum(r['status'] == 'ok' for r in records)} ok, "
           f"{sum(r['status'] == 'skipped' for r in records)} skipped, "

@@ -38,6 +38,13 @@ drawing a weight, a config whose weights exceed the card's free memory:
 the two MoE configs at full depth (471.5 GB and 795.4 GB in bf16) fit
 no single card, and, as in the JAX package's CLI, there is no depth
 flag.
+
+``--model-par N`` serves on a (data, model) mesh of the ranks that
+``python -m torch.distributed.run --nproc-per-node R`` starts (gloo on
+the CPU, nccl on cuda, a card per rank), N ranks per model group: the
+prefill and decode steps of ``launch/steps.py`` built on it, the
+weights, caches and batch placed by the JAX package's rules. Rank 0
+prints. Without that environment the CLI serves on one device.
 """
 from __future__ import annotations
 
@@ -50,7 +57,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.launch.steps import serve_step
+from repro_torch.launch.mesh import init_from_env, make_host_mesh
+from repro_torch.launch.steps import (
+    build_prefill_step,
+    build_serve_step,
+    serve_step,
+)
 from repro_torch.models.common import DTypePolicy
 from repro_torch.models.transformer import LM, init_model, prefill
 
@@ -93,17 +105,26 @@ def _percentile(xs: List[float], q: float):
 
 
 @torch.inference_mode()
-def generate(model: LM, prompts: torch.Tensor, gen: int) -> Dict:
+def generate(model: LM, prompts: torch.Tensor, gen: int,
+             mesh=None) -> Dict:
     """Prefill ``prompts``, then ``gen - 1`` greedy decode steps, each
     timed on the host clock up to a device synchronize. Returns the
     tokens (B, gen), the prefill time, the per-step times, their p50/p90
     over the steady steps (all but the first) and whether every logit of
-    every step was finite."""
+    every step was finite. On a ``DeviceMesh`` the steps are the ones
+    ``launch/steps.py`` builds on it."""
     dev = prompts.device
     b, s = prompts.shape
+    step = serve_step
+    if mesh is not None:
+        step = build_serve_step(model.cfg, mesh)[0]
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache, length = prefill(model, prompts, s + gen)
+    if mesh is None:
+        logits, cache, length = prefill(model, prompts, s + gen)
+    else:
+        logits, cache, length = build_prefill_step(model.cfg, mesh)[0](
+            model, {"tokens": prompts}, cache_len=s + gen)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
@@ -112,8 +133,7 @@ def generate(model: LM, prompts: torch.Tensor, gen: int) -> Dict:
     times = []
     for _ in range(gen - 1):
         t0 = time.perf_counter()
-        token, logits, cache, length = serve_step(model, cache, token,
-                                                  length)
+        token, logits, cache, length = step(model, cache, token, length)
         _sync(dev)
         times.append(time.perf_counter() - t0)
         finite &= torch.isfinite(logits).all()
@@ -145,9 +165,26 @@ def main(argv=None) -> int:
                     help="default: cuda (raises without a GPU)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="ranks per model group under torch.distributed.run")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    mesh, rank = None, 0
+    ranked = init_from_env(dev)
+    if ranked is not None:
+        import torch.distributed as dist
+
+        dev, rank = ranked, dist.get_rank()
+        mesh = make_host_mesh(args.model_par, dev)
+    try:
+        return _serve(args, dev, mesh, rank)
+    finally:
+        if ranked is not None:
+            dist.destroy_process_group()
+
+
+def _serve(args, dev, mesh, rank: int) -> int:
     cfg = get_config(args.arch)
     if args.reduced or dev.type == "cpu":
         cfg = cfg.reduced()
@@ -161,8 +198,14 @@ def main(argv=None) -> int:
         require_fits(cfg, policy, torch.cuda.mem_get_info(dev)[0])
     model = init_model(cfg, policy, seed=0, torch_device=dev)
     prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, 1, dev)
-    out = generate(model, prompts, args.gen)
     n_params = sum(p.numel() for p in model.parameters())
+    out = generate(model, prompts, args.gen, mesh)
+    if rank:
+        return 0 if out["all_finite"] else 1
+    if mesh is not None:
+        print(f"[serve] mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"
+              f" of {mesh.size()} ranks")
     print(f"[serve] {cfg.name}: {n_params} parameters, {model.embed.dtype}")
     print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
           f"{args.prompt_len} in {out['prefill_ms']:.1f}ms")

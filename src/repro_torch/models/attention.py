@@ -28,6 +28,7 @@ package has a backward).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.common import (
     DTypePolicy,
     FrozenParams,
@@ -299,23 +301,40 @@ def init_gqa(cfg: ModelConfig, policy: DTypePolicy,
     return p
 
 
+def _qkv_flat(p, x, cfg: ModelConfig):
+    """q (B, S, H*Dh), k and v (B, S, KV*Dh): the projections and the
+    biases."""
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return q, k, v
+
+
+def _qk_norms(p, cfg: ModelConfig) -> tuple:
+    return (p.q_norm, p.k_norm) if cfg.qk_norm else ()
+
+
+def _split_heads(q, k, v, cfg: ModelConfig, *norms):
+    """The flat projections as q (B, S, KV, G, Dh), k and v (B, S, KV,
+    Dh) (KV the heads this rank holds), then the RMS norm of each head's
+    Dh axis when ``norms`` gives its weights."""
+    b, s, _ = q.shape
+    dh = cfg.d_head
+    g = cfg.n_heads // cfg.n_kv_heads
+    q = q.reshape(b, s, -1, g, dh)
+    k = k.reshape(b, s, -1, dh)
+    v = v.reshape(b, s, -1, dh)
+    if norms:
+        q = rms_norm(q, norms[0])
+        k = rms_norm(k, norms[1])
+    return q, k, v
+
+
 def _project_qkv(p, x, cfg: ModelConfig):
     """q (B, S, KV, G, Dh), k and v (B, S, KV, Dh): the projections, the
     biases, then the RMS norm of each head's Dh axis, in the JAX
     package's order (RoPE comes after)."""
-    b, s, _ = x.shape
-    kv, dh = cfg.n_kv_heads, cfg.d_head
-    g = cfg.n_heads // kv
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
-    if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, kv, g, dh)
-    k = k.reshape(b, s, kv, dh)
-    v = v.reshape(b, s, kv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm)
-        k = rms_norm(k, p.k_norm)
-    return q, k, v
+    return _split_heads(*_qkv_flat(p, x, cfg), cfg, *_qk_norms(p, cfg))
 
 
 def rope_qk(q, k, positions, cfg: ModelConfig):
@@ -326,17 +345,38 @@ def rope_qk(q, k, positions, cfg: ModelConfig):
     return q, apply_rope(k, positions, cfg.rope_theta)
 
 
+def _attend_local(q, k, v, positions, *norms, cfg: ModelConfig, causal,
+                  window, q_chunk, kv_chunk):
+    """The heads of one rank (all of them on one device): split, normed,
+    rotated and attended. Returns (out (B, S, KV*G*Dh), k, v)."""
+    b, s, _ = q.shape
+    q, k, v = _split_heads(q, k, v, cfg, *norms)
+    q, k = rope_qk(q, k, positions, cfg)
+    out = chunked_attention(q, k, v, causal=causal, window=window,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out.reshape(b, s, -1), k, v
+
+
 def attend(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
            window: Optional[int] = None, q_chunk: int = 512,
            kv_chunk: int = 1024):
     """The attention layer over the full sequence. Returns (y (B, S, D),
-    k, v), k and v (B, S, KV, Dh) after RoPE, for a cache."""
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    q, k = rope_qk(q, k, positions, cfg)
-    out = chunked_attention(q, k, v, causal=causal, window=window,
-                            q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo, k, v
+    k, v), k and v (B, S, KV, Dh) after RoPE, for a cache. On DTensors
+    the heads run per rank: batch over the data axes, KV heads over
+    ``model`` when it divides them (the JAX package's constraint on the
+    chunked operands)."""
+    q, k, v = _qkv_flat(p, shd.whole_seq(x), cfg)
+    norms = _qk_norms(p, cfg)
+    row = (shd.DATA, None, shd.model_split(cfg.n_kv_heads, q))
+    out, k, v = shd.local_call(
+        functools.partial(_attend_local, cfg=cfg, causal=causal,
+                          window=window, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk),
+        (q, k, v, positions) + norms,
+        (row, row, row, (shd.DATA, None)) + ((None,),) * len(norms),
+        (((0, 0), None, (0, 2)), ((1, 0), None, (1, 2), None),
+         ((2, 0), None, (2, 2), None)))
+    return shd.constrain_residual(out @ p.wo), k, v
 
 
 def gqa_forward(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
@@ -353,25 +393,111 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, cache_len: int, *,
     y, k, v = attend(p, x, positions, cfg, q_chunk=q_chunk,
                      kv_chunk=kv_chunk)
     pad = (0, 0, 0, 0, 0, cache_len - x.shape[1])
-    return y, (F.pad(k, pad), F.pad(v, pad))
+    return y, (shd.pad(k, pad), shd.pad(v, pad))
 
 
-def gqa_decode(p, x1, cache, length, cfg: ModelConfig):
+def _write_rows(cache, new, pos, t0, group):
+    """Write ``new[i]`` at slot ``pos[i] - t0`` of ``cache`` in place.
+    With ``group`` (the slots split over its ranks) a row whose slot is
+    not among this rank's ``cache.shape[1]`` writes its slot's own value
+    back (clamped into range): no read on the host."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    rel = pos - t0
+    if group is None:
+        cache[rows, rel] = new
+        return
+    mine = (rel >= 0) & (rel < cache.shape[1])
+    rel = rel.clamp(0, cache.shape[1] - 1)
+    keep = mine.reshape(-1, *(1,) * (new.ndim - 1))
+    cache[rows, rel] = torch.where(keep, new, cache[rows, rel])
+
+
+def split_softmax_combine(s, values, group):
+    """Softmax over a key axis split over ``group``'s ranks (flash
+    decode): ``s`` (..., T_local) float32 scores, ``values(p)`` the
+    products of unnormalised probabilities with this rank's values.
+    The maxima, sums and products meet in three all-reduces."""
+    import torch.distributed._functional_collectives as fc
+
+    m = fc.all_reduce(s.amax(dim=-1), "max", group)
+    p = torch.exp(s - m[..., None])
+    l_sum = fc.all_reduce(p.sum(dim=-1), "sum", group)
+    o = fc.all_reduce(values(p), "sum", group)
+    return o, l_sum
+
+
+def _decode_local(q, k, v, ck, cv, pos, *norms, cfg: ModelConfig, t0,
+                  group, window=None):
+    """One decode step of one rank's cache slots ``[t0, t0 + T_local)``
+    (all of them, ``group`` None, on one device): the new K/V written in
+    place where its slot is this rank's, then attention over the slots
+    < length, the softmax combined over ``group``. A ring buffer of
+    ``window`` slots holds position p at slot ``p % window`` and its
+    length is ``min(pos + 1, window)``; a plain cache holds p at slot p
+    and its length is ``pos + 1``."""
+    b = q.shape[0]
+    q, k, v = _split_heads(q, k, v, cfg, *norms)
+    q, k = rope_qk(q, k, pos[:, None], cfg)
+    slot = pos if window is None else pos % window
+    _write_rows(ck, k[:, 0], slot, t0, group)
+    _write_rows(cv, v[:, 0], slot, t0, group)
+    valid = pos + 1 if window is None else torch.clamp(pos + 1, max=window)
+    if group is None:
+        out = decode_attention(q[:, 0], ck, cv, length=valid)
+        return out.reshape(b, 1, -1)
+    q1 = q[:, 0]
+    scale = 1.0 / math.sqrt(q1.shape[-1])
+    s = _mm_f32(q1, ck.permute(0, 2, 3, 1)) * scale       # (B,KV,G,T_loc)
+    idx = torch.arange(ck.shape[1], device=ck.device) + t0
+    s = torch.where((idx[None] < valid[:, None])[:, None, None], s, NEG_INF)
+    o, l_sum = split_softmax_combine(
+        s, lambda p: _mm_f32(p, cv.transpose(1, 2).float()), group)
+    return (o / l_sum[..., None]).to(cv.dtype).reshape(b, 1, -1)
+
+
+def seq_shard(cache_t):
+    """(first slot, model group) of this rank's part of a cache DTensor
+    whose slot axis (dim 1) is split over ``model``; (0, None) when it
+    is not split or not a DTensor."""
+    if not shd.is_dtensor(cache_t):
+        return 0, None
+    mesh = cache_t.device_mesh
+    names = list(mesh.mesh_dim_names)
+    if "model" not in names:
+        return 0, None
+    i = names.index("model")
+    if not (cache_t.placements[i].is_shard()
+            and cache_t.placements[i].dim == 1):
+        return 0, None
+    t_loc = cache_t.to_local().shape[1]
+    return mesh.get_local_rank("model") * t_loc, mesh.get_group("model")
+
+
+def gqa_decode(p, x1, cache, length, cfg: ModelConfig,
+               window: Optional[int] = None):
     """x1 (B, 1, D); cache k/v (B, T, KV, Dh); length (B,) the current
     lengths, each < T. Writes each row's new k/v at its own ``length``
     in place (the JAX package's one-hot blend, which on finite values is
-    that write) and attends positions <= length. Returns (y (B, 1, D),
-    the cache)."""
-    b = x1.shape[0]
-    q, k, v = _project_qkv(p, x1, cfg)
-    pos = length.long()
-    q, k = rope_qk(q, k, pos[:, None], cfg)
+    that write) and attends positions <= length. With ``window`` the
+    cache is a ring buffer of that many slots (position p at slot
+    ``p % window``; the slots beyond min(length+1, window) masked).
+    Returns (y (B, 1, D), the cache). On DTensors each rank writes and
+    attends its own slots of the cache (slots over ``model``, batch over
+    the data axes) and the softmax is combined over ``model``."""
     ck, cv = cache
-    rows = torch.arange(b, device=x1.device)
-    ck[rows, pos] = k[:, 0]
-    cv[rows, pos] = v[:, 0]
-    out = decode_attention(q[:, 0], ck, cv, length=pos + 1)
-    return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p.wo, (ck, cv)
+    q, k, v = _qkv_flat(p, x1, cfg)
+    norms = _qk_norms(p, cfg)
+    t0, group = seq_shard(ck)
+    row = (shd.DATA, None, None)
+    kv_spec = (shd.DATA, "model" if group is not None else None, None, None)
+    out = shd.local_call(
+        functools.partial(_decode_local, cfg=cfg, t0=t0, group=group,
+                          window=window),
+        (q, k, v, ck, cv, length.long()) + norms,
+        (row, row, row, kv_spec, kv_spec, (shd.DATA,))
+        + ((None,),) * len(norms),
+        (((0, 0), None, None),))
+    return shd.constrain_residual(out @ p.wo), (ck, cv)
 
 
 class GQA(FrozenParams):
@@ -420,18 +546,26 @@ def _mla_qkv(p, x, positions, cfg: ModelConfig):
     return q_nope, q_rope, ckv, k_rope[:, :, 0]
 
 
-def _mla_attend(p, x, positions, cfg: ModelConfig, q_chunk: int,
-                kv_chunk: int):
-    """The full-sequence MLA layer: per-head K/V materialised from the
-    latent, chunked attention with the [nope | rope] key and V
+def _mla_heads_local(qf, ckv_full, positions, w_uk, w_uv, kv_norm, *,
+                     cfg: ModelConfig, q_chunk, kv_chunk):
+    """The MLA heads of one rank (all of them on one device), from the
+    flat query projection ``qf`` (B, S, H*(dn+dr)) and the latent
+    projection ``ckv_full`` (B, S, r_kv+dr): per-head K/V materialised
+    from the latent, chunked attention with the [nope | rope] key and V
     zero-padded to the key width (one query group per head), V's width
-    sliced after. Returns (y (B, S, D), c_kv, k_rope)."""
-    b, s, _ = x.shape
-    h = cfg.n_heads
+    sliced after. Returns (out (B, S, H*dv), c_kv, k_rope)."""
+    b, s, _ = qf.shape
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
-    k_nope = (ckv @ p.w_uk).reshape(b, s, h, dn)
-    v = (ckv @ p.w_uv).reshape(b, s, h, dv)
+    r_kv = cfg.kv_lora_rank
+    q = qf.reshape(b, s, -1, dn + dr)
+    h = q.shape[2]
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rms_norm(ckv_full[..., :r_kv], kv_norm)
+    k_rope = apply_rope(ckv_full[..., None, r_kv:], positions,
+                        cfg.rope_theta)[:, :, 0]
+    k_nope = (ckv @ w_uk).reshape(b, s, h, dn)
+    v = (ckv @ w_uv).reshape(b, s, h, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                   dim=-1)
@@ -439,7 +573,28 @@ def _mla_attend(p, x, positions, cfg: ModelConfig, q_chunk: int,
     out = chunked_attention(q[:, :, :, None, :], k, vp, causal=True,
                             q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = out.reshape(b, s, h, dn + dr)[..., :dv]
-    return out.reshape(b, s, h * dv) @ p.wo, ckv, k_rope
+    return out.reshape(b, s, h * dv), ckv, k_rope
+
+
+def _mla_attend(p, x, positions, cfg: ModelConfig, q_chunk: int,
+                kv_chunk: int):
+    """The full-sequence MLA layer. Returns (y (B, S, D), c_kv, k_rope).
+    On DTensors the heads run per rank (over ``model`` when it divides
+    them), the latent whole on each."""
+    x = shd.whole_seq(x)
+    qf = rms_norm(x @ p.w_dq, p.q_norm) @ p.w_uq
+    ckv_full = x @ p.w_dkv
+    hd = shd.model_split(cfg.n_heads, qf)
+    lat = (shd.DATA, None, None)
+    out, ckv, k_rope = shd.local_call(
+        functools.partial(_mla_heads_local, cfg=cfg, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk),
+        (qf, ckv_full, positions, p.w_uk, p.w_uv, p.kv_norm),
+        ((shd.DATA, None, hd), lat, (shd.DATA, None), (None, hd), (None, hd),
+         (None,)),
+        (((0, 0), None, (0, 2)), ((1, 0), None, None),
+         ((1, 0), None, None)))
+    return shd.constrain_residual(out @ p.wo), ckv, k_rope
 
 
 def mla_forward(p, x, positions, cfg: ModelConfig, *, q_chunk: int = 256,
@@ -453,7 +608,7 @@ def mla_prefill(p, x, positions, cfg: ModelConfig, cache_len: int, *,
     k_rope (B, T, dr)), right-padded with zeros to ``cache_len``."""
     y, ckv, k_rope = _mla_attend(p, x, positions, cfg, q_chunk, kv_chunk)
     pad = (0, 0, 0, cache_len - x.shape[1])
-    return y, (F.pad(ckv, pad), F.pad(k_rope, pad))
+    return y, (shd.pad(ckv, pad), shd.pad(k_rope, pad))
 
 
 def mla_decode(p, x1, cache, length, cfg: ModelConfig):
@@ -463,28 +618,59 @@ def mla_decode(p, x1, cache, length, cfg: ModelConfig):
     (B,) each < T. Writes each row's new latent at its own ``length`` in
     place and attends positions <= length. Scores are rounded to the
     cache dtype before their sum and the widening, the probabilities
-    are cast to it, as the JAX package's einsums do."""
-    b = x1.shape[0]
+    are cast to it, as the JAX package's einsums do. On DTensors each
+    rank writes and attends its own slots of the latent cache (slots
+    over ``model``), every head, and the softmax is combined over
+    ``model``."""
+    c_cache, r_cache = cache
+    qf = rms_norm(x1 @ p.w_dq, p.q_norm) @ p.w_uq
+    ckv_full = x1 @ p.w_dkv
+    t0, group = seq_shard(c_cache)
+    row = (shd.DATA, None, None)
+    lat = (shd.DATA, "model" if group is not None else None, None)
+    out = shd.local_call(
+        functools.partial(_mla_decode_local, cfg=cfg, t0=t0, group=group),
+        (qf, ckv_full, c_cache, r_cache, length.long(), p.w_uk, p.w_uv,
+         p.kv_norm),
+        (row, row, lat, lat, (shd.DATA,), (None, None), (None, None),
+         (None,)),
+        (((0, 0), None, None),))
+    return shd.constrain_residual(out @ p.wo), (c_cache, r_cache)
+
+
+def _mla_decode_local(qf, ckv_full, c_cache, r_cache, pos, w_uk, w_uv,
+                      kv_norm, *, cfg: ModelConfig, t0, group):
+    """One absorbed decode step on one rank's latent slots ``[t0, t0 +
+    T_local)`` (all of them, ``group`` None, on one device)."""
+    b = qf.shape[0]
     h, r_kv = cfg.n_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    pos = length.long()
-    q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(p, x1, pos[:, None], cfg)
-    c_cache, r_cache = cache
-    rows = torch.arange(b, device=x1.device)
-    c_cache[rows, pos] = ckv_new[:, 0]
-    r_cache[rows, pos] = k_rope_new[:, 0]
+    q = qf.reshape(b, 1, h, -1)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], pos[:, None], cfg.rope_theta)
+    ckv_new = rms_norm(ckv_full[..., :r_kv], kv_norm)
+    k_rope_new = apply_rope(ckv_full[..., None, r_kv:], pos[:, None],
+                            cfg.rope_theta)[:, :, 0]
+    _write_rows(c_cache, ckv_new[:, 0], pos, t0, group)
+    _write_rows(r_cache, k_rope_new[:, 0], pos, t0, group)
     t = c_cache.shape[1]
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
-                         p.w_uk.reshape(r_kv, h, dn))
+                         w_uk.reshape(r_kv, h, dn))
     s_lat = torch.einsum("bhr,btr->bht", q_lat, c_cache)
     s_rope = torch.einsum("bhd,btd->bht", q_rope[:, 0], r_cache)
     scores = (s_lat + s_rope).float() * (1.0 / (dn + dr) ** 0.5)
-    mask = torch.arange(t, device=x1.device)[None] <= pos[:, None]
+    mask = torch.arange(t, device=c_cache.device)[None] + t0 <= pos[:, None]
     scores = torch.where(mask[:, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(c_cache.dtype)
-    ctx = torch.einsum("bht,btr->bhr", probs, c_cache)        # latent ctx
-    out = torch.einsum("bhr,rhd->bhd", ctx, p.w_uv.reshape(r_kv, h, dv))
-    return out.reshape(b, 1, h * dv) @ p.wo, (c_cache, r_cache)
+    if group is None:
+        probs = torch.softmax(scores, dim=-1).to(c_cache.dtype)
+        ctx = torch.einsum("bht,btr->bhr", probs, c_cache)    # latent ctx
+    else:
+        o, l_sum = split_softmax_combine(
+            scores, lambda pr: torch.einsum("bht,btr->bhr", pr,
+                                            c_cache.float()), group)
+        ctx = (o / l_sum[..., None]).to(c_cache.dtype)
+    out = torch.einsum("bhr,rhd->bhd", ctx, w_uv.reshape(r_kv, h, dv))
+    return out.reshape(b, 1, h * dv)
 
 
 class MLA(FrozenParams):

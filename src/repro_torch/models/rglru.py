@@ -19,7 +19,9 @@ hand-written CUDA kernel for CUDA tensors, its plain torch version for
 CPU tensors. The JAX package scans with its jnp associative scan. In
 training (no start state) the call goes through the wrapper's autograd
 node, whose backward runs the same kernel over the reversed sequence;
-the in-place state write is the decode path's alone.
+the in-place state write is the decode path's alone. On DTensors the
+conv and the scan run on each rank's channels (over ``model`` when it
+divides the gate blocks) over the whole sequence, as local tensors.
 
 Parameters live on an :class:`RGBlock` module under the JAX package's
 parameter names; the functions read them as attributes.
@@ -31,7 +33,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+import types
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models.common import DTypePolicy, FrozenParams, normal_init
 
@@ -118,15 +123,38 @@ def rg_block_forward(p, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, D). state = (conv_state (B, K-1, W), h (B, W) float32)
     or None; a given ``h`` is the decode cache's slab and is overwritten
     in place by the final state. Returns (y, (new_conv, h_T))."""
+    x = shd.whole_seq(x)
     gate = F.gelu(x @ p.w_gate, approximate="tanh")
     xi = x @ p.w_in
-    conv_state = None if state is None else state[0]
-    xi, new_conv = _causal_conv(xi, p.conv_w, p.conv_b, conv_state)
-    a, b = _rg_lru_coeffs(p, xi)
-    h0 = None if state is None else state[1]
-    h, h_t = rglru_ops.rglru(a, b, h0, h_out=h0)
-    y = (h.to(x.dtype) * gate) @ p.w_out
+    cw = shd.model_split(N_GATE_BLOCKS, xi)
+    args = (xi,) + tuple(getattr(p, n) for n in _SCAN_PARAMS)
+    tpl = ((shd.DATA, None, cw), (None, cw), (cw,), (cw, None, None), (cw,),
+           (cw, None, None), (cw,), (cw,))
+    if state is not None:
+        args += tuple(state)
+        tpl += ((shd.DATA, None, cw), (shd.DATA, cw))
+    h, new_conv, h_t = shd.local_call(
+        _conv_scan, args, tpl,
+        (((0, 0), None, (0, 2)), ((0, 0), None, (0, 2)), ((0, 0), (0, 2))))
+    y = shd.constrain_residual((h.to(x.dtype) * gate) @ p.w_out)
     return y, (new_conv, h_t)
+
+
+_SCAN_PARAMS = ("conv_w", "conv_b", "gate_a", "gate_a_b", "gate_x",
+                "gate_x_b", "lam")
+
+
+def _conv_scan(xi, conv_w, conv_b, gate_a, gate_a_b, gate_x, gate_x_b, lam,
+               conv_state=None, h0=None):
+    """The conv and the RG-LRU of the channels one rank holds (all of
+    them on one device): returns (h (B, S, W) float32, new conv state,
+    final h); a given ``h0`` is overwritten in place."""
+    xi, new_conv = _causal_conv(xi, conv_w, conv_b, conv_state)
+    p = types.SimpleNamespace(gate_a=gate_a, gate_a_b=gate_a_b,
+                              gate_x=gate_x, gate_x_b=gate_x_b, lam=lam)
+    a, b = _rg_lru_coeffs(p, xi)
+    h, h_t = rglru_ops.rglru(a, b, h0, h_out=h0)
+    return h, new_conv, h_t
 
 
 class RGBlock(FrozenParams):

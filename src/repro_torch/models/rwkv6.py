@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.models.common import (
     DTypePolicy,
@@ -103,11 +104,20 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None
     return torch.cat([first.to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _shifted(x: torch.Tensor, last: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """:func:`_shift`, on DTensors per rank over the whole sequence."""
+    args, tpl = (x,), ((shd.DATA, None, None),)
+    if last is not None:
+        args, tpl = args + (last,), tpl + ((shd.DATA, None),)
+    return shd.local_call(_shift, args, tpl, (((0, 0), None, None),))
+
+
 def _ddlerp(p, x: torch.Tensor, x_prev: torch.Tensor):
     """Data-dependent lerp producing the five mixed inputs (r,k,v,w,g)."""
     sx = x_prev - x                                            # (B,S,D)
     base = x + sx * p.mu_x
-    lo = torch.tanh(base @ p.lora_a)
+    lo = shd.constrain(torch.tanh(base @ p.lora_a), (shd.DATA, None, None))
     lo = lo.reshape(*lo.shape[:-1], 5, LORA_RANK)
     adj = torch.einsum("bsir,ird->bsid", lo, p.lora_b)         # (B,S,5,D)
     mixed = x[:, :, None] + sx[:, :, None] * (p.mu + adj)
@@ -133,40 +143,55 @@ def wkv_scan(r, k, v, w, u, s0=None):
                          u.float(), s0, s_out=s0)
 
 
+def _wkv_heads(r, k, v, w, u, s0=None):
+    """The recurrence on flat (B, S, H*Dh) projections of the heads one
+    rank holds (all of them on one device); returns (y (B, S, H*Dh)
+    float32, final state)."""
+    b, s, _ = r.shape
+    r, k, v, w = (t.reshape(b, s, -1, HEAD_DIM) for t in (r, k, v, w))
+    y, state = wkv_scan(r, k, v, w, u, s0)
+    return y.reshape(b, s, -1), state
+
+
 def time_mix_forward(p, x: torch.Tensor, cfg: ModelConfig,
                      state: Optional[Tuple] = None):
     """x: (B, S, D). state = (last_x (B,D), wkv_state (B,H,Dh,Dh)) for
     decode continuation, whose wkv slab is updated in place; returns
     (y, new_state)."""
-    b, s, d = x.shape
-    h = n_heads(cfg)
+    x = shd.whole_seq(x)
     last_x = None if state is None else state[0]
-    x_prev = _shift(x, last_x)
+    x_prev = _shifted(x, last_x)
     xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev)
-    r = (xr @ p.w_r).reshape(b, s, h, HEAD_DIM)
-    k = (xk @ p.w_k).reshape(b, s, h, HEAD_DIM)
-    v = (xv @ p.w_v).reshape(b, s, h, HEAD_DIM)
+    r, k, v = xr @ p.w_r, xk @ p.w_k, xv @ p.w_v
     g = F.silu(xg @ p.w_g)
-    w = _decay(p, xw).reshape(b, s, h, HEAD_DIM)
+    w = _decay(p, xw)
 
     s0 = None if state is None else state[1]
-    y, wkv_state = wkv_scan(r, k, v, w, p.u, s0)
-    y = y.reshape(b, s, d).to(x.dtype)
+    hd = shd.model_split(n_heads(cfg), r)
+    row = (shd.DATA, None, hd)
+    args = (r, k, v, w, p.u) + (() if s0 is None else (s0,))
+    tpl = (row,) * 4 + ((hd, None),) + (
+        () if s0 is None else ((shd.DATA, hd, None, None),))
+    y, wkv_state = shd.local_call(
+        _wkv_heads, args, tpl,
+        (((0, 0), None, (0, 2)), ((0, 0), (0, 2), None, None)))
+    y = y.to(x.dtype)
     y = rms_norm(y, p.gn)                                      # head norm
-    y = (y * g) @ p.w_o
+    y = shd.constrain_residual((y * g) @ p.w_o)
     return y, (x[:, -1].clone(), wkv_state)
 
 
 def channel_mix_forward(p, x: torch.Tensor,
                         state: Optional[torch.Tensor] = None):
     """state = last_x (B, D); returns (y, new_state)."""
-    x_prev = _shift(x, state)
+    x = shd.whole_seq(x)
+    x_prev = _shifted(x, state)
     xk = x + (x_prev - x) * p.mu_k
     xr = x + (x_prev - x) * p.mu_r
     k = torch.square(torch.relu(xk @ p.w_k))
     kv = k @ p.w_v
     r = torch.sigmoid(xr @ p.w_r)
-    return r * kv, x[:, -1].clone()
+    return shd.constrain_residual(r * kv), x[:, -1].clone()
 
 
 class TimeMix(FrozenParams):

@@ -69,6 +69,7 @@ without a GPU; the CPU runs only when asked for.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -78,6 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, hybrid_layout, require_ported
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
@@ -286,12 +288,13 @@ def _is_mla(layer) -> bool:
     return isinstance(layer.attn, attn_mod.MLA)
 
 
-def _ffn_block(layer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x + FFN(norm(x)): the experts exact (prefill and decode) in a MoE
-    layer, else the MLP."""
+def _ffn_block(layer, x: torch.Tensor, cfg: ModelConfig,
+               serving: bool = False) -> torch.Tensor:
+    """x + FFN(norm(x)): the experts exact (prefill and decode, the
+    latter ``serving``) in a MoE layer, else the MLP."""
     if isinstance(layer, MoELayer):
         return x + moe_mod.moe_forward(layer.moe, rms_norm(x, layer.ln2),
-                                       cfg, exact=True)
+                                       cfg, exact=True, serving=serving)
     return _mlp_block(layer, x)
 
 
@@ -333,7 +336,7 @@ def _moe_decode(model: LM, x: torch.Tensor, cache, length: torch.Tensor):
             attn_mod.gqa_decode
         y, c = attend(layer.attn, rms_norm(x, layer.ln1), next(pending[key]),
                       length, cfg)
-        x = _ffn_block(layer, x + y, cfg)
+        x = _ffn_block(layer, x + y, cfg, serving=True)
         new_cache.setdefault(key, []).append(c)
     return x, new_cache
 
@@ -378,16 +381,25 @@ def _windowed_prefill(p, x, positions, cfg: ModelConfig, win: int):
     """Sliding-window attention over the full sequence; returns the
     ring-buffer cache holding the last ``win`` positions (aligned so
     slot = pos mod win)."""
-    b = x.shape[0]
     y, k, v = attn_mod.attend(p, x, positions, cfg, window=win)
-    # last `win` kv, placed at slots (pos mod win)
+    whole = (shd.DATA, None, None, None)
+    ck, cv = shd.local_call(
+        functools.partial(_ring, win=win), (k, v, positions),
+        (whole, whole, (shd.DATA, None)),
+        (((0, 0), None, None, None), ((0, 0), None, None, None)))
+    return y, (ck, cv)
+
+
+def _ring(k, v, positions, win: int):
+    """The last ``win`` K/V rows placed at slots (pos mod win)."""
+    b = k.shape[0]
     slots = positions[:, -win:] % win
-    bidx = torch.arange(b, device=x.device)[:, None]
+    bidx = torch.arange(b, device=k.device)[:, None]
     ck = k.new_zeros((b, win) + k.shape[2:])
     cv = v.new_zeros((b, win) + v.shape[2:])
     ck[bidx, slots] = k[:, -win:]
     cv[bidx, slots] = v[:, -win:]
-    return y, (ck, cv)
+    return ck, cv
 
 
 def _hybrid_prefill(model: LM, tokens: torch.Tensor, win: int):
@@ -418,19 +430,8 @@ def _windowed_decode(p, x1, cache, length, cfg: ModelConfig):
     """Sliding-window decode with a ring-buffer cache of ``win`` slots:
     the new KV overwrites slot (length mod win) in place; attention masks
     the slots beyond min(length+1, win)."""
-    b = x1.shape[0]
-    q, k, v = attn_mod._project_qkv(p, x1, cfg)
-    pos = length.long()
-    q, k = attn_mod.rope_qk(q, k, pos[:, None], cfg)
-    ck, cv = cache
-    win = ck.shape[1]
-    bidx = torch.arange(b, device=x1.device)
-    slot = pos % win
-    ck[bidx, slot] = k[:, 0]
-    cv[bidx, slot] = v[:, 0]
-    valid = torch.clamp(pos + 1, max=win)
-    out = attn_mod.decode_attention(q[:, 0], ck, cv, length=valid)
-    return out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p.wo, (ck, cv)
+    return attn_mod.gqa_decode(p, x1, cache, length, cfg,
+                               window=cache[0].shape[1])
 
 
 def _embed(model: LM, tokens: Optional[torch.Tensor],
@@ -443,16 +444,22 @@ def _embed(model: LM, tokens: Optional[torch.Tensor],
     a fixed order on the CPU too (an index's backward adds them in the
     order its threads arrive)."""
     if tokens is None:
-        return embeds.to(model.embed.dtype)
-    x = F.embedding(torch.as_tensor(tokens, device=model.embed.device),
-                    model.embed)
+        return shd.constrain_residual(embeds.to(model.embed.dtype))
+    if not shd.is_dtensor(tokens):
+        tokens = torch.as_tensor(tokens, device=model.embed.device)
+    # under a policy the vocab-sharded lookup's partial rows are reduced
+    # here, once, into the residual layout (a decode step's (B, D) rows
+    # onto every rank, as its tokens are)
+    x = F.embedding(tokens, model.embed)
+    x = shd.constrain_residual(x) if x.dim() == 3 else \
+        shd.constrain(x, (None, None))
     if embeds is not None:
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        x = shd.constrain_residual(torch.cat([embeds.to(x.dtype), x], dim=1))
     return x
 
 
 def _unembed(model: LM, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, model.final_norm)
+    x = rms_norm(shd.whole_seq(x), model.final_norm)
     head = (model.embed.T if model.cfg.tie_embeddings else model.lm_head)
     return x @ head
 
@@ -482,12 +489,21 @@ def _rwkv_layer(layer: RWKVLayer, x: torch.Tensor, cfg: ModelConfig):
     return _rwkv_block(layer, x, cfg)[0]
 
 
+def _boundary(fn, *args):
+    """``fn(*args)`` with its residual output (the first of a pair)
+    constrained at the layer boundary (a no-op outside a policy)."""
+    out = fn(*args)
+    if isinstance(out, tuple):
+        return (shd.constrain_residual(out[0]),) + out[1:]
+    return shd.constrain_residual(out)
+
+
 def _layer_call(remat: bool, fn, *args):
     """``fn(*args)``, recomputed in the backward when ``remat`` and grad
-    is enabled."""
+    is enabled, its output constrained at the layer boundary."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(_boundary, fn, *args, use_reentrant=False)
+    return _boundary(fn, *args)
 
 
 def forward(model: LM, tokens: Optional[torch.Tensor] = None,
@@ -530,7 +546,9 @@ def forward(model: LM, tokens: Optional[torch.Tensor] = None,
 def _chunk_loss(h, labels, norm_w, head):
     """The summed cross-entropy of one chunk's rows with label >= 0, and
     their count: the final norm and the logits of the chunk alone."""
-    logits = (rms_norm(h, norm_w) @ head).float()
+    # under a policy the vocab-sharded logits are gathered per chunk
+    logits = shd.constrain((rms_norm(h, norm_w) @ head).float(),
+                           (shd.DATA, None, None))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -553,14 +571,15 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor],
         hidden, aux = forward(model, tokens, embeds, return_hidden=True,
                               remat=remat)
         labels = torch.as_tensor(batch["labels"], device=hidden.device)
+        hidden = shd.whole_seq(hidden)
         if embeds is not None and tokens is not None:
             hidden = hidden[:, embeds.shape[1]:]   # loss on text positions
         s = hidden.shape[1]
         chunk = min(loss_chunk, s)
         pad = (-s) % chunk
         if pad:
-            hidden = F.pad(hidden, (0, 0, 0, pad))
-            labels = F.pad(labels, (0, pad), value=-100)
+            hidden = shd.pad(hidden, (0, 0, 0, pad))
+            labels = shd.pad(labels, (0, pad), value=-100)
         head = model.embed.T if model.cfg.tie_embeddings else model.lm_head
         sums, counts = [], []
         for c in range(hidden.shape[1] // chunk):
@@ -668,7 +687,7 @@ def prefill(model: LM, tokens: torch.Tensor, cache_len: int):
     else:
         x, cache = _hybrid_prefill(model, tokens,
                                    min(cfg.local_window, cache_len))
-    logits = _unembed(model, x[:, -1:])[:, 0]
+    logits = _unembed(model, shd.whole_seq(x)[:, -1:])[:, 0]
     lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache, lengths
 

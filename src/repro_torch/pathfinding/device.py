@@ -45,6 +45,7 @@ from repro_torch.core.scalesim import OPERAND_BYTES
 from repro_torch.core.techdb import DEFAULT_DB, HOURS_PER_DAY, TechDB
 from repro_torch.core.templates import Normalizer, Template
 from repro_torch.core.workload import DEFAULT_TILE, GEMMWorkload
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.prefix_gather import prefix_select
 from repro_torch.pathfinding.batch import (
     MetricsBatch,
@@ -1745,7 +1746,7 @@ class ScenarioEngine:
     # -- the stacked tempering loop ------------------------------------
 
     def init_step(self, v0, mins, med, w, ci, price, embf, profile,
-                  pprofile, widx, key):
+                  pprofile, widx, key, cell0: int = 0):
         """The seed evaluation of an S-cell grid (the reference's
         ``_init_fn(S, n)``): ``v0`` ``[S, n, W]`` seed populations, the
         per-cell ``mins`` / ``med`` ``[S, 6]``, ``w`` ``[S, n, 6]``,
@@ -1753,9 +1754,11 @@ class ScenarioEngine:
         ``[S, 24]`` and ``widx`` ``[S]`` (tensors or arrays), and the
         base ``key`` (``[2]`` key words). Returns device tensors
         ``(keys0 [S, 2], cost0 [S, n], vec0 [S, n, 3])``: cell s's key
-        stream ``fold_in(key, s)`` and its seed costs and objective
-        vectors, from one ``[S*n]`` evaluation (one ``prefix_select``
-        launch)."""
+        stream ``fold_in(key, cell0 + s)`` and its seed costs and
+        objective vectors, from one ``[S*n]`` evaluation (one
+        ``prefix_select`` launch). ``cell0`` is the grid index of the
+        first cell (a rank's block of a split grid), so a cell's stream
+        depends only on the seed and its place in the grid."""
         t = self._t
         v = t(v0, I64)
         S, n, width = v.shape
@@ -1764,7 +1767,7 @@ class ScenarioEngine:
         _, cost0, vec0 = _eval_cost(v.reshape(S * n, width), *args,
                                     self.tables, self.cfg, rt)
         keys0 = trandom.fold_in(t(key, I64),
-                                torch.arange(S, device=self.device))
+                                torch.arange(S, device=self.device) + cell0)
         return keys0, cost0.reshape(S, n), vec0.reshape(S, n, 3)
 
     def segment_runner(self, S: int, n: int, seg: int, swap_every: int,
@@ -1901,14 +1904,17 @@ class ScenarioEngine:
         :class:`~repro_torch.pathfinding.pareto.ParetoArchive` per cell)
         are fed every evaluated design at each segment end in place of
         returning ``.samples``. ``mesh`` (from
-        :func:`~repro_torch.distributed.scenario_mesh`) places the
-        per-cell arrays through
-        :func:`~repro_torch.distributed.shard_scenarios`: a one-device
-        mesh (this engine's device) runs bit for bit as ``mesh=None``;
-        a mesh of several devices raises ``NotImplementedError`` (the
-        split of the cells over cards is not ported, ROADMAP queue 1,
-        item 11)."""
+        :func:`~repro_torch.distributed.scenario_mesh`) splits the
+        cells over its ranks (:func:`~repro_torch.distributed.
+        shard_scenarios`): each rank runs its block of cells, every
+        cell's key folds in its grid index, and the per-cell carry,
+        history and samples are all-gathered, so every rank feeds its
+        archives and returns what one rank returns, bit for bit. Only
+        rank 0 writes checkpoints; a restored carry is re-placed (each
+        rank keeps its block). When the ranks do not divide the cells,
+        or on a one-device mesh, every rank runs the whole grid."""
         from repro_torch.pathfinding.resume import (
+            RankZeroCheckpoint,
             run_segmented,
             segment_fingerprint,
         )
@@ -1945,9 +1951,15 @@ class ScenarioEngine:
                     "sched_on is only meaningful for window-schedule "
                     "engines")
         t, dev = self._t, self.device
-        if mesh is not None and any(m.type != dev.type for m in mesh):
+        if mesh is not None and shd.mesh_device_of(mesh).type != dev.type:
             raise ValueError(f"mesh {mesh} is not on this engine's "
                              f"device ({dev})")
+        lo, hi = (0, S) if mesh is None else shd.scenario_block(S, mesh)
+        split = (lo, hi) != (0, S)
+
+        def whole(x, dim=0):
+            """The grid's rows of this rank's block ``x``."""
+            return shd.gather_scenarios(x, mesh, S, dim) if split else x
         ci_a = np.asarray(ci, np.float64).reshape(S)
         price_a, embf_a, profile_a, pprofile_a = self._region_cols(
             S, ci_a, price, embf, profile, pprofile)
@@ -1968,6 +1980,8 @@ class ScenarioEngine:
             from repro_torch.distributed import shard_scenarios
 
             placed = shard_scenarios(placed, mesh)
+            if split and checkpoint is not None:
+                checkpoint = RankZeroCheckpoint(checkpoint, mesh)
         consts = tuple(placed.values())
         key0 = trandom.PRNGKey(seed, dev)
 
@@ -2012,18 +2026,19 @@ class ScenarioEngine:
                                    vec_s[:, s].reshape(-1, 3))
 
         def fresh():
-            keys0, cost0, vec0 = self.init_step(v0, *consts[1:4],
-                                                *consts[5:11], key0)
-            v = t(v0, I64)
+            keys0, cost0, vec0 = self.init_step(v0[lo:hi], *consts[1:4],
+                                                *consts[5:11], key0,
+                                                cell0=lo)
+            v = t(v0[lo:hi], I64)
             bi = _argmin_first(cost0)
-            rows = torch.arange(S, device=dev)
-            st["hist"] = [cost0.amin(dim=1).cpu().numpy()[:, None]]
+            rows = torch.arange(hi - lo, device=dev)
+            st["hist"] = [whole(cost0.amin(dim=1)).cpu().numpy()[:, None]]
             if collect_samples:
-                st["seed_block"] = (v0[None], vec0[None].cpu().numpy())
+                st["seed_block"] = (v0[None], whole(vec0)[None].cpu().numpy())
             return v, cost0, v[rows, bi], cost0[rows, bi], keys0
 
         def from_restored(r):
-            c = r.carry
+            c = {k: np.asarray(x)[lo:hi] for k, x in r.carry.items()}
             st["sweep_done"] = np.asarray(r.sweep_done_per_cell,
                                           dtype=np.int64).reshape(S)
             st["hist"] = [np.asarray(r.history, np.float64).reshape(S, -1)]
@@ -2031,15 +2046,15 @@ class ScenarioEngine:
                     t(c["best_c"]), trandom.key_from_np(c["keys"], dev))
 
         def run_segment(carry, done, seg):
-            run = self.segment_runner(S, n, seg, swap_every,
+            run = self.segment_runner(hi - lo, n, seg, swap_every,
                                       collect_samples)
-            return run(*carry, st["sweep_done"], *consts)
+            return run(*carry, st["sweep_done"][lo:hi], *consts)
 
         def absorb(ys, seg):
-            st["hist"].append(ys[0].T.cpu().numpy())
+            st["hist"].append(whole(ys[0], 1).T.cpu().numpy())
             if collect_samples:
-                enc_s = ys[2].to(torch.int32).cpu().numpy()
-                vec_s = ys[3].cpu().numpy()
+                enc_s = whole(ys[2], 1).to(torch.int32).cpu().numpy()
+                vec_s = whole(ys[3], 1).cpu().numpy()
                 if st["seed_block"] is not None:
                     enc_s = np.concatenate([st["seed_block"][0], enc_s])
                     vec_s = np.concatenate([st["seed_block"][1], vec_s])
@@ -2052,7 +2067,7 @@ class ScenarioEngine:
             st["sweep_done"] = st["sweep_done"] + seg
 
         def carry_np(carry):
-            v, costs, best_v, best_c, keys = carry
+            v, costs, best_v, best_c, keys = (whole(x) for x in carry)
             return dict(v=v.to(torch.int32).cpu().numpy(),
                         costs=costs.cpu().numpy(),
                         best_v=best_v.to(torch.int32).cpu().numpy(),
@@ -2086,7 +2101,7 @@ class ScenarioEngine:
             if blocks_e:
                 samples = dict(enc=np.concatenate(blocks_e),
                                vec=np.concatenate(blocks_v))
-        v_fin, costs_fin, best_v, best_c, _ = carry
+        v_fin, costs_fin, best_v, best_c = (whole(x) for x in carry[:4])
         return ScenarioPTResult(
             best_enc=best_v.to(torch.int32).cpu().numpy(),
             best_cost=best_c.cpu().numpy(),

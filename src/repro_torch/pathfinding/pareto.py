@@ -703,15 +703,14 @@ class ScenarioSweep:
     ``random_system`` alone, as the reference does.
 
     ``budget`` is the *total* evaluation budget, split evenly across
-    cells (``budget // n_cells`` each). ``shard`` picks the device mesh
-    of the cells (:func:`~repro_torch.distributed.scenario_mesh`):
-    ``True`` runs on a mesh of every local device of the run's type, so
-    on one card (or the CPU) it gives bit for bit what ``False`` gives,
-    and on several cards raises ``NotImplementedError`` (the split of
-    the cells over cards is not ported, ROADMAP queue 1, item 11).
-    ``"auto"`` runs on one device: here it differs from the JAX
-    package, which splits the cells when two or more devices exist,
-    until that split is ported."""
+    cells (``budget // n_cells`` each). ``shard`` picks the mesh the
+    cells are split over (:func:`~repro_torch.distributed.scenario_mesh`):
+    ``True`` the ranks of the live process group (without one, the run's
+    one device), ``"auto"`` the same when there are two or more ranks
+    (else none), as the JAX package does with its devices, ``False``
+    none. A split run gives bit for bit what ``False`` gives: each
+    rank runs its block of cells, each cell's key folds in its grid
+    index, and the per-cell results are gathered on every rank."""
 
     strategy: ScalarizationSweep = dataclasses.field(
         default_factory=lambda: ScalarizationSweep(directions=8,
@@ -856,15 +855,15 @@ class ScenarioSweep:
         return ScenarioFrontier(scenarios, results)
 
     def _mesh(self, dev):
-        """The cells' mesh: every local device of ``dev``'s type for
-        ``shard=True``; none for ``False`` and for ``"auto"``, which the
-        JAX package maps to a mesh of two or more devices, whose split
-        is not ported."""
-        if self.shard is not True:
+        """The cells' mesh: the ranks of ``dev``'s type for
+        ``shard=True``, the same when there are two or more for
+        ``"auto"``, none for ``False``."""
+        if self.shard is False:
             return None
         from repro_torch.distributed import scenario_mesh
 
-        return scenario_mesh(min_devices=1, torch_device=dev)
+        return scenario_mesh(min_devices=1 if self.shard is True else 2,
+                             torch_device=dev)
 
     def _run_device(self, cells, workloads, tpl, db, space, norm_of,
                     cell_budget, base, segment, dev, checkpoint=None,

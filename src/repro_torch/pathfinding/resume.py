@@ -250,6 +250,41 @@ class SearchCheckpointer:
         return [archives]
 
 
+class RankZeroCheckpoint:
+    """A checkpoint that the ranks of a split scenario grid share: each
+    rank restores from it, only rank 0 writes (every rank holds the same
+    gathered state), and the others wait until the write is done. When
+    rank 0's save raises, every rank raises (rank 0 its own error), so
+    no rank is left waiting in a collective."""
+
+    def __init__(self, inner, mesh):
+        self.inner = inner
+        self.mesh = mesh
+
+    def restore(self, *args, **kwargs):
+        return self.inner.restore(*args, **kwargs)
+
+    def save(self, *args, **kwargs):
+        import torch
+        import torch.distributed as dist
+
+        rank = self.mesh.get_local_rank()
+        err, path = None, None
+        if rank == 0:
+            try:
+                path = self.inner.save(*args, **kwargs)
+            except BaseException as e:   # noqa: BLE001 — re-raised below
+                err = e
+        failed = torch.tensor([err is not None], dtype=torch.int32,
+                              device=self.mesh.device_type)
+        dist.all_reduce(failed, group=self.mesh.get_group())
+        if err is not None:
+            raise err
+        if int(failed.item()):
+            raise RuntimeError("rank 0 failed to save the checkpoint")
+        return path
+
+
 def run_segmented(*, sweeps: int, seg_size: int, checkpoint, resume: bool,
                   fingerprint: Optional[np.ndarray],
                   archives: Union[None, object, Sequence[object]],

@@ -15,8 +15,11 @@ bounds (``analysis/roofline.py``).
 - ``wkv6`` and ``rglru`` count by their formula alone on meta and the
   CPU (and on cuda, in the test marked for the card); their backwards
   count what they run.
-- The dry-run CLI writes ``ok`` and ``skipped`` records and refuses the
-  production meshes, naming ROADMAP item 18.
+- The dry-run CLI writes ``ok`` and ``skipped`` records, on one card
+  and on the production meshes (a fake process group of 256 or 512
+  ranks; reduced dense, MoE and rwkv6 cells): a record's parameter
+  bytes per device equal the local shard bytes of the reference's
+  ``param_specs`` on the same mesh shape.
 - ``lm_step_bound``, ``dense_serve_bound`` and ``moe_serve_bound`` equal
   their terms summed by hand here from each config's widths.
 """
@@ -386,23 +389,34 @@ def test_model_shape_specs_draw_nothing():
 
 
 def test_meshes():
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_device
+
     one = make_host_mesh(torch_device="cpu")
     assert one.axis_names == ("data", "model") and one.size == 1
     assert axis_size(one, "data", "model") == 1
-    single = make_production_mesh()
-    multi = make_production_mesh(multi_pod=True)
-    assert (single.size, multi.size) == (256, 512)
-    assert data_axes(single) == ("data",)
-    assert data_axes(multi) == ("pod", "data")
-    assert axis_size(multi, "pod", "data") == 32
-    assert axis_size(multi, "model", "absent") == 16
-    assert not single.devices
+    assert mesh_device(one) == torch.device("cpu")
     cfg = _reduced("smollm-135m")
     fn, args, in_sh, out_sh, static = build_cell(cfg, SHAPE["prefill"], one)
     assert static == {"cache_len": 40} and in_sh is None
-    for mesh in (single, multi):
-        with pytest.raises(NotImplementedError, match="18"):
-            build_cell(cfg, SHAPE["decode"], mesh)
+    assert not dist.is_initialized()
+    for multi, size in ((False, 256), (True, 512)):
+        mesh = make_production_mesh(multi_pod=multi)
+        try:
+            assert mesh.size() == size and dist.get_backend() == "fake"
+            assert data_axes(mesh) == (("pod", "data") if multi
+                                       else ("data",))
+            assert axis_size(mesh, "pod", "data") == (32 if multi else 16)
+            assert axis_size(mesh, "model", "absent") == 16
+            assert mesh_device(mesh) == torch.device("meta")
+            if not multi:   # a cell on the mesh: placements, not None
+                fn, args, in_sh, out_sh, _ = build_cell(
+                    cfg, SHAPE["decode"], mesh)
+                assert in_sh[0]["embed"][1].is_shard()    # vocab, model
+                out = dryrun.count_step(fn, args, {}, "meta")
+                assert out["flops"] > 0 and out["collectives"]
+        finally:
+            dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_host_mesh()
@@ -437,13 +451,96 @@ def test_dryrun_cell_that_does_not_fit_is_ok():
     assert rec["depth_extrapolation"] == [2, 3, 59]      # MoE layers
 
 
+PARAM_BYTES_REF = """
+import json
+import jax
+import jax.numpy as jnp
+from repro.configs import get_config
+from repro.distributed import sharding as shd
+from repro.models.common import DTypePolicy
+from repro.models.transformer import init_model
+
+
+class FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+meshes = {"single": FakeMesh({"data": 16, "model": 16}),
+          "multi": FakeMesh({"pod": 2, "data": 16, "model": 16})}
+policy = DTypePolicy(jnp.bfloat16, jnp.bfloat16)
+res = {}
+for arch in ("smollm-135m", "deepseek-v2-236b", "rwkv6-3b"):
+    cfg = get_config(arch).reduced()
+    params = jax.eval_shape(
+        lambda: init_model(jax.random.PRNGKey(0), cfg, policy))
+    leaves = jax.tree_util.tree_leaves(params)
+    for name, mesh in meshes.items():
+        specs = jax.tree_util.tree_leaves(
+            shd.param_specs(params, mesh),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        total = 0
+        for leaf, spec in zip(leaves, specs):
+            n = leaf.size * leaf.dtype.itemsize
+            for e in spec:
+                for a in ((e,) if isinstance(e, str) else (e or ())):
+                    n //= mesh.shape[a]
+            total += n
+        res[f"{arch}/{name}"] = total
+out["json"] = np.array(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_param_bytes(tmp_path_factory):
+    from test_torch_support import run_reference
+
+    got = run_reference(PARAM_BYTES_REF, None,
+                        tmp_path_factory.mktemp("ref_param_bytes"))
+    return json.loads(str(got["json"]))
+
+
+def _mesh_records(tmp_path, monkeypatch, mesh, arch, shape):
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda name: get_config(name).reduced())
+    out = tmp_path / f"{mesh}.json"
+    assert dryrun.main(["--mesh", mesh, "--arch", arch, "--shape", shape,
+                        "--out", str(out)]) == 0
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()       # the fake group is gone
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("arch,shape", (("smollm-135m", "train_4k"),
+                                        ("deepseek-v2-236b", "train_4k"),
+                                        ("rwkv6-3b", "prefill_32k")))
+def test_dryrun_single_mesh_records(tmp_path, monkeypatch, ref_param_bytes,
+                                    arch, shape):
+    (rec,) = _mesh_records(tmp_path, monkeypatch, "single", arch, shape)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == "single" and rec["chips"] == 256
+    assert rec["param_size_in_bytes"] == ref_param_bytes[f"{arch}/single"]
+    assert 0 < rec["param_size_in_bytes"] < rec["argument_size_in_bytes"]
+    assert rec["flops"] > 0 and rec["temp_size_in_bytes"] > 0
+    assert rec["collectives"]["total"] > 0
+
+
 @pytest.mark.parametrize("mesh", ("single", "multi", "both"))
-def test_dryrun_refuses_production_meshes(mesh, capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--mesh", mesh, "--out", os.devnull])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "item" in err and "18" in err
+def test_dryrun_refuses_production_meshes(mesh, tmp_path, monkeypatch,
+                                          ref_param_bytes):
+    """The production meshes are no longer refused: each gives ``ok``
+    records, one rank's share, per mesh it names."""
+    recs = _mesh_records(tmp_path, monkeypatch, mesh, "smollm-135m",
+                         "decode_32k")
+    names = ("single", "multi") if mesh == "both" else (mesh,)
+    assert [r["mesh"] for r in recs] == list(names)
+    for r in recs:
+        assert r["status"] == "ok", r.get("error")
+        assert r["chips"] == (512 if r["mesh"] == "multi" else 256)
+        assert r["param_size_in_bytes"] == \
+            ref_param_bytes[f"smollm-135m/{r['mesh']}"]
 
 
 def test_importing_dryrun_leaves_the_environment_alone():

@@ -266,10 +266,22 @@ def test_init_draws_float32_router_and_expert_shapes():
 
 
 def test_mesh_of_several_devices_raises(layers, x):
+    """A mesh of several ranks no longer raises: the expert-parallel
+    split (``_ep_shard`` of each rank of two, their own experts, summed)
+    plus the shared experts is the layer's exact output, and
+    ``moe_forward`` takes no ``mesh`` (the split runs under an
+    activation policy)."""
     cfg = _cfg("llama4")
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        moe_mod.moe_forward(layers["llama4"], x, cfg,
-                            mesh=(torch.device("cpu"),) * 2)
-    one = moe_mod.moe_forward(layers["llama4"], x, cfg,
-                              mesh=(torch.device("cpu"),))
-    assert torch.equal(one, moe_mod.moe_forward(layers["llama4"], x, cfg))
+    p = layers["llama4"]
+    e_loc = cfg.n_experts // 2
+    with torch.inference_mode():
+        parts = [moe_mod._ep_shard(
+            p.router, *(w[r * e_loc:(r + 1) * e_loc]
+                        for w in (p.w_gate, p.w_up, p.w_down)),
+            x, cfg, r, 2, exact=True) for r in range(2)]
+        got = parts[0] + parts[1] + moe_mod.mlp_forward(p.shared, x)
+        want = moe_mod.moe_forward(p, x, cfg, exact=True)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    with pytest.raises(TypeError, match="mesh"):
+        moe_mod.moe_forward(p, x, cfg, mesh=(torch.device("cpu"),) * 2)

@@ -547,13 +547,37 @@ def test_one_device_mesh_equals_no_mesh(engine, inputs):
 
 
 def test_mesh_of_two_devices_is_not_ported(engine, inputs):
-    """Splitting the cells over two devices (ROADMAP queue 1, item 11)
-    cannot be checked on one card, so it raises; a mesh on another
-    device type than the engine's is refused."""
+    """A tuple of two local devices (a run without a process group) is
+    refused: only a DeviceMesh over a process group splits the cells.
+    Ranks that do not divide the cells each run the whole grid, bit for
+    bit as ``mesh=None`` (the split over ranks that divide them is held
+    in ``tests/test_torch_distributed.py``); a mesh on another device
+    type than the engine's is refused."""
+    class ThreeRanks:           # rank 1 of 3 on the CPU, no group needed
+        device_type = "cpu"
+        mesh_dim_names = ("data",)
+
+        def get_local_rank(self):
+            return 1
+
+        def size(self):
+            return 3
+
+    S = inputs["v0"].shape[0]
+    assert S % 3
     two = (torch.device("cpu"), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="split only over the ranks"):
         engine.parallel_tempering(inputs["v0"], inputs["temps"], 1, SWAP,
                                   seed=SEED, **_kw(inputs), mesh=two)
+    plain = engine.parallel_tempering(inputs["v0"], inputs["temps"], 2, SWAP,
+                                      seed=SEED, **_kw(inputs))
+    got = engine.parallel_tempering(inputs["v0"], inputs["temps"], 2, SWAP,
+                                    seed=SEED, **_kw(inputs),
+                                    mesh=ThreeRanks())
+    for name in ("history", "final_enc", "final_costs", "best_enc",
+                 "best_cost"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(plain, name))
     with pytest.raises(ValueError, match="not on this engine's device"):
         engine.parallel_tempering(inputs["v0"], inputs["temps"], 1, SWAP,
                                   seed=SEED, **_kw(inputs),
