@@ -38,6 +38,7 @@ from repro_torch.kernels.prefix_gather.ref import (
     prefix_segment_plain,
     prefix_select_plain,
 )
+from repro_torch.runtime import trace
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "prefix_select.cu"
 SEGMENT_SOURCE = Path(__file__).resolve().parent / "csrc" / "prefix_segment.cu"
@@ -152,7 +153,7 @@ def _check(pref0, pref1, rows, start, end, split, t0, t1):
            | (t1.max() > t1b - 1))
     if rows.numel():
         bad = bad | (rows.min() < 0) | (rows.max() >= R)
-    if bool(bad):
+    if bool(trace.fetch(bad, "check")):
         raise ValueError("prefix_select: a row index lies outside [0, R) "
                          "or a clip bound outside [0, T_b - 1]")
 

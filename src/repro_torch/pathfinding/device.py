@@ -69,6 +69,7 @@ from repro_torch.pathfinding.space import (
     S_3D,
     S_HYBRID,
 )
+from repro_torch.runtime import trace
 
 P_APPLICATION = 0.35  # sa.propose's application-level move probability
 
@@ -166,6 +167,7 @@ def _scatter_perm(idx: torch.Tensor, val: torch.Tensor, C: int
 # ---------------------------------------------------------------------------
 
 
+@trace.spanned("pf.assign")
 def _assign(powers, nmask, order, total, cfg: _Cfg):
     C = cfg.C
     key = torch.where((order == 0)[:, None], -powers, powers)
@@ -203,6 +205,7 @@ def _assign(powers, nmask, order, total, cfg: _Cfg):
 # ---------------------------------------------------------------------------
 
 
+@trace.spanned("pf.topology")
 def _topology(v, areas, tb, cfg: _Cfg):
     C, L = cfg.C, cfg.L
     P = v.shape[0]
@@ -333,8 +336,9 @@ def _topology(v, areas, tb, cfg: _Cfg):
     pairs = [(j1, j2) for j1 in range(C) for j2 in range(j1 + 1, C)]
     plane_row = is25 | ishyb
     tol = 1e-9
-    j1v = torch.tensor([j1 for j1, _ in pairs], dtype=I64, device=dev)
-    j2v = torch.tensor([j2 for _, j2 in pairs], dtype=I64, device=dev)
+    with trace.synced("pairs", 2):      # two uploads of host lists
+        j1v = torch.tensor([j1 for j1, _ in pairs], dtype=I64, device=dev)
+        j2v = torch.tensor([j2 for _, j2 in pairs], dtype=I64, device=dev)
     x1, y1, w1, h1 = bx[:, j1v], by[:, j1v], bwid[:, j1v], bhei[:, j1v]
     x2, y2, w2, h2 = bx[:, j2v], by[:, j2v], bwid[:, j2v], bhei[:, j2v]
     cond_v = (torch.abs(x1 + w1 - x2) < tol) | (torch.abs(x2 + w2 - x1) < tol)
@@ -477,6 +481,7 @@ def _topology(v, areas, tb, cfg: _Cfg):
 # ---------------------------------------------------------------------------
 
 
+@trace.spanned("pf.gather")
 def _gather_sims(v, a_idx, s_idx, di, start, end, tb, cfg: _Cfg, rt=None):
     """Prefix-table gathers for both split-K tables + per-row select.
 
@@ -525,6 +530,7 @@ def _gather_sims(v, a_idx, s_idx, di, start, end, tb, cfg: _Cfg, rt=None):
     return sims, mn_bits
 
 
+@trace.spanned("pf.slots")
 def _slots(v, tb, cfg: _Cfg, rt=None):
     """Per-slot chiplet indices, physicals and the Algorithm-1 tile
     ranges of an encoded population (int64 ``v``); ``rt`` gives each row
@@ -550,6 +556,7 @@ def _slots(v, tb, cfg: _Cfg, rt=None):
                 cphys=cphys, areas=areas, start=start, end=start + count)
 
 
+@trace.spanned("pf.metrics")
 def _metrics(v, tb, cfg: _Cfg, ci, price, embf, profile, pprofile,
              rt=None):
     """The 13 MetricsBatch tensors for an encoded population.
@@ -721,6 +728,7 @@ def _nb_yield(area, d0: float, alpha: float):
     return (1.0 + area * d0 / alpha) ** (-alpha)
 
 
+@trace.spanned("pf.evaluate")
 def _eval_cost(v, mins, medians, w, ci, price, embf, profile, pprofile,
                tb, cfg: _Cfg, rt=None):
     """Fused metrics + Eq. 17 cost (METRIC_FIELDS column order) + the
@@ -741,6 +749,7 @@ def _eval_cost(v, mins, medians, w, ci, price, embf, profile, pprofile,
 # ---------------------------------------------------------------------------
 
 
+@trace.spanned("pf.validity")
 def _validity(v, tb, cfg: _Cfg):
     """Torch port of :meth:`DesignSpace.validity_mask` (int64 ``v``)."""
     C = cfg.C
@@ -795,6 +804,7 @@ def _draws(key, rows: int, P: int) -> torch.Tensor:
     return trandom.uniform_cells(key, rows, P // key.shape[0])
 
 
+@trace.spanned("pf.propose")
 def _propose(key, v, tb, cfg: _Cfg, noc_on=None, sched_on=None):
     """One hierarchical move per encoded row (int64 ``v``), mirroring the
     level/branch distribution of :func:`repro_torch.core.sa.propose`.
@@ -1044,6 +1054,7 @@ def _propose(key, v, tb, cfg: _Cfg, noc_on=None, sched_on=None):
     return torch.where(ok[:, None], cand, v)
 
 
+@trace.spanned("pf.exchange")
 def _exchange(v, costs, inv_t, us, pair_ok=None):
     """Sequential adjacent-pair replica exchange of S independent cells,
     in place on the device tensors ``v`` ``[S, n, W]`` / ``costs``
@@ -1054,6 +1065,7 @@ def _exchange(v, costs, inv_t, us, pair_ok=None):
     the pair (j, j+1) of cell s (independent ladders, cells that do not
     swap this sweep). With no mask every pair may swap, and the loop
     adds no gating op."""
+    trace.count("exchange_rounds")
     for j in range(costs.shape[1] - 1):
         c_i, c_j = costs[:, j].clone(), costs[:, j + 1].clone()
         d = (inv_t[:, j] - inv_t[:, j + 1]) * (c_i - c_j)
@@ -1249,12 +1261,14 @@ class DeviceEvaluator:
                        **_tile_tables(host, self.device)}
 
     def _t(self, x, dtype=F64) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype,
-                               device=self.device)
+        with trace.synced("upload"):
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
 
     def _enc(self, encoded) -> torch.Tensor:
         v = np.atleast_2d(np.asarray(encoded, dtype=np.int32))
-        return torch.as_tensor(v.astype(np.int64), device=self.device)
+        with trace.synced("upload"):
+            return torch.as_tensor(v.astype(np.int64), device=self.device)
 
     def _region(self):
         price, embf, profile, pprofile = _db_region_cols(self.db)
@@ -1280,8 +1294,10 @@ class DeviceEvaluator:
             self._enc(encoded), self._t(mins), self._t(medians),
             self._t(np.asarray(template.weights, dtype=np.float64)),
             *self._region(), self.tables, self.cfg)
-        return (MetricsBatch(*[m.cpu().numpy() for m in mets]),
-                cost.cpu().numpy(), vec.cpu().numpy())
+        return (MetricsBatch(*[trace.fetch(m, "result").numpy()
+                               for m in mets]),
+                trace.fetch(cost, "result").numpy(),
+                trace.fetch(vec, "result").numpy())
 
     def metrics(self, encoded: np.ndarray) -> MetricsBatch:
         """Raw metrics through the fused path (identity normalizer)."""
@@ -1294,8 +1310,9 @@ class DeviceEvaluator:
         """One vectorized hierarchical move per row (valid rows only)."""
         out = _propose(trandom.PRNGKey(seed, self.device),
                        self._enc(encoded), self.tables, self.cfg)
-        return out.to(torch.int32).cpu().numpy()
+        return trace.fetch(out.to(torch.int32), "result").numpy()
 
+    @trace.spanned("pf.engine")
     def parallel_tempering(self, v0: np.ndarray, temps, sweeps: int,
                            swap_every: int, seed: int, norm: Normalizer,
                            template: Template,
@@ -1411,8 +1428,11 @@ class DeviceEvaluator:
         trace_parts: List[tuple] = []
 
         def feed(enc_s, vec_s):
-            archive.insert(enc_s.reshape(-1, width).to(torch.int32).cpu()
-                           .numpy(), vec_s.reshape(-1, 3).cpu().numpy())
+            with trace.span("pf.archive.copy"):
+                enc = trace.fetch(enc_s.reshape(-1, width).to(torch.int32),
+                                  "archive").numpy()
+                vec = trace.fetch(vec_s.reshape(-1, 3), "archive").numpy()
+            archive.insert(enc, vec)
 
         def fresh():
             v = self._enc(v0)
@@ -1423,7 +1443,8 @@ class DeviceEvaluator:
             if collect_samples:
                 st["seed_block"] = (v.clone(), vec0)
             bi = _argmin_first(costs)
-            return v, costs, v[bi].clone(), costs[bi].clone(), key0
+            with trace.synced("best", 2, 2 * bi.element_size()):
+                return v, costs, v[bi].clone(), costs[bi].clone(), key0
 
         def from_restored(r):
             c = r.carry
@@ -1436,32 +1457,37 @@ class DeviceEvaluator:
             v, costs, best_v, best_c, key = carry
             cold, props, vecs = [], [], []
             for sweep in range(done, done + seg):
-                key, kp, ka, ksw = trandom.split(key, 4)
-                prop = _propose(kp, v, tb, cfg)
-                _, pcost, pvec = _eval_cost(prop, mins_t, med_t, w, *region,
-                                            tb, cfg)
-                u = trandom.uniform(ka, (n,))
-                delta = pcost - costs
-                accept = (delta <= 0) | (
-                    u < torch.exp(-delta / torch.clamp(temps_t, min=1e-12)))
-                v = torch.where(accept[:, None], prop, v)
-                costs = torch.where(accept, pcost, costs)
-                acc = torch.where(accept, pcost, math.inf)
-                i = _argmin_first(acc)
-                better = acc[i] < best_c
-                best_c = torch.where(better, acc[i], best_c)
-                best_v = torch.where(better, prop[i], best_v)
-                us = trandom.uniform(ksw, (max(n - 1, 1),))
-                if sweep % swap_every == 0:
-                    _exchange(v[None], costs[None], inv_t[None], us[None],
-                              None if pair_t is None else pair_t[None])
-                cold.append(costs[-1:].clone())
-                if collect_samples:
-                    props.append(prop)
-                    vecs.append(pvec)
-                if record_trace:
-                    trace_parts.append((prop, pcost, u, us, accept,
-                                        costs.clone(), best_c))
+                with trace.span("pf.sweep"):
+                    key, kp, ka, ksw = trandom.split(key, 4)
+                    prop = _propose(kp, v, tb, cfg)
+                    _, pcost, pvec = _eval_cost(prop, mins_t, med_t, w,
+                                                *region, tb, cfg)
+                    with trace.span("pf.accept"):
+                        u = trandom.uniform(ka, (n,))
+                        delta = pcost - costs
+                        accept = (delta <= 0) | (u < torch.exp(
+                            -delta / torch.clamp(temps_t, min=1e-12)))
+                        v = torch.where(accept[:, None], prop, v)
+                        costs = torch.where(accept, pcost, costs)
+                        acc = torch.where(accept, pcost, math.inf)
+                        i = _argmin_first(acc)
+                        # indexing by the device scalar i reads it back
+                        with trace.synced("best", 3, 3 * i.element_size()):
+                            better = acc[i] < best_c
+                            best_c = torch.where(better, acc[i], best_c)
+                            best_v = torch.where(better, prop[i], best_v)
+                        us = trandom.uniform(ksw, (max(n - 1, 1),))
+                    if sweep % swap_every == 0:
+                        _exchange(v[None], costs[None], inv_t[None],
+                                  us[None],
+                                  None if pair_t is None else pair_t[None])
+                    cold.append(costs[-1:].clone())
+                    if collect_samples:
+                        props.append(prop)
+                        vecs.append(pvec)
+                    if record_trace:
+                        trace_parts.append((prop, pcost, u, us, accept,
+                                            costs.clone(), best_c))
             return (v, costs, best_v, best_c, key), (cold, props, vecs)
 
         def absorb(ys, seg):
@@ -1482,10 +1508,11 @@ class DeviceEvaluator:
 
         def carry_np(carry):
             v, costs, best_v, best_c, key = carry
-            return dict(v=v.to(torch.int32).cpu().numpy(),
-                        costs=costs.cpu().numpy(),
-                        best_v=best_v.to(torch.int32).cpu().numpy(),
-                        best_c=best_c.cpu().numpy(),
+            return dict(v=trace.fetch(v.to(torch.int32), "carry").numpy(),
+                        costs=trace.fetch(costs, "carry").numpy(),
+                        best_v=trace.fetch(best_v.to(torch.int32),
+                                           "carry").numpy(),
+                        best_c=trace.fetch(best_c, "carry").numpy(),
                         key=trandom.key_to_np(key))
 
         def flush_seed():
@@ -1501,40 +1528,46 @@ class DeviceEvaluator:
             carry_like=carry_like, fresh=fresh,
             from_restored=from_restored, run_segment=run_segment,
             absorb=absorb, carry_np=carry_np,
-            history_np=lambda: torch.cat(st["hist"]).cpu().numpy(),
+            history_np=lambda: trace.fetch(torch.cat(st["hist"]),
+                                           "carry").numpy(),
             sweep_counter=lambda done: done, flush_seed=flush_seed)
         v, costs, best_v, best_c, _ = carry
         seed_block = st["seed_block"]
 
-        samples = None
-        if collect_samples and archive is None:
-            blocks_e = ([seed_block[0][None]] if seed_block is not None
-                        else []) + enc_parts
-            blocks_v = ([seed_block[1][None]] if seed_block is not None
-                        else []) + vec_parts
-            if blocks_e:
-                samples = dict(
-                    enc=torch.cat(blocks_e).to(torch.int32).cpu().numpy(),
-                    vec=torch.cat(blocks_v).cpu().numpy())
-        trace = None
-        if record_trace:
-            if trace_parts:
-                cols = [torch.stack(c) for c in zip(*trace_parts)]
-                cols[0] = cols[0].to(torch.int32)
-                cat = [c.cpu().numpy() for c in cols]
-            else:
-                cat = [np.zeros((0,) + tail(n, width))
-                       for tail in _TRACE_TAILS]
-            trace = dict(zip(_TRACE_FIELDS, cat))
-            trace["initial_costs"] = st["cost0"].cpu().numpy()
-        return DevicePTResult(
-            best_enc=best_v.to(torch.int32).cpu().numpy(),
-            best_cost=float(best_c),
-            history=torch.cat(st["hist"]).cpu().tolist(),
-            evaluations=n + n * sweeps,
-            final_enc=v.to(torch.int32).cpu().numpy(),
-            final_costs=costs.cpu().numpy(), trace=trace,
-            samples=samples)
+        def host(t):
+            return trace.fetch(t, "result").numpy()
+
+        with trace.span("pf.result"):
+            samples = None
+            if collect_samples and archive is None:
+                blocks_e = ([seed_block[0][None]] if seed_block is not None
+                            else []) + enc_parts
+                blocks_v = ([seed_block[1][None]] if seed_block is not None
+                            else []) + vec_parts
+                if blocks_e:
+                    samples = dict(
+                        enc=host(torch.cat(blocks_e).to(torch.int32)),
+                        vec=host(torch.cat(blocks_v)))
+            replay = None
+            if record_trace:
+                if trace_parts:
+                    cols = [torch.stack(c) for c in zip(*trace_parts)]
+                    cols[0] = cols[0].to(torch.int32)
+                    cat = [host(c) for c in cols]
+                else:
+                    cat = [np.zeros((0,) + tail(n, width))
+                           for tail in _TRACE_TAILS]
+                replay = dict(zip(_TRACE_FIELDS, cat))
+                replay["initial_costs"] = host(st["cost0"])
+            return DevicePTResult(
+                best_enc=host(best_v.to(torch.int32)),
+                best_cost=float(trace.fetch(best_c, "result")),
+                history=trace.fetch(torch.cat(st["hist"]),
+                                    "result").tolist(),
+                evaluations=n + n * sweeps,
+                final_enc=host(v.to(torch.int32)),
+                final_costs=host(costs), trace=replay,
+                samples=samples)
 
 
 # ---------------------------------------------------------------------------
@@ -1656,7 +1689,10 @@ class ScenarioEngine:
             **_stacked_tables(self.workloads, hosts, tb0, tb1, self.device)}
 
     def _t(self, x, dtype=F64) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+        if isinstance(x, torch.Tensor) and x.device.type == self.device.type:
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+        with trace.synced("upload"):
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def _widx(self, widx, S: int) -> np.ndarray:
         # int32, as the reference holds it: the workload ids enter the
@@ -1740,8 +1776,8 @@ class ScenarioEngine:
                                      pprofile))
         _, cost, vec = _eval_cost(self._t(v.reshape(S * m, width), I64),
                                   *args, self.tables, self.cfg, rt)
-        return (cost.reshape(S, m).cpu().numpy(),
-                vec.reshape(S, m, 3).cpu().numpy())
+        return (trace.fetch(cost.reshape(S, m), "result").numpy(),
+                trace.fetch(vec.reshape(S, m, 3), "result").numpy())
 
     # -- the stacked tempering loop ------------------------------------
 
@@ -1837,39 +1873,43 @@ class ScenarioEngine:
         rows = torch.arange(S, device=self.device)
         cold, best, props, vecs = [], [], [], []
         for k in range(seg):
-            ks = trandom.split(keys, 4)
-            keys, kp, ka, ksw = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
-            prop = _propose(kp, v.reshape(P, width), tb, cfg, noc_r,
-                            sched_r)
-            _, pcost, pvec = _eval_cost(prop, *args, tb, cfg, rt)
-            prop = prop.reshape(S, n, width)
-            pcost = pcost.reshape(S, n)
-            u = trandom.uniform(ka, (n,))
-            delta = pcost - costs
-            accept = (delta <= 0) | (
-                u < torch.exp(-delta / torch.clamp(temps, min=1e-12)))
-            v = torch.where(accept[..., None], prop, v)
-            costs = torch.where(accept, pcost, costs)
-            acc = torch.where(accept, pcost, math.inf)
-            i = _argmin_first(acc)
-            cand_c, cand_v = acc[rows, i], prop[rows, i]
-            us = trandom.uniform(ksw, (max(n - 1, 1),))
-            if do[k].any():
-                _exchange(v, costs, inv_t, us,
-                          pair & do_t[k][:, None] if mixed[k] else pair)
-            better = cand_c < best_c
-            best_c = torch.where(better, cand_c, best_c)
-            best_v = torch.where(better[:, None], cand_v, best_v)
-            cold.append(costs[:, -1])
-            best.append(best_c)
-            if collect:
-                props.append(prop)
-                vecs.append(pvec.reshape(S, n, 3))
+            with trace.span("pf.sweep"):
+                ks = trandom.split(keys, 4)
+                keys, kp, ka, ksw = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
+                prop = _propose(kp, v.reshape(P, width), tb, cfg, noc_r,
+                                sched_r)
+                _, pcost, pvec = _eval_cost(prop, *args, tb, cfg, rt)
+                with trace.span("pf.accept"):
+                    prop = prop.reshape(S, n, width)
+                    pcost = pcost.reshape(S, n)
+                    u = trandom.uniform(ka, (n,))
+                    delta = pcost - costs
+                    accept = (delta <= 0) | (
+                        u < torch.exp(-delta / torch.clamp(temps, min=1e-12)))
+                    v = torch.where(accept[..., None], prop, v)
+                    costs = torch.where(accept, pcost, costs)
+                    acc = torch.where(accept, pcost, math.inf)
+                    i = _argmin_first(acc)
+                    cand_c, cand_v = acc[rows, i], prop[rows, i]
+                    us = trandom.uniform(ksw, (max(n - 1, 1),))
+                if do[k].any():
+                    _exchange(v, costs, inv_t, us,
+                              pair & do_t[k][:, None] if mixed[k] else pair)
+                with trace.span("pf.accept"):
+                    better = cand_c < best_c
+                    best_c = torch.where(better, cand_c, best_c)
+                    best_v = torch.where(better[:, None], cand_v, best_v)
+                cold.append(costs[:, -1])
+                best.append(best_c)
+                if collect:
+                    props.append(prop)
+                    vecs.append(pvec.reshape(S, n, 3))
         ys = (torch.stack(cold), torch.stack(best))
         if collect:
             ys = ys + (torch.stack(props), torch.stack(vecs))
         return (v, costs, best_v, best_c, keys), ys
 
+    @trace.spanned("pf.engine")
     def parallel_tempering(self, v0: np.ndarray, temps, sweeps: int,
                            swap_every: int, seed: int, mins, medians,
                            weights, pair_mask, ci, widx,
@@ -2032,9 +2072,12 @@ class ScenarioEngine:
             v = t(v0[lo:hi], I64)
             bi = _argmin_first(cost0)
             rows = torch.arange(hi - lo, device=dev)
-            st["hist"] = [whole(cost0.amin(dim=1)).cpu().numpy()[:, None]]
+            st["hist"] = [trace.fetch(whole(cost0.amin(dim=1)),
+                                      "history").numpy()[:, None]]
             if collect_samples:
-                st["seed_block"] = (v0[None], whole(vec0)[None].cpu().numpy())
+                with trace.span("pf.archive.copy"):
+                    st["seed_block"] = (v0[None], trace.fetch(
+                        whole(vec0)[None], "archive").numpy())
             return v, cost0, v[rows, bi], cost0[rows, bi], keys0
 
         def from_restored(r):
@@ -2051,10 +2094,13 @@ class ScenarioEngine:
             return run(*carry, st["sweep_done"][lo:hi], *consts)
 
         def absorb(ys, seg):
-            st["hist"].append(whole(ys[0], 1).T.cpu().numpy())
+            st["hist"].append(trace.fetch(whole(ys[0], 1).T,
+                                          "history").numpy())
             if collect_samples:
-                enc_s = whole(ys[2], 1).to(torch.int32).cpu().numpy()
-                vec_s = whole(ys[3], 1).cpu().numpy()
+                with trace.span("pf.archive.copy"):
+                    enc_s = trace.fetch(whole(ys[2], 1).to(torch.int32),
+                                        "archive").numpy()
+                    vec_s = trace.fetch(whole(ys[3], 1), "archive").numpy()
                 if st["seed_block"] is not None:
                     enc_s = np.concatenate([st["seed_block"][0], enc_s])
                     vec_s = np.concatenate([st["seed_block"][1], vec_s])
@@ -2068,10 +2114,11 @@ class ScenarioEngine:
 
         def carry_np(carry):
             v, costs, best_v, best_c, keys = (whole(x) for x in carry)
-            return dict(v=v.to(torch.int32).cpu().numpy(),
-                        costs=costs.cpu().numpy(),
-                        best_v=best_v.to(torch.int32).cpu().numpy(),
-                        best_c=best_c.cpu().numpy(),
+            return dict(v=trace.fetch(v.to(torch.int32), "carry").numpy(),
+                        costs=trace.fetch(costs, "carry").numpy(),
+                        best_v=trace.fetch(best_v.to(torch.int32),
+                                           "carry").numpy(),
+                        best_c=trace.fetch(best_c, "carry").numpy(),
                         keys=trandom.key_to_np(keys))
 
         def flush_seed():
@@ -2101,15 +2148,18 @@ class ScenarioEngine:
             if blocks_e:
                 samples = dict(enc=np.concatenate(blocks_e),
                                vec=np.concatenate(blocks_v))
-        v_fin, costs_fin, best_v, best_c = (whole(x) for x in carry[:4])
-        return ScenarioPTResult(
-            best_enc=best_v.to(torch.int32).cpu().numpy(),
-            best_cost=best_c.cpu().numpy(),
-            history=np.concatenate(st["hist"], axis=1),
-            evaluations=S * n * (1 + sweeps),
-            final_enc=v_fin.to(torch.int32).cpu().numpy(),
-            final_costs=costs_fin.cpu().numpy(),
-            samples=samples)
+        with trace.span("pf.result"):
+            v_fin, costs_fin, best_v, best_c = (whole(x) for x in carry[:4])
+            return ScenarioPTResult(
+                best_enc=trace.fetch(best_v.to(torch.int32),
+                                     "result").numpy(),
+                best_cost=trace.fetch(best_c, "result").numpy(),
+                history=np.concatenate(st["hist"], axis=1),
+                evaluations=S * n * (1 + sweeps),
+                final_enc=trace.fetch(v_fin.to(torch.int32),
+                                      "result").numpy(),
+                final_costs=trace.fetch(costs_fin, "result").numpy(),
+                samples=samples)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from repro_torch.core.techdb import DEFAULT_DB, TechDB
 from repro_torch.core.templates import TEMPLATES, Template
 from repro_torch.core.workload import GEMMWorkload
 from repro_torch.pathfinding.space import DesignSpace
+from repro_torch.runtime import trace
 
 N_AXES = len(OBJECTIVE_AXES)
 
@@ -250,6 +251,7 @@ class ParetoArchive:
 
     # -- mutation -----------------------------------------------------------
 
+    @trace.spanned("pf.archive.insert")
     def insert(self, encoded: np.ndarray, vectors: np.ndarray) -> int:
         """Insert a batch; returns the archive size afterwards."""
         enc = np.atleast_2d(np.asarray(encoded, dtype=np.int32))

@@ -49,6 +49,7 @@ from repro_torch.pathfinding.strategies import (
     SearchStrategy,
     SimulatedAnnealing,
 )
+from repro_torch.runtime import trace
 
 OBJECTIVES = {
     "carbonpath": evaluate,
@@ -156,6 +157,7 @@ class Pathfinder:
 
     # -- search -------------------------------------------------------------
 
+    @trace.spanned("pf.search")
     def search(self, strategy: Optional[SearchStrategy] = None,
                budget: Optional[int] = None,
                key: Optional[int] = None) -> SearchResult:

@@ -57,6 +57,7 @@ from repro_torch.core.templates import (
 from repro_torch.core.workload import ALL_MAPPINGS, GEMMWorkload
 from repro_torch.pathfinding.batch import MetricsBatch, evaluate_batch
 from repro_torch.pathfinding.space import DesignSpace
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass
@@ -379,21 +380,22 @@ class ParallelTempering:
         ratio = (self.t_min / self.t_max) ** (1.0 / max(1, n - 1))
         temps = [self.t_max * ratio ** i for i in range(n)]
 
-        chains = [random_system(rng, db, space.max_chiplets)
-                  for _ in range(n)]
-        if space.noc_live:
-            from repro_torch.core.sa import seed_noc
+        with trace.span("pf.seed"):
+            chains = [random_system(rng, db, space.max_chiplets)
+                      for _ in range(n)]
+            if space.noc_live:
+                from repro_torch.core.sa import seed_noc
 
-            chains = [seed_noc(s) for s in chains]
-        if space.sched_live:
-            from repro_torch.core.sa import seed_schedule
+                chains = [seed_noc(s) for s in chains]
+            if space.sched_live:
+                from repro_torch.core.sa import seed_schedule
 
-            chains = [seed_schedule(s) for s in chains]
+                chains = [seed_schedule(s) for s in chains]
+            enc0 = space.encode_many(chains)
         if objective.device:
             return self._search_device(space, objective, budget, key,
-                                       chains, temps)
+                                       enc0, temps)
         feed = FrontierFeed(self.frontier_size)
-        enc0 = space.encode_many(chains)
         mb = objective.evaluate_encoded(enc0, space)
         costs = objective.cost_batch(mb).tolist()
         feed.add(enc0, objective.cost_vector_batch(mb))
@@ -432,7 +434,7 @@ class ParallelTempering:
 
     def _search_device(self, space: DesignSpace, objective: Objective,
                        budget: Optional[int], key: int,
-                       chains, temps) -> SearchResult:
+                       enc0: np.ndarray, temps) -> SearchResult:
         """The device-engine path. Proposals come from the device move
         generator (same hierarchical distribution, threefry stream), so
         trajectories are deterministic per key and equal the reference's
@@ -441,7 +443,7 @@ class ParallelTempering:
         already-searched row (outside the budget accounting)."""
         from repro_torch.pathfinding.pareto import ParetoArchive
 
-        n = len(chains)
+        n = len(enc0)
         dev = objective._device_evaluator(space)
         sweeps = self.sweeps
         if budget is not None:
@@ -449,17 +451,19 @@ class ParallelTempering:
         archive = (ParetoArchive(max_size=self.frontier_size)
                    if self.frontier_size > 0 else None)
         res = dev.parallel_tempering(
-            space.encode_many(chains), np.asarray(temps), sweeps,
+            enc0, np.asarray(temps), sweeps,
             self.swap_every, seed=key,
             norm=objective.norm, template=objective.template,
             collect_samples=self.frontier_size > 0,
             segment=self.segment, archive=archive,
             checkpoint=_checkpointer(self.checkpoint_dir),
             resume=self.resume)
-        best = space.decode(res.best_enc)
-        return SearchResult(best, objective.evaluate(best),
-                            res.best_cost, res.history, res.evaluations,
-                            objective.cache, frontier=archive)
+        with trace.span("pf.best"):
+            best = space.decode(res.best_enc)
+            best_m = objective.evaluate(best)
+        return SearchResult(best, best_m, res.best_cost, res.history,
+                            res.evaluations, objective.cache,
+                            frontier=archive)
 
 
 def _replica_exchange(temps: Sequence[float], chains: list, costs: list,

@@ -37,6 +37,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.runtime import trace
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -89,8 +91,9 @@ def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
     """Key words of ``jax.random.PRNGKey(seed)`` (64-bit seed split into
     its high and low words)."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return torch.tensor([s >> 32, s & _M32], dtype=torch.int64,
-                        device=device)
+    with trace.synced("upload"):
+        return torch.tensor([s >> 32, s & _M32], dtype=torch.int64,
+                            device=device)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -178,11 +181,12 @@ def uniform_cells(keys: torch.Tensor, rows: int, n: int) -> torch.Tensor:
 def key_to_np(key: torch.Tensor) -> np.ndarray:
     """The key words on the host as ``uint32`` (``[2]`` or ``[S, 2]``),
     the dtype the reference checkpoints its RNG stream position in."""
-    return key.cpu().numpy().astype(np.uint32)
+    return trace.fetch(key, "key").numpy().astype(np.uint32)
 
 
 def key_from_np(words, device: DeviceLike = "cpu") -> torch.Tensor:
     """Key words saved by :func:`key_to_np` (or by the reference) back as
     this module's int64 key tensor on ``device``."""
-    return torch.as_tensor(np.asarray(words, dtype=np.uint32)
-                           .astype(np.int64), device=device)
+    with trace.synced("upload"):
+        return torch.as_tensor(np.asarray(words, dtype=np.uint32)
+                               .astype(np.int64), device=device)
