@@ -11,7 +11,7 @@ one JSON line that carries the card's name and power limit:
 1. ``build``    — compile every CUDA kernel of the port's paths from the
    sources in the checkout (``nvcc``, sm_90a, one process per source,
    all started together): ``prefix_select.cu``, ``prefix_segment.cu``,
-   ``wkv6.cu``, ``rglru.cu`` and ``systolic_gemm.cu``.
+   ``topology.cu``, ``wkv6.cu``, ``rglru.cu`` and ``systolic_gemm.cu``.
    Then ``launch_floor`` — ``graph_ms`` of an in-place add on a
    one-element tensor: the least time one kernel launch takes in the
    harness that times every kernel. Each kernel phase's record carries
@@ -23,9 +23,16 @@ one JSON line that carries the card's name and power limit:
    plus edge rows; kernel and plain times by CUDA events (per call, in a CUDA
    graph and eager), the bound, the launch geometry and the ``ptxas``
    registers and spills.
+   Then ``topology_kernel`` — the fused evaluator's ``topology`` kernel
+   on the card against its plain torch version on the card, bitwise, at
+   P = 512 and 16 in the workload-1 and mesh-NoC/window spaces: the
+   launch in a CUDA graph and eager, the whole call, the plain version
+   eager, the bound and the ``ptxas`` registers and spills.
 3. ``evaluate`` — ``DeviceEvaluator(workload(1))`` on 4096 systems on
    cuda against the same calls on the CPU: tile assignment and reduction
-   destinations equal, float outputs within 1e-6 relative.
+   destinations equal, float outputs within 1e-6 relative; every
+   ``_topology`` output of the kernel equal to the plain version's on the
+   card, bitwise; one ``topology`` launch an evaluation.
 4. ``golden``   — replays ``tests/goldens/device_pt_wl1_t1.json`` on the
    card (rtol 1e-6).
 5. ``search``   — the main path: ``Pathfinder(workload(1), "T1")
@@ -640,6 +647,86 @@ def phase_kernel(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# topology phase: the topology kernel against its plain version
+# ---------------------------------------------------------------------------
+
+TOPOLOGY_SPACES = {"wl1": (1, "legacy", "fixed"),
+                   "wl6": (6, "mesh_noc", "window")}
+
+
+def topology_bound(v, areas, tb, out) -> dict:
+    """Least time for one ``topology`` launch: the six columns of each
+    row it reads, its areas and the four tables read once and every
+    output written once, over HBM bandwidth. Its operations (a few
+    thousand float64 and integer steps a row) would take far less."""
+    from repro_torch.kernels.topology.ops import LAYOUT
+
+    nbytes = (v.shape[0] * (len(LAYOUT) - 4) * 8
+              + areas.numel() * areas.element_size()
+              + sum(tb[k].numel() * tb[k].element_size()
+                    for k in ("m_bw", "p25", "p25_interp", "p3"))
+              + sum(t.numel() * t.element_size() for t in out.values()))
+    return dict(bound_ms=nbytes / H100.hbm_bytes_per_s * 1e3,
+                bound_by="bytes", bytes=nbytes)
+
+
+def phase_topology(card: str) -> dict:
+    """The kernel at the search's population (P = 512) and a service
+    tick's (P = 16) in both benchmark spaces, bitwise against the plain
+    version on the card: the launch alone in a CUDA graph (``ms``) and
+    eager, the whole public call with its bonding tail (``call_ms``),
+    and the plain version eager (``plain_eager_ms``; its uploads of the
+    pair lists cannot be captured in a graph)."""
+    from repro_torch.core import workload
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.topology import ops as tops
+    from repro_torch.kernels.topology import topology_plain
+    from repro_torch.pathfinding import DesignSpace, DeviceEvaluator
+    from repro_torch.pathfinding.device import _slots
+
+    lib = tops.build()
+    regs = _ptxas_regs(_build.ptxas_report(tops.SOURCE))
+    main = None
+    for name, (wl, comm, sched) in TOPOLOGY_SPACES.items():
+        ev = DeviceEvaluator(workload(wl), torch_device=DEV,
+                             space=DesignSpace(comm=comm, schedule=sched))
+        tb, cfg = ev.tables, ev.cfg
+        for P in (512, 16):
+            v = ev._enc(ev.space.sample(P, key=P + wl))
+            areas = _slots(v, tb, cfg)["areas"]
+            got = tops.topology(v, areas, tb, cfg)
+            want = topology_plain(v, areas, tb, cfg)
+            for k, x in got.items():
+                if not torch.equal(x, want[k]):
+                    raise AssertionError(f"topology ({name}, P={P}): output "
+                                         f"{k} != plain")
+            out = tops.empty_outputs(P, cfg.C, cfg.L, DEV)
+
+            def launch():
+                rc = tops.launch(lib, v, areas, tb, cfg, out)
+                if rc:
+                    raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+            def call():
+                return tops.topology(v, areas, tb, cfg)
+
+            def plain():
+                return topology_plain(v, areas, tb, cfg)
+
+            rec = dict(phase="topology_kernel", kernel="topology",
+                       space=name, P=P, C=cfg.C, equal=True, max_abs_err=0,
+                       ms=graph_ms(launch), eager_ms=cuda_ms(launch),
+                       call_ms=cuda_ms(call),
+                       plain_eager_ms=cuda_ms(plain, iters=10, warmup=2),
+                       **topology_bound(v, areas, tb, out),
+                       ptxas_regs=regs, card=card)
+            emit(with_floor(rec))
+            if name == "wl1" and P == 512:
+                main = rec
+    return main
+
+
+# ---------------------------------------------------------------------------
 # evaluate / golden / search phases
 # ---------------------------------------------------------------------------
 
@@ -661,6 +748,8 @@ def _allclose(name, got, ref, rtol=TOL):
 def phase_evaluate(card: str) -> dict:
     from repro_torch.core import TEMPLATES, workload
     from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.topology import ops as tops
+    from repro_torch.kernels.topology import topology_plain
     from repro_torch.pathfinding import (
         DeviceEvaluator,
         MetricsBatch,
@@ -676,12 +765,16 @@ def phase_evaluate(card: str) -> dict:
                                   torch_device="cpu")
     tmpl = TEMPLATES["T1"]
     kops.reset_launch_count()
+    tops.reset_launch_count()
     t = time.perf_counter()
     mb_g, cost_g, vec_g = gpu.evaluate_cost_vector(enc, norm, tmpl)
     gpu_s = time.perf_counter() - t
     launches = kops.launch_count()
     if launches < 1:
         raise AssertionError("evaluate on cuda did not launch prefix_select")
+    if tops.launch_count() != 1:
+        raise AssertionError(f"evaluate on cuda launched topology "
+                             f"{tops.launch_count()} times, not once")
     mb_c, cost_c, vec_c = cpu.evaluate_cost_vector(enc, norm, tmpl)
     met_g, met_c = gpu.metrics(enc), cpu.metrics(enc)
     worst = 0.0
@@ -697,13 +790,25 @@ def phase_evaluate(card: str) -> dict:
         topo = _topology(v, st["areas"], ev.tables, ev.cfg)
         ints[name] = [x.cpu().numpy() for x in
                       (st["start"], st["end"], topo["dest"], topo["hops"])]
+        if name == "gpu":
+            # every output of the kernel against the plain version on the
+            # same card, bitwise
+            plain = topology_plain(v, st["areas"], ev.tables, ev.cfg)
+            for k, x in topo.items():
+                y = plain[k]
+                if (x.dtype, x.shape, x.stride()) != (y.dtype, y.shape,
+                                                      y.stride()) or \
+                        not torch.equal(x, y):
+                    raise AssertionError(f"topology output {k}: kernel != "
+                                         "plain on the card")
     for a, b, what in zip(ints["gpu"], ints["cpu"],
                           ("start", "end", "dest", "hops")):
         if not np.array_equal(a, b):
             raise AssertionError(f"integer output {what} differs cuda/cpu")
     torch.cuda.synchronize()
     rec = dict(phase="evaluate", P=len(enc), max_rel_dev=worst,
-               ints_equal=True, kernel_launches=launches,
+               ints_equal=True, topology_equal=True,
+               kernel_launches=launches, topology_launches=1,
                gpu_eval_s=gpu_s, card=card)
     emit(rec)
     return rec
@@ -752,6 +857,7 @@ def phase_golden(card: str) -> dict:
 def phase_search(card: str) -> dict:
     from repro_torch.core import workload
     from repro_torch.kernels.prefix_gather import ops as kops
+    from repro_torch.kernels.topology import ops as tops
     from repro_torch.pathfinding import (
         DeviceEvaluator,
         ParallelTempering,
@@ -766,14 +872,19 @@ def phase_search(card: str) -> dict:
     fit_s = time.perf_counter() - t
     strat = ParallelTempering(n_chains=n_chains, sweeps=sweeps)
     kops.reset_launch_count()
+    tops.reset_launch_count()
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = pf.search(strat, key=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = {"prefix_select": kops.launch_count()}
+    launches = {"prefix_select": kops.launch_count(),
+                "topology": tops.launch_count()}
     if launches["prefix_select"] < 1:
         raise AssertionError("search did not launch prefix_select")
+    if launches["topology"] != sweeps + 1:     # one an evaluation
+        raise AssertionError(f"search launched topology "
+                             f"{launches['topology']} times")
     if not (math.isfinite(res.best_cost) and len(res.history) == sweeps + 1
             and res.evaluations == n_chains * (sweeps + 1)
             and len(res.frontier) > 0):
@@ -1835,11 +1946,12 @@ def _launch_counters() -> dict:
     from repro_torch.kernels.prefix_gather import ops as kops
     from repro_torch.kernels.rglru import ops as rops
     from repro_torch.kernels.systolic_gemm import ops as gops
+    from repro_torch.kernels.topology import ops as tops
     from repro_torch.kernels.wkv6 import ops as wops
 
     return {"prefix_select": kops.prefix_select,
             "prefix_segment": kops.prefix_segment_gather, "wkv6": wops.wkv6,
-            "rglru": rops.rglru,
+            "rglru": rops.rglru, "topology": tops.topology,
             **{fn.__name__: fn for fn in gops.KERNELS}}
 
 
@@ -1849,10 +1961,12 @@ def _kernel_sources() -> dict:
     from repro_torch.kernels.prefix_gather import ops as kops
     from repro_torch.kernels.rglru import ops as rops
     from repro_torch.kernels.systolic_gemm import ops as gops
+    from repro_torch.kernels.topology import ops as tops
     from repro_torch.kernels.wkv6 import ops as wops
 
     return {"prefix_select": (kops.SOURCE, kops.build),
             "prefix_segment": (kops.SEGMENT_SOURCE, kops.build_segment),
+            "topology": (tops.SOURCE, tops.build),
             "wkv6": (wops.SOURCE, wops.build),
             "rglru": (rops.SOURCE, rops.build),
             "systolic_gemm": (gops.SOURCE, gops.build)}
@@ -4100,7 +4214,8 @@ def main() -> int:
               card=card))
     phase_launch_floor(card)
     kmain = phase_kernel(card)
-    phase_evaluate(card)
+    tmain = phase_topology(card)
+    evaluate = phase_evaluate(card)
     phase_golden(card)
     search = phase_search(card)
     phase_profile(card)
@@ -4183,6 +4298,14 @@ def main() -> int:
         "max_abs_err": kmain["max_abs_err"], "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"], "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"], "library_ms": None}, {
+        "name": "topology", "route": "cuda",
+        "source": "src/repro_torch/kernels/topology/csrc/topology.cu",
+        "replaces": None,
+        "launches": (evaluate["topology_launches"]
+                     + search["launches"]["topology"]),
+        "max_abs_err": tmain["max_abs_err"], "ms": tmain["ms"],
+        "plain_ms": tmain["plain_eager_ms"], "bound_ms": tmain["bound_ms"],
+        "bound_by": tmain["bound_by"], "library_ms": None}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/kernel.py:28",

@@ -77,7 +77,8 @@ from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 # the hand-written kernels' modules whose ``launch_count()`` a recording
 # reads
-KERNEL_MODULES = ("prefix_gather", "rglru", "systolic_gemm", "wkv6")
+KERNEL_MODULES = ("prefix_gather", "rglru", "systolic_gemm", "topology",
+                  "wkv6")
 
 _rec: Optional["Recording"] = None       # the open recording, if any
 _counts: Dict[Tuple[str, str], int] = {}

@@ -231,7 +231,9 @@ def test_search_spans_and_counters(finder, monkeypatch):
             up = recs[r.parent]
             assert up.start_ns <= r.start_ns and r.end_ns <= up.end_ns
 
-    # one blocking read a check, before its device branch: as on the card
+    # one blocking read a check, before its device branch, as on the card;
+    # two uploads an evaluation by the plain topology, which only the CPU
+    # runs (test_card_search_launches_topology_without_uploads)
     width = finder.space.width
     rows = (SWEEPS + 1) * N_CHAINS
     assert sites["host_syncs"] == {
@@ -243,6 +245,22 @@ def test_search_spans_and_counters(finder, monkeypatch):
         "archive": rows * (width * 4 + 3 * 8),
         "result": (width * 4 + 8 + (SWEEPS + 1) * 8
                    + N_CHAINS * (width * 4 + 8))}
+
+
+@pytest.mark.cuda
+def test_card_search_launches_topology_without_uploads(monkeypatch):
+    """On the card the topology stage is one kernel launch an evaluation
+    and uploads nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    pf = Pathfinder(workload(1), "T1", torch_device="cuda")
+    pf.fit_normalizer(2000, 1234)
+    with trace.recording() as rec:
+        _search(pf, monkeypatch)
+    s = rec.summary()
+    assert "pairs" not in s["sites"]["host_syncs"]
+    assert s["launches"]["topology"] == s["spans"]["pf.evaluate"]["count"]
+    assert s["spans"]["pf.evaluate"]["count"] == SWEEPS + 1
 
 
 def test_search_is_bit_identical_traced(finder, monkeypatch):
